@@ -1,0 +1,138 @@
+"""Build, bind and launch the Hopper DP-segment kernel (csrc/dp_segment.cu).
+
+The kernel replaces ``mecat_tpu/ops/pallas_dp.py:_dp_kernel`` (counts-only
+form).  It is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C entry point at first CUDA use, rebuilt when the source
+changes, and called through ``ctypes`` on PyTorch's current stream.  Nothing
+here runs at import: CPU-only machines import this module freely.
+
+``LAUNCHES`` counts kernel launches, so a run can show that its DP went
+through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "dp_segment.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libmecat_dp.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+#: the C entry point's answer to a shape the kernel does not take
+#: (cudaErrorInvalidValue); the geometry checks live in the .cu file
+_INVALID_VALUE = 1
+
+#: number of kernel launches since process start (or the caller's reset)
+LAUNCHES = 0
+
+_lib = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the DP kernel cannot be built")
+    return path
+
+
+def build(verbose: bool = False) -> float:
+    """Compile the kernel library unless an up-to-date one exists.
+
+    The library carries a stamp with the source's SHA-256; a changed source
+    rebuilds.  Returns the seconds spent compiling (0.0 when up to date).
+    """
+    with open(SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()
+    stamp = LIB_PATH + ".sha256"
+    if os.path.exists(LIB_PATH) and os.path.exists(stamp):
+        with open(stamp) as fh:
+            if fh.read().strip() == digest:
+                return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, SOURCE]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose and proc.stderr:
+        print(proc.stderr, flush=True)
+    os.replace(tmp, LIB_PATH)
+    with open(stamp, "w") as fh:
+        fh.write(digest)
+    return time.time() - t0
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(LIB_PATH)
+        fn = lib.mecat_dp_segment_best
+        fn.argtypes = ([ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def dp_segment_best_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
+                         tmax: torch.Tensor, seg_q: torch.Tensor,
+                         active: torch.Tensor, S: int, W: int):
+    """Launch the kernel; returns (r_best, w_best, v_best) int32 [B].
+
+    q_seg uint8 [B, S]; tpad uint8 [B, S+W] framed window; tmax, seg_q int32
+    [B]; active bool [B].  Raises on anything the kernel does not take.
+    """
+    global LAUNCHES
+    if q_seg.device.type != "cuda":
+        raise ValueError(f"DP kernel needs CUDA tensors, got {q_seg.device}")
+    B = q_seg.shape[0]
+    dev = q_seg.device
+    _check("q_seg", q_seg, torch.uint8, (B, S), dev)
+    _check("tpad", tpad, torch.uint8, (B, S + W), dev)
+    _check("tmax", tmax, torch.int32, (B,), dev)
+    _check("seg_q", seg_q, torch.int32, (B,), dev)
+    _check("active", active, torch.bool, (B,), dev)
+    lib = _load()
+    r = torch.empty(B, dtype=torch.int32, device=dev)
+    w = torch.empty(B, dtype=torch.int32, device=dev)
+    v = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return r, w, v
+    with torch.cuda.device(dev):
+        rc = lib.mecat_dp_segment_best(
+            q_seg.data_ptr(), tpad.data_ptr(), tmax.data_ptr(),
+            seg_q.data_ptr(), active.data_ptr(), r.data_ptr(), w.data_ptr(),
+            v.data_ptr(), B, S, W, torch.cuda.current_stream().cuda_stream)
+    if rc == _INVALID_VALUE:
+        raise ValueError(f"the DP kernel does not take S={S}, W={W} "
+                         "(see mecat_tpu_torch/csrc/dp_segment.cu)")
+    if rc != 0:
+        raise RuntimeError(f"DP kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return r, w, v

@@ -1,0 +1,95 @@
+"""The Hopper DP kernel on the card, held against its plain PyTorch version.
+
+Every test needs a CUDA device with nvcc and skips elsewhere.  The GPU
+machine has no JAX and tests/conftest.py imports it, so run this file
+there without the conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+import os
+import tempfile
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mecat_tpu_torch.index.kmer_index import build_index
+from mecat_tpu_torch.io.packed_db import PackedDB
+from mecat_tpu_torch.ops import align, dp_kernel
+from mecat_tpu_torch.pipeline.device_step import overlap_step
+from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
+from mecat_tpu_torch.testing import GOLDEN_J1, dp_inputs
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("the DP kernel runs only on a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("S,W", [(128, 64), (512, 128), (1024, 64)])
+def test_dp_kernel_matches_plain(cuda, S, W):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in dp_inputs(S, W, 1024, seed=11)]
+    before = dp_kernel.LAUNCHES
+    got = align.dp_segment_best(*args, S, W)
+    want = align.dp_segment_best_plain(*args, S, W)
+    torch.cuda.synchronize()
+    assert dp_kernel.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_dp_kernel_rejects_what_it_does_not_take(cuda):
+    S, W = 128, 64
+    q, tpad, tmax, seg_q, active = (torch.as_tensor(a, device=cuda)
+                                    for a in dp_inputs(S, W, 64, seed=2))
+    with pytest.raises(TypeError):
+        dp_kernel.dp_segment_best_cuda(q.int(), tpad, tmax, seg_q, active,
+                                       S, W)
+    with pytest.raises(ValueError):
+        dp_kernel.dp_segment_best_cuda(q, tpad, tmax, seg_q, active, S, 96)
+    S_big = 8192             # 4 lanes of q and t overflow 48 KB of smem
+    with pytest.raises(ValueError):
+        dp_kernel.dp_segment_best_cuda(
+            q.new_zeros(64, S_big), tpad.new_zeros(64, S_big + W), tmax,
+            seg_q, active, S_big, W)
+    with pytest.raises(ValueError):
+        dp_kernel.dp_segment_best_cuda(q, tpad.T.contiguous().T, tmax, seg_q,
+                                       active, S, W)
+
+
+def test_overlap_step_kernel_matches_plain(cuda):
+    db = PackedDB.from_fasta(os.path.join(GOLDEN, "reads.fasta"))
+    cfg = dict(k=9, stride=4, max_occ=32, num_candidates=12, diag_bin=256,
+               L_target=4096, S=128, W=64, max_segs=40, min_align_size=400)
+    idx = build_index(db.codes, db.starts, db.lengths, k=9, device=cuda)
+    bases, lens = db.padded_batch(range(16), pad_to=4096)
+    args = (torch.as_tensor(bases, device=cuda),
+            torch.as_tensor(lens, device=cuda),
+            torch.arange(16, dtype=torch.int32, device=cuda),
+            torch.as_tensor(db.codes, device=cuda), idx.offsets, idx.pos_rid,
+            idx.pos_loc, idx.read_starts, idx.read_lengths,
+            idx.max_occ_cutoff)
+    got = overlap_step(*args, **cfg)
+    want = overlap_step(*args, **cfg, dp=align.dp_segment_best_plain)
+    assert bool(got.valid.any())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_run_pw_golden_bytes_on_cuda(cuda):
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "out.m4")
+        before = dp_kernel.LAUNCHES
+        run_pw(os.path.join(GOLDEN, "reads.fasta"), out, os.path.join(d, "w"),
+               PwOptions(**GOLDEN_J1), device=cuda)
+        assert dp_kernel.LAUNCHES > before
+        with open(out, "rb") as fh, \
+                open(os.path.join(GOLDEN, "overlaps.m4"), "rb") as gh:
+            assert fh.read() == gh.read()

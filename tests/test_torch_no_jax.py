@@ -1,0 +1,71 @@
+"""The port runs where JAX is missing, as on the machine with the GPU.
+
+A subprocess blocks ``jax`` and ``jaxlib`` on ``sys.meta_path``, imports
+every module of ``mecat_tpu_torch`` and ``chip_smoke``, and runs
+``run_pw(device="cpu")`` on the golden reads, which must reproduce
+``tests/golden/overlaps.m4``.  Neither JAX nor the JAX package
+(``mecat_tpu``, whose init configures JAX) may be loaded at the end, and
+``chip_smoke.main()`` must refuse to run without a CUDA device.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r'''
+import importlib, os, pkgutil, sys, tempfile
+
+
+class BlockJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ModuleNotFoundError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, BlockJax())
+sys.path.insert(0, ROOT)
+import mecat_tpu_torch
+
+mods = [m.name for m in pkgutil.walk_packages(mecat_tpu_torch.__path__,
+                                              "mecat_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
+
+golden = os.path.join(ROOT, "tests", "golden")
+with tempfile.TemporaryDirectory() as d:
+    out = os.path.join(d, "out.m4")
+    run_pw(os.path.join(golden, "reads.fasta"), out, os.path.join(d, "w"),
+           PwOptions(task=1, kmer_size=9, scan_stride=4, min_align_size=400,
+                     num_candidates=12, scan_batch=8, extend_batch=32,
+                     align_segment=128, align_band=64, min_block_score=2),
+           device="cpu")
+    with open(out, "rb") as fh, \
+            open(os.path.join(golden, "overlaps.m4"), "rb") as gh:
+        assert fh.read() == gh.read(), "golden bytes differ"
+import chip_smoke
+
+assert chip_smoke.main([]) != 0, "chip_smoke ran without a CUDA device"
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mecat_tpu"))
+assert not loaded, loaded
+print("NO_JAX_OK", len(mods))
+'''
+
+
+def test_port_imports_and_runs_without_jax(tmp_path):
+    env = dict(os.environ, MECAT_TPU_METRICS="0", CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _SCRIPT],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n_mods = int(proc.stdout.split("NO_JAX_OK")[1])
+    assert n_mods >= 18
+    assert '"ok"' not in proc.stdout           # no result line from the smoke
