@@ -6,17 +6,22 @@
 Phases, each reported on its own line; any failure ends the run with a
 non-zero exit and no result line:
 
-1. card: ``nvidia-smi`` name and power limit; build the Hopper DP kernel
+1. card: ``nvidia-smi`` name and power limit; build the Hopper DP kernels
    from ``mecat_tpu_torch/csrc/dp_segment.cu`` and time the build;
-2. kernel against its plain PyTorch version on the card at (S, W) =
-   (128, 64) and (512, 128), 4096 lanes: r, w, v equal on every lane
-   (including lanes with no valid cell and inactive lanes), median times;
+2. each kernel against its plain PyTorch version on the card at (S, W) =
+   (128, 64) and (512, 128), 4096 lanes (lanes with no valid cell and
+   inactive lanes included), median times and the card's bound for the same
+   work.  Counts-only kernel: r, w, j, d, ind equal on every lane.
+   Move-writing kernel: the same, the packed move words equal on every row
+   up to the lane's best row, and the row tracebacks of the two move
+   matrices equal on every lane;
 3. golden bytes: ``run_pw(device="cuda")`` on ``tests/golden/reads.fasta``
    reproduces ``tests/golden/overlaps.m4`` (-j 1) and ``candidates.txt``
-   (-j 0) byte for byte;
+   (-j 0), and ``run_cns(device="cuda")`` on the candidates reproduces
+   ``tests/golden/corrected.fasta``, byte for byte;
 4. the bench workload (500 kb genome, 15x, mean 5 kb, 12 % error, seeds
    91/92; k 13, stride 10, N 16, S 512, W 128, 30 segments, B 128, L 8192)
-   through ``overlap_step``: a warm-up batch, then ``--passes`` (default 7)
+   through ``overlap_step``: a warm-up batch, then ``--passes`` (default 3)
    steady passes over every batch; per-pass seconds (quartiles), overlaps/s
    of the median pass, issued and useful DP Gcells/s, peak device memory;
    batch 0 equals the plain-version ``overlap_step``.  ``--profile`` adds
@@ -24,13 +29,27 @@ non-zero exit and no result line:
 5. the CLI ``python -m mecat_tpu_torch.cli.mecat2pw -j 1`` on the bench
    reads as a subprocess: exit 0, record count, wall seconds, and its own
    metrics summary (phase split, useful DP Gcells/s, DP kernel launches,
-   which must be > 0).
+   which must be > 0);
+6. correction at full width: supports from the first 4 bench batches'
+   ``overlap_step`` output (forward strand, self hits dropped), the up to
+   128 templates with >= 5 supports, pacbio preset with ``min_length`` 2000
+   (S 512, W 128, 128 pairs a chunk) through ``correct_batch_device``: a
+   warm pass, then a timed pass; supports/s, corrected reads and bases,
+   table slices, DP launches, issued and useful DP Gcells, peak device
+   memory; the 8 most-supported templates once more with the plain DP give
+   the same corrected reads.  ``--profile`` adds a pass with synchronising timers
+   around the chunk's stages and a ``torch.profiler`` pass over the first
+   16 templates;
+7. the CLIs ``mecat2pw -j 0`` then ``mecat2cns -i 0 -l 2000`` on the bench
+   reads as subprocesses: wall seconds, the cns summary line, corrected
+   reads > 0 and move-kernel launches > 0.
 
-The DP kernel's launch counter is zeroed just before phase 4's steady
-passes and read just after them, so the reported launches are those of the
-main path only.  The line before the last is a JSON object with the
-kernel's numbers; the last line is ``{"ok": true, "device": {...}}``.
-Exits non-zero without a CUDA device or without the repository beside it.
+Each kernel's launch counter is zeroed just before the timed run of its
+path (phase 4's steady passes, phase 6's timed pass) and read just after,
+so the reported launches are those of the main path only.  The line before
+the last is a JSON object with the kernels' numbers; the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
+without the repository beside it.
 """
 from __future__ import annotations
 
@@ -47,7 +66,17 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "mecat_tpu_torch/csrc/dp_segment.cu"
-KERNEL_REPLACES = "mecat_tpu/ops/pallas_dp.py:56"
+KERNEL_REPLACES = "mecat_tpu/ops/pallas_dp.py:56"          # _dp_kernel
+KERNEL_REPLACES_MOVES = "mecat_tpu/ops/pallas_dp.py:115"   # its move stream
+
+# The card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet):
+# 3.35 TB/s of HBM, and for int32 a quarter of the 67 TFLOP/s float32
+# figure: an FMA counts as two FLOPs, and an SM has half as many INT32
+# lanes as FP32 lanes.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+#: int32 operations per DP cell, as the kernel source's header counts them
+OPS_PER_CELL = {False: 15, True: 21}
 
 # bench workload (bench.py:57-65)
 GENOME, COVERAGE, MEAN_LEN, B, L = 500_000, 15, 5000, 128, 8192
@@ -83,32 +112,90 @@ def cuda_median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def dp_bound(tmax, seg_q, active, S: int, W: int, with_moves: bool) -> dict:
+    """The least time the card could take for one DP launch on these lanes.
+
+    Bytes: q, the framed target window, tmax, seg_q and active read once,
+    the three results written once, and with moves the words of the rows
+    the data needs.  Operations: the cells of those rows at the source's
+    operation count.  A lane needs rows 1..min(seg_q, S), cut where the
+    band has left the target (row > tmax + W/2, one row to find that out);
+    an inactive lane needs none.
+    """
+    import torch
+
+    lanes = int(tmax.shape[0])
+    rows = torch.minimum(seg_q.clamp(0, S), (tmax + W // 2 + 1).clamp(min=1))
+    rows = int(torch.where(active, rows, 0).sum())
+    n_bytes = lanes * (S + S + W + 4 + 4 + 1 + 12)
+    if with_moves:
+        n_bytes += rows * (W // 16) * 4
+    ops = rows * W * OPS_PER_CELL[with_moves]
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
 def phase_kernel(S: int, W: int) -> dict:
+    """Both kernels against the plain version at one shape; returns
+    {with_moves: numbers}."""
     import torch
 
     from mecat_tpu_torch.ops.align import (dp_segment_best,
-                                           dp_segment_best_plain)
+                                           dp_segment_best_plain,
+                                           traceback_rows)
     from mecat_tpu_torch.testing import dp_inputs
 
     dev = torch.device("cuda")
     args = [torch.as_tensor(a, device=dev)
             for a in dp_inputs(S, W, DP_LANES, seed=121 + S + W)]
-    got = dp_segment_best(*args, S, W)
-    want = dp_segment_best_plain(*args, S, W)
-    torch.cuda.synchronize()
-    err = 0
-    for name, g, w in zip(("r", "w", "j", "d", "ind"), got, want):
-        diff = (g.long() - w.long()).abs()
-        err = max(err, int(diff.max()))
-        if not torch.equal(g, w):
-            bad = int((g != w).sum())
-            raise AssertionError(f"kernel != plain at S={S} W={W}: {name} "
-                                 f"differs on {bad} lanes")
-    ms = cuda_median_ms(lambda: dp_segment_best(*args, S, W), 21)
-    plain_ms = cuda_median_ms(lambda: dp_segment_best_plain(*args, S, W), 3)
-    say(f"phase 2: kernel == plain at S={S} W={W} lanes={DP_LANES}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    _, _, tmax, seg_q, active = args
+    out = {}
+    for with_moves in (False, True):
+        got = dp_segment_best(*args, S, W, want_moves=with_moves)
+        want = dp_segment_best_plain(*args, S, W, want_moves=with_moves)
+        torch.cuda.synchronize()
+        err = 0
+        what = "moves kernel" if with_moves else "kernel"
+        names = ("r", "w", "j", "d", "ind")
+        for name, g, w in zip(names, got[-5:], want[-5:]):
+            err = max(err, int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"{what} != plain at S={S} W={W}: {name} differs on "
+                    f"{int((g != w).sum())} lanes")
+        if with_moves:
+            moves, r_best, w_best = got[0], got[1], got[2]
+            row = torch.arange(1, S + 1, device=dev)[None, :, None]
+            readable = (row <= r_best[:, None, None]) & active[:, None, None]
+            diff = torch.where(readable, moves.long() - want[0].long(), 0)
+            err = max(err, int(diff.abs().max()))
+            if err:
+                raise AssertionError(
+                    f"moves kernel != plain at S={S} W={W}: "
+                    f"{int((diff != 0).sum())} move words differ")
+            for name, g, w in zip(
+                    ("mv", "h", "w_out", "w0"),
+                    traceback_rows(moves, r_best, w_best, W),
+                    traceback_rows(want[0], r_best, w_best, W)):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"row traceback of the kernel's moves != the plain "
+                        f"version's at S={S} W={W}: {name}")
+            del moves, diff, readable
+        del got, want
+        ms = cuda_median_ms(
+            lambda: dp_segment_best(*args, S, W, want_moves=with_moves), 21)
+        plain_ms = cuda_median_ms(
+            lambda: dp_segment_best_plain(*args, S, W,
+                                          want_moves=with_moves), 3)
+        bound = dp_bound(tmax, seg_q, active, S, W, with_moves)
+        say(f"phase 2: {what} == plain at S={S} W={W} lanes={DP_LANES}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median), bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+        out[with_moves] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               **bound)
+    return out
 
 
 def phase_golden(work: str) -> None:
@@ -129,6 +216,20 @@ def phase_golden(work: str) -> None:
                 raise AssertionError(f"golden {want} differs on the card")
         say(f"phase 3: golden {name} byte-equal on the card "
             f"({time.time() - t0:.2f} s)")
+
+    from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
+    from mecat_tpu_torch.testing import GOLDEN_CNS
+
+    out = os.path.join(work, "corrected.fasta")
+    t0 = time.time()
+    run_cns(os.path.join(golden, "candidates.txt"), reads, out,
+            CnsOptions(**GOLDEN_CNS), device="cuda")
+    with open(out, "rb") as fh, \
+            open(os.path.join(golden, "corrected.fasta"), "rb") as gh:
+        if fh.read() != gh.read():
+            raise AssertionError("golden corrected.fasta differs on the card")
+    say(f"phase 3: golden corrected.fasta (mecat2cns -i 0) byte-equal on the "
+        f"card ({time.time() - t0:.2f} s)")
 
 
 def bench_reads():
@@ -261,36 +362,234 @@ def phase_bench(db, passes: int, profile_path: str | None) -> dict:
         raise AssertionError("non-finite identity in overlap_step output")
     say("phase 4: batch 0 OverlapStepOut equal to the plain-version "
         "overlap_step on the card (every field)")
+    return dict(launches=launches,
+                supports=bench_supports(batches[:4], table, overlap_step))
+
+
+def bench_supports(batches, table, overlap_step) -> dict:
+    """Support lists for the correction phase from the overlap step's own
+    output: template -> [(support read, 0, support seed, template seed,
+    score)], forward strand, self hits dropped (bench.py's cns leg)."""
+    by_template: dict = {}
+    for a in batches:
+        o = overlap_step(*a, *table, **CFG)
+        qids = a[2].cpu().numpy()
+        valid = o.valid.cpu().numpy()
+        cols = [x.cpu().numpy() for x in (o.target, o.score, o.qseed,
+                                           o.tseed)]
+        b, n = np.nonzero(valid)
+        for qid, tgt, score, qs, ts in zip(qids[b],
+                                           *(c[b, n] for c in cols)):
+            if int(qid) != int(tgt):
+                by_template.setdefault(int(tgt), []).append(
+                    (int(qid), 0, int(qs), int(ts), int(score)))
+    return by_template
+
+
+class StageTimers:
+    """Synchronising wall-clock timers around the stages of the cns chunk,
+    put in place of the functions the pipeline calls (and taken out again).
+    They serialise host and card, so the pass they time is slower than an
+    untimed one; the split is what they are for."""
+
+    def __init__(self):
+        import torch
+
+        from mecat_tpu_torch.ops import align, consensus_banded
+        from mecat_tpu_torch.pipeline import cns
+
+        self.sync = torch.cuda.synchronize
+        self.seconds: dict = {}
+        self.calls: dict = {}
+        self.sites = [(align, "traceback_rows", "row walk"),
+                      (align, "_extend_direction_impl", "segment loop + DP"),
+                      (consensus_banded, "_deposit_scan", "deposit scan"),
+                      (consensus_banded, "banded_global_planes",
+                       "global planes (incl. deposit scan)"),
+                      (consensus_banded, "banded_presence", "presence"),
+                      (cns, "banded_accumulate_tags",
+                       "tags total (planes + presence + tally)"),
+                      (cns, "call_tables", "vote"),
+                      (cns, "plan_pairs", "host planning"),
+                      (cns, "_collect_slice_device", "pull + split")]
+        self.saved = []
+
+    def _wrap(self, fn, label):
+        def timed(*a, **kw):
+            self.sync()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            if label == "pull + split":
+                out = list(out)          # a generator: run it here
+            self.sync()
+            self.seconds[label] = (self.seconds.get(label, 0.0)
+                                   + time.time() - t0)
+            self.calls[label] = self.calls.get(label, 0) + 1
+            return out
+        return timed
+
+    def __enter__(self):
+        for mod, name, label in self.sites:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._wrap(fn, label))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
+    import torch
+
+    from mecat_tpu_torch import constants as C
+    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops.align import dp_segment_best_plain
+    from mecat_tpu_torch.pipeline.cns import (CnsOptions, CnsStats,
+                                              correct_batch_device,
+                                              device_volume)
+
+    dev = torch.device("cuda")
+    ranked = sorted((t for t, s in by_template.items() if len(s) >= 5),
+                    key=lambda t: -len(by_template[t]))[:128]
+    templates = sorted(ranked)
+    if not templates:
+        raise AssertionError("no template with >= 5 supports")
+    opts = CnsOptions.for_tech(C.TECH_PACBIO, min_length=2000)
+    dev_vol = device_volume(db, dev)
+
+    def one_pass(ts, **kw):
+        stats = CnsStats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = list(correct_batch_device(db, ts, by_template, opts, stats,
+                                        device=dev, dev_vol=dev_vol, **kw))
+        torch.cuda.synchronize()
+        return out, stats, time.time() - t0
+
+    _, _, warm_s = one_pass(templates)
+    torch.cuda.reset_peak_memory_stats()
+    dp_kernel.LAUNCHES_MOVES = 0         # the main path's run starts here
+    out, stats, dt = one_pass(templates)
+    launches = dp_kernel.LAUNCHES_MOVES  # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches <= 0:
+        raise AssertionError("the cns pass launched no move-writing kernel")
+    if stats.corrected_reads <= 0 or stats.corrected_reads != len(out):
+        raise AssertionError(f"cns pass corrected {stats.corrected_reads} "
+                             f"reads, yielded {len(out)}")
+    if any(seg.dtype != np.uint8 or int(seg.max()) > 3 for _, seg in out):
+        raise AssertionError("a corrected read holds something else than "
+                             "base codes 0..3")
+    cells = opts.align_segment * opts.align_band
+    say(f"phase 6: cns at full width: {len(templates)} templates, "
+        f"{stats.supports_aligned} supports aligned in {dt:.4f} s (warm pass "
+        f"{warm_s:.4f} s): {stats.supports_aligned / dt:.1f} supports/s, "
+        f"{stats.corrected_reads} corrected reads, {stats.corrected_bases} "
+        f"bases, {stats.table_slices} table slices, {launches} DP launches, "
+        f"peak device memory {peak_gb:.3f} GB")
+    say(f"phase 6: DP lane-segments issued {stats.dp_lane_segs_issued}, "
+        f"useful {stats.dp_lane_segs_useful}: "
+        f"{stats.dp_lane_segs_issued * cells / 1e9:.3f} Gcells issued, "
+        f"{stats.dp_lane_segs_useful * cells / 1e9:.3f} useful, "
+        f"{stats.dp_lane_segs_useful * cells / dt / 1e9:.3f} useful Gcells/s")
+
+    if profile_path:
+        profile_cns(one_pass, templates, profile_path)
+
+    first = sorted(ranked[:8])           # the 8 deepest piles
+    names = {db.name(t) for t in first}
+    want = {n: seg.tobytes() for n, seg in out
+            if n.rsplit("_", 1)[0] in names}
+    plain, _, plain_s = one_pass(first, dp=dp_segment_best_plain)
+    if {n: seg.tobytes() for n, seg in plain} != want or not want:
+        raise AssertionError("corrected reads of the first 8 templates "
+                             "differ between the kernel and the plain DP")
+    say(f"phase 6: the 8 most-supported templates through the plain DP "
+        f"({plain_s:.2f} s): the same {len(want)} corrected reads")
     return dict(launches=launches)
 
 
-def phase_cli(db, work: str) -> None:
-    from mecat_tpu_torch.io.fasta import write_fasta
+def profile_cns(one_pass, templates, path: str) -> None:
+    """Where a cns pass spends its time: one pass under synchronising stage
+    timers, and one ``torch.profiler`` pass over the first 16 templates for
+    the card's busy share and its top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    reads = os.path.join(work, "bench_reads.fasta")
-    write_fasta(reads, [(db.name(i), db.read(i)) for i in range(db.n_reads)])
-    out = os.path.join(work, "bench.m4")
-    cmd = [sys.executable, "-m", "mecat_tpu_torch.cli.mecat2pw", "-j", "1",
-           "-d", reads, "-o", out, "-w", os.path.join(work, "wrk"),
-           "-n", "16", "-a", "1000"]
+    with StageTimers() as tm:
+        _, _, wall = one_pass(templates)
+    say(f"profile cns: one pass under synchronising stage timers: wall "
+        f"{wall:.3f} s")
+    for label, sec in sorted(tm.seconds.items(), key=lambda kv: -kv[1]):
+        say(f"profile cns:   {sec:9.3f} s {100 * sec / wall:5.1f} %  "
+            f"x{tm.calls[label]:<5d} {label}")
+
+    sub = templates[:16]
+    one_pass(sub)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, stats, wall = one_pass(sub)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    total_us = sum(dev_us(e) for e in kernels)
+    say(f"profile cns: {len(sub)} templates, {stats.supports_aligned} "
+        f"supports under torch.profiler: wall {wall:.3f} s, kernel time "
+        f"{total_us / 1e6:.3f} s in {sum(e.count for e in kernels)} kernels "
+        f"(card busy {100 * total_us / 1e6 / wall:.1f} % of the profiled "
+        f"wall)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        say(f"profile cns:   {dev_us(e) / 1e3:9.3f} ms "
+            f"{100 * dev_us(e) / max(total_us, 1):5.1f} %  x{e.count:<7d} "
+            f"{e.key[:70]}")
+    with open(path + ".cns", "w") as fh:
+        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+
+
+def run_cli(module: str, argv: list, component: str):
+    """Run one of the port's CLIs as a subprocess; returns (wall seconds,
+    its metrics summary record).  Raises unless it exits 0 with a summary."""
+    cmd = [sys.executable, "-m", f"mecat_tpu_torch.cli.{module}", *argv]
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                           timeout=900)
     wall = time.time() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"CLI exited {proc.returncode}:\n"
+        raise RuntimeError(f"CLI {module} exited {proc.returncode}:\n"
                            f"{proc.stderr[-4000:]}")
-    with open(out) as fh:
-        n_rec = sum(1 for line in fh if line.strip())
     summary = None
     for line in proc.stderr.splitlines():
         if line.startswith("{"):
             rec = json.loads(line)
-            if rec.get("component") == "pw" and rec.get("event") == "summary":
+            if (rec.get("component") == component
+                    and rec.get("event") == "summary"):
                 summary = rec
     if summary is None:
-        raise AssertionError("CLI printed no metrics summary")
-    say(f"phase 5: CLI mecat2pw -j 1 -n 16 -a 1000 on {db.n_reads} reads: "
+        raise AssertionError(f"CLI {module} printed no metrics summary")
+    return wall, summary
+
+
+def count_lines(path: str, prefix: str = "") -> int:
+    with open(path) as fh:
+        return sum(1 for line in fh if line.strip()
+                   and line.startswith(prefix))
+
+
+def phase_cli(reads: str, n_reads: int, work: str) -> None:
+    out = os.path.join(work, "bench.m4")
+    wall, summary = run_cli(
+        "mecat2pw", ["-j", "1", "-d", reads, "-o", out, "-w",
+                     os.path.join(work, "wrk"), "-n", "16", "-a", "1000"],
+        "pw")
+    n_rec = count_lines(out)
+    say(f"phase 5: CLI mecat2pw -j 1 -n 16 -a 1000 on {n_reads} reads: "
         f"exit 0, {n_rec} M4 records, wall {wall:.2f} s, of which outside "
         f"run_pw (process start, imports, CUDA set-up) "
         f"{wall - summary.get('seconds', 0.0):.2f} s")
@@ -306,12 +605,43 @@ def phase_cli(db, work: str) -> None:
         raise AssertionError("the CLI's DP did not go through the kernel")
 
 
+def phase_cli_cns(reads: str, n_reads: int, work: str) -> None:
+    cand = os.path.join(work, "bench_cand.txt")
+    pw_wall, pw = run_cli(
+        "mecat2pw", ["-j", "0", "-d", reads, "-o", cand, "-w",
+                     os.path.join(work, "wrk0"), "-n", "16"], "pw")
+    n_cand = count_lines(cand)
+    say(f"phase 7: CLI mecat2pw -j 0 -n 16 on {n_reads} reads: exit 0, "
+        f"{n_cand} candidate records, wall {pw_wall:.2f} s (run_pw "
+        f"{pw.get('seconds', 0.0):.2f} s)")
+    if n_cand <= 0:
+        raise AssertionError("mecat2pw -j 0 wrote no candidates")
+    out = os.path.join(work, "bench_corrected.fasta")
+    wall, summary = run_cli(
+        "mecat2cns", ["-i", "0", "-l", "2000", "--device", "cuda", cand,
+                      reads, out], "cns")
+    n_out = count_lines(out, ">")
+    say(f"phase 7: CLI mecat2cns -i 0 -l 2000 on those candidates: exit 0, "
+        f"{n_out} corrected reads, wall {wall:.2f} s, of which outside "
+        f"run_cns {wall - summary.get('seconds', 0.0):.2f} s")
+    say("phase 7: CLI summary " + json.dumps(
+        {k: v for k, v in summary.items()
+         if k not in ("component", "ts", "event")}))
+    if n_out <= 0 or summary.get("corrected_reads", 0) != n_out:
+        raise AssertionError("the cns CLI wrote no corrected reads, or not "
+                             "as many as its summary says")
+    if summary.get("dp_launches", 0) <= 0:
+        raise AssertionError("the cns CLI's DP did not go through the "
+                             "move-writing kernel")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--passes", type=int, default=7,
+    p.add_argument("--passes", type=int, default=3,
                    help="steady passes over the bench batches (phase 4)")
     p.add_argument("--profile", metavar="PATH",
-                   help="profile one more phase-4 pass; full table to PATH")
+                   help="profile one more phase-4 pass (full table to PATH) "
+                        "and the phase-6 cns pass (table to PATH.cns)")
     args = p.parse_args(argv)
 
     import torch
@@ -330,7 +660,7 @@ def main(argv=None) -> int:
     card = card_line()
     say(f"card: {card}")
     build_s = dp_kernel.build(verbose=True)
-    say(f"phase 1: DP kernel built in {build_s:.2f} s")
+    say(f"phase 1: DP kernels built in {build_s:.2f} s")
 
     stats = {(S, W): phase_kernel(S, W) for S, W in ((128, 64), (512, 128))}
 
@@ -341,16 +671,34 @@ def main(argv=None) -> int:
         say(f"bench reads simulated in {time.time() - t0:.2f} s")
         phase_golden(work)
         bench = phase_bench(db, args.passes, args.profile)
-        phase_cli(db, work)
+        from mecat_tpu_torch.io.fasta import write_fasta
+
+        reads = os.path.join(work, "bench_reads.fasta")
+        write_fasta(reads, [(db.name(i), db.read(i))
+                            for i in range(db.n_reads)])
+        phase_cli(reads, db.n_reads, work)
+        cns = phase_cns(db, bench["supports"], args.profile)
+        phase_cli_cns(reads, db.n_reads, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # both main paths run S 512, W 128: that shape's times and bound
     main_shape = stats[(CFG["S"], CFG["W"])]
-    say(json.dumps({"kernels": [{
-        "name": "dp_segment_best", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": bench["launches"],
-        "max_abs_err": max(s["max_abs_err"] for s in stats.values()),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"]}]}))
+    kernels = []
+    for name, with_moves, replaces, launches in (
+            ("dp_segment_best", False, KERNEL_REPLACES, bench["launches"]),
+            ("dp_segment_best_moves", True, KERNEL_REPLACES_MOVES,
+             cns["launches"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(s[with_moves]["max_abs_err"]
+                               for s in stats.values()),
+            **{k: main_shape[with_moves][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            # no single PyTorch call computes a banded min-plus DP segment
+            "library_ms": None})
+    say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

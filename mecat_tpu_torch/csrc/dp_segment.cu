@@ -1,9 +1,11 @@
 // Banded edit-distance DP segment + local-best endpoint, one warp per lane.
 //
-// Replaces the TPU kernel mecat_tpu/ops/pallas_dp.py:_dp_kernel in its
-// counts-only form (dp_segment_best_pallas(..., with_moves=False)).  It
-// computes exactly what mecat_tpu/ops/align.banded_dp_segment followed by
-// pick_end_local compute for one S-row segment of every active lane:
+// Replaces the TPU kernel mecat_tpu/ops/pallas_dp.py:_dp_kernel in both of
+// its forms: counts only (dp_segment_best_pallas(..., with_moves=False),
+// entry point mecat_dp_segment_best) and move-writing (with_moves=True,
+// entry point mecat_dp_segment_best_moves).  It computes exactly what
+// mecat_tpu/ops/align.banded_dp_segment followed by pick_end_local compute
+// for one S-row segment of every active lane:
 //
 //   * row i (1..S) covers target cells j in [i - W/2, i + W/2); cells outside
 //     [0, tmax] hold VINF = 2^30;
@@ -14,13 +16,25 @@
 //     0..seg_q, ties to the first cell in (row, band) order.  A lane with no
 //     valid cell returns (r=0, w=0, v=VINF), the argmax of an all-masked
 //     pick_end_local; an inactive lane returns (r=0, w=W/2, v=VINF), the
-//     Pallas skip record.
+//     Pallas skip record;
+//   * the move-writing form also stores the 2-bit move of every cell of
+//     every row it computes: 0 match / 1 mismatch (the value of sub),
+//     2 vertical, 3 horizontal, attributed from the same integers as the
+//     plain version, valid cell or not: cur == diag ? sub : (cur == vert ?
+//     2 : 3), with vert = VINF + 4097 for the last band cell.  16 codes per
+//     int32 along the band (cell w in bits 2*(w%16) of word w/16), laid out
+//     [B, S, W/16] so a lane's rows are contiguous for the row traceback.
+//     Rows the loop never reaches (past seg_q, or after an all-VINF row)
+//     are not written: the caller zero-fills the buffer, and no traceback
+//     reads a row above its r_best <= seg_q.  An inactive lane writes none.
 //
 // What bounds it on an H100: int32 ALU, about 15 operations per cell, with
 // about 1.2 KB read per lane-segment (S query bytes + S+W target bytes at
-// S=512, W=128) and 12 bytes written.  There is no tensor-core form of a
-// min-plus recurrence, so the design spends nothing on memory movement and
-// keeps the whole wavefront in registers:
+// S=512, W=128) and 12 bytes written.  The move-writing form adds about 6
+// operations per cell and S*W/4 bytes written per lane (16 KB at S=512,
+// W=128), still below the ALU time at the card's memory rate.  There is no
+// tensor-core form of a min-plus recurrence, so the design spends nothing
+// on memory movement and keeps the whole wavefront in registers:
 //
 //   * one warp per lane, W/32 adjacent band cells per thread, the previous
 //     row in registers;
@@ -36,7 +50,13 @@
 //     once per lane;
 //   * rows past seg_q cannot change the endpoint (row i reads only row i-1),
 //     and once a whole row is VINF every later row is too, so the row loop
-//     stops at either point.
+//     stops at either point;
+//   * a thread holds C = W/32 adjacent cells, so one 16-code move word spans
+//     16/C threads: each builds its partial word (as uint32_t: slot 15 sets
+//     the sign bit), the group ORs them with __shfl_xor_sync (2 steps at
+//     W=128, 3 at W=64) and its first thread stores the word.  A row is 16
+//     or 32 bytes per warp, written as it is made; staging rows in shared
+//     memory for wider stores is speed work.
 //
 // The result is exact; speed work (several lanes per warp at W=64, the
 // segment loop inside the kernel) is for later.
@@ -63,7 +83,8 @@ __device__ __forceinline__ bool better(int s, int f, int bs, int bf) {
   return s > bs || (s == bs && f < bf);
 }
 
-template <int C>  // band cells per thread; W = 32 * C
+// C: band cells per thread, W = 32 * C; kMoves: also write the move words
+template <int C, bool kMoves>
 __global__ void __launch_bounds__(32 * kWarps)
 dp_segment_kernel(const uint8_t* __restrict__ q,
                   const uint8_t* __restrict__ tpad,
@@ -71,7 +92,8 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
                   const int32_t* __restrict__ segq,
                   const uint8_t* __restrict__ active,
                   int32_t* __restrict__ r_out, int32_t* __restrict__ w_out,
-                  int32_t* __restrict__ v_out, int B, int S) {
+                  int32_t* __restrict__ v_out,
+                  int32_t* __restrict__ moves_out, int B, int S) {
   constexpr int W = 32 * C;
   constexpr int half = W / 2;
   extern __shared__ uint8_t smem[];
@@ -100,6 +122,9 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
   const int sq = segq[b];
   const int w0 = lane * C;
 
+  // this lane's move rows, [S, W/16]; advanced one row per DP row
+  int32_t* mrow = kMoves ? moves_out + (size_t)b * S * (W / 16) : nullptr;
+
   int prev[C], best_s[C], best_r[C], best_v[C];
   // row 0: val[0][j] = j leading deletions, VINF outside [0, tmax]
 #pragma unroll
@@ -118,7 +143,7 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
     const int qc = qs[i - 1];
     int nxt = __shfl_down_sync(kFull, prev[0], 1);
     if (lane == 31) nxt = kVinf;
-    int y[C];
+    int y[C], dg[C], vt[C], sub_of[C];
     bool valid[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -131,6 +156,9 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
       valid[c] = j >= 0 && j <= tm;
       const int cand = valid[c] ? min(diag, vert) : kVinf;
       y[c] = cand - w * kK1;
+      dg[c] = diag;
+      vt[c] = vert;
+      sub_of[c] = sub;
     }
     // horizontal closure: prefix min of y along the band
 #pragma unroll
@@ -144,12 +172,18 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
     int excl = __shfl_up_sync(kFull, tot, 1);
     if (lane == 0) excl = kIdent;
     bool any_live = false;
+    uint32_t word = 0;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int w = w0 + c;
       int cur = min(y[c], excl) + w * kK1;
       cur = valid[c] ? min(cur, kVinf) : kVinf;
       prev[c] = cur;
+      if (kMoves) {
+        const uint32_t mv = cur == dg[c] ? (uint32_t)sub_of[c]
+                                         : (cur == vt[c] ? 2u : 3u);
+        word |= mv << (2 * (w & 15));
+      }
       if (cur < kVinf) {
         any_live = true;
         const int score = i + (i - half + w) - kTwoPenalty * (cur >> 12);
@@ -159,6 +193,14 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
           best_v[c] = cur;
         }
       }
+    }
+    if (kMoves) {
+      // one word = 16 cells = 16 / C neighbouring threads
+#pragma unroll
+      for (int off = 1; off < 16 / C; off <<= 1)
+        word |= __shfl_xor_sync(kFull, word, off);
+      if ((lane & (16 / C - 1)) == 0) mrow[w0 >> 4] = (int32_t)word;
+      mrow += W / 16;
     }
     if (!__any_sync(kFull, any_live)) break;  // every later row is VINF too
   }
@@ -194,20 +236,39 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
 
 constexpr size_t kSmemLimit = 48 * 1024;  // without an opt-in attribute
 
-template <int C>
+template <int C, bool kMoves>
 cudaError_t launch(const void* q, const void* tpad, const void* tmax,
                    const void* segq, const void* active, void* r, void* w,
-                   void* v, int B, int S, cudaStream_t stream) {
+                   void* v, void* moves, int B, int S, cudaStream_t stream) {
   const int W = 32 * C;
   const size_t smem = (size_t)kWarps * (2 * S + W);
   if (S <= 0 || smem > kSmemLimit) return cudaErrorInvalidValue;
   const int grid = (B + kWarps - 1) / kWarps;
-  dp_segment_kernel<C><<<grid, 32 * kWarps, smem, stream>>>(
+  dp_segment_kernel<C, kMoves><<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(tpad),
       static_cast<const int32_t*>(tmax), static_cast<const int32_t*>(segq),
       static_cast<const uint8_t*>(active), static_cast<int32_t*>(r),
-      static_cast<int32_t*>(w), static_cast<int32_t*>(v), B, S);
+      static_cast<int32_t*>(w), static_cast<int32_t*>(v),
+      static_cast<int32_t*>(moves), B, S);
   return cudaGetLastError();
+}
+
+template <bool kMoves>
+int dispatch(const void* q, const void* tpad, const void* tmax,
+             const void* segq, const void* active, void* r, void* w, void* v,
+             void* moves, int B, int S, int W, void* stream) {
+  if (B <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (W) {
+    case 64:
+      return launch<2, kMoves>(q, tpad, tmax, segq, active, r, w, v, moves,
+                               B, S, st);
+    case 128:
+      return launch<4, kMoves>(q, tpad, tmax, segq, active, r, w, v, moves,
+                               B, S, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -223,14 +284,18 @@ extern "C" int mecat_dp_segment_best(const void* q, const void* tpad,
                                      const void* active, void* r, void* w,
                                      void* v, int B, int S, int W,
                                      void* stream) {
-  if (B <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 64:
-      return launch<2>(q, tpad, tmax, segq, active, r, w, v, B, S, st);
-    case 128:
-      return launch<4>(q, tpad, tmax, segq, active, r, w, v, B, S, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(q, tpad, tmax, segq, active, r, w, v, nullptr, B, S,
+                         W, stream);
+}
+
+// The same, and also the packed moves: int32 [B, S, W/16], which the caller
+// has zero-filled (rows the kernel does not reach keep the zeros).
+extern "C" int mecat_dp_segment_best_moves(const void* q, const void* tpad,
+                                           const void* tmax, const void* segq,
+                                           const void* active, void* r,
+                                           void* w, void* v, void* moves,
+                                           int B, int S, int W,
+                                           void* stream) {
+  return dispatch<true>(q, tpad, tmax, segq, active, r, w, v, moves, B, S, W,
+                        stream);
 }

@@ -94,12 +94,16 @@ def _iter_fastq_fh(fh) -> Iterator[FastaRecord]:
         yield FastaRecord(name, encode_bases(seq))
 
 
+def format_fasta(name: str, codes: np.ndarray, width: int = 80) -> bytes:
+    """One (name, codes) record as FASTA bytes with a fixed line width."""
+    seq = decode_bases(np.asarray(codes, dtype=np.uint8))
+    lines = [seq[i:i + width] + b"\n" for i in range(0, len(seq), width)]
+    return b">" + name.encode() + b"\n" + b"".join(lines)
+
+
 def write_fasta(path: str, records: Sequence[Tuple[str, np.ndarray]],
                 width: int = 80) -> None:
     """Write (name, codes) records as FASTA with a fixed line width."""
     with open(path, "wb") as fh:
         for name, codes in records:
-            fh.write(b">" + name.encode() + b"\n")
-            seq = decode_bases(np.asarray(codes, dtype=np.uint8))
-            for i in range(0, len(seq), width):
-                fh.write(seq[i:i + width] + b"\n")
+            fh.write(format_fasta(name, codes, width))

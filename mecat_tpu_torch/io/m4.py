@@ -1,19 +1,21 @@
-"""M4 overlap records and candidate columns as text.
+"""M4 overlap records and candidate records as text.
 
-Copy of the writers of ``mecat_tpu.io.m4`` without its native C++ fast
-path: the bytes are the same.  M4 line layout::
+Copy of the writers and parsers of ``mecat_tpu.io.m4`` without its native
+C++ fast path: the bytes and the parsed records are the same.  M4 line
+layout::
 
     qid sid identity score qstrand qstart qend qsize sstrand sstart send ssize
 
 with 1-based read ids, the query on its forward strand (qstrand 0), 0-based
 half-open coordinates on each read's forward strand and identity as %.2f.
 ``-g 1`` appends the seed columns qext, sext.  Candidate lines are
-``qid sid score qdir qext qsize sdir sext ssize``.
+``qid sid score qdir qext qsize sdir sext ssize``: qext is the seed position
+in the qdir-oriented query, sext the seed position on the forward subject.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import Iterator, List
 
 import numpy as np
 
@@ -46,6 +48,40 @@ class M4Record:
             base += f"\t{self.qext}\t{self.sext}"
         return base
 
+    @classmethod
+    def parse(cls, line: str) -> "M4Record":
+        f = line.split()
+        if len(f) < 12:
+            raise ValueError(f"bad M4 line: {line!r}")
+        return cls(qid=int(f[0]), sid=int(f[1]), identity=float(f[2]),
+                   score=int(float(f[3])), qstrand=int(f[4]), qstart=int(f[5]),
+                   qend=int(f[6]), qsize=int(f[7]), sstrand=int(f[8]),
+                   sstart=int(f[9]), send=int(f[10]), ssize=int(f[11]),
+                   qext=int(f[12]) if len(f) >= 14 else None,
+                   sext=int(f[13]) if len(f) >= 14 else None)
+
+
+@dataclass
+class CandidateRecord:
+    qid: int          # 1-based
+    sid: int          # 1-based
+    score: int
+    qdir: int         # orientation of the query for this candidate
+    qext: int         # seed position in the qdir-oriented query
+    qsize: int
+    sdir: int         # always 0
+    sext: int         # seed position on the forward subject
+    ssize: int
+
+    @classmethod
+    def parse(cls, line: str) -> "CandidateRecord":
+        f = line.split()
+        if len(f) < 9:
+            raise ValueError(f"bad candidate line: {line!r}")
+        return cls(qid=int(f[0]), sid=int(f[1]), score=int(float(f[2])),
+                   qdir=int(f[3]), qext=int(f[4]), qsize=int(f[5]),
+                   sdir=int(f[6]), sext=int(f[7]), ssize=int(f[8]))
+
 
 def format_block(records: List[M4Record]) -> str:
     """M4 text of ``records``, one line each."""
@@ -61,3 +97,21 @@ def format_candidate_columns(cols: dict) -> str:
                          for f in ("qid", "sid", "score", "qdir", "qext",
                                    "qsize", "sdir", "sext", "ssize")])
     return "".join("\t".join(map(str, row)) + "\n" for row in a.tolist())
+
+
+def _read(path: str, cls) -> Iterator:
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if line:
+                yield cls.parse(line)
+
+
+def read_m4(path: str) -> Iterator[M4Record]:
+    """The M4 records of a file, blank lines skipped."""
+    return _read(path, M4Record)
+
+
+def read_candidates(path: str) -> Iterator[CandidateRecord]:
+    """The candidate records of a file, blank lines skipped."""
+    return _read(path, CandidateRecord)

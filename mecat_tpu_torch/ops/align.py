@@ -1,10 +1,19 @@
-"""Segmented banded extension aligner, counts-only (port of mecat_tpu.ops.align).
+"""Segmented banded extension aligner (port of mecat_tpu.ops.align).
 
-The DP of one segment runs in the hand-written Hopper kernel
-(``csrc/dp_segment.cu`` through :mod:`.dp_kernel`) for CUDA tensors, and in
-its plain PyTorch version (:func:`banded_dp_segment` + :func:`pick_end_local`)
-for CPU tensors.  :func:`dp_segment_best` dispatches on the tensor's device
-only: a CUDA tensor launches the kernel or raises.
+Two forms: counts only (:func:`extend_pair_batch`, the overlap path) and
+with the packed move matrix of every segment traced back row by row
+(:func:`extend_pair_batch_rows`, the correction path).  The DP of one
+segment runs in the hand-written Hopper kernels (``csrc/dp_segment.cu``
+through :mod:`.dp_kernel`) for CUDA tensors, and in their plain PyTorch
+version (:func:`banded_dp_segment` + :func:`pick_end_local`) for CPU
+tensors.  :func:`dp_segment_best` dispatches on the tensor's device only: a
+CUDA tensor launches the kernel or raises.
+
+Moves are 2-bit codes, 16 per int32 word along the band, laid out
+``[lanes, S, W/16]`` (the JAX package keeps ``[S, W/16, lanes]``): the code
+of (row i, band cell w) is ``(moves[b, i-1, w//16] >> 2*(w%16)) & 3``.
+The column-tape tracebacks (``traceback_ops``, ``rows_to_tape``,
+``traceback_counts``, ``extend_pair_batch_with_ops``) are not ported.
 
 Everything else mirrors ``mecat_tpu/ops/align.py`` op for op, so results
 are bit-equal: packed DP values and coordinates are int32, identities are
@@ -27,15 +36,24 @@ IND_K = 4096
 VINF = 1 << 30
 _NEG = -(1 << 26)
 
+# move codes
+MOVE_MATCH = 0     # diagonal, q char == t char
+MOVE_MISMATCH = 1  # diagonal, substitution
+MOVE_VERT = 2      # query char vs gap (insertion in query)
+MOVE_HORIZ = 3     # target char vs gap (deletion from target)
+
 
 def banded_dp_segment(q_seg: torch.Tensor, tpad: torch.Tensor,
-                      tmax: torch.Tensor, W: int):
+                      tmax: torch.Tensor, W: int, want_moves: bool = False):
     """Banded edit-distance DP rows of one segment per lane.
 
     q_seg uint8 [B, S]; tpad uint8 [B, S + W], the target window framed
     with W/2 leading sentinels (tpad[:, x] = window[x - W/2]); tmax int32
-    [B].  Returns rows int32 [B, S+1, W] (row r = after r query chars):
-    packed dist * IND_K + indels, VINF outside the band.
+    [B].  Returns (rows, moves): rows int32 [B, S+1, W] (row r = after r
+    query chars), packed dist * IND_K + indels, VINF outside the band;
+    moves int32 [B, S, W/16] for rows 1..S (None unless ``want_moves``),
+    attributed with priority diagonal > vertical > horizontal from the same
+    integers on every cell, valid or not.
     """
     B, S = q_seg.shape
     half = W // 2
@@ -49,7 +67,12 @@ def banded_dp_segment(q_seg: torch.Tensor, tpad: torch.Tensor,
                       torch.tensor(VINF, dtype=torch.int32, device=dev))
     vinf_col = torch.full((B, 1), VINF, dtype=torch.int32, device=dev)
     wk = w_idx[None, :] * K1
+    # 2-bit packing weights; the sum runs in int64 and wraps to int32 below
+    # (slot 15 reaches the sign bit)
+    pack_w = (torch.ones(16, dtype=torch.int64, device=dev)
+              << (2 * torch.arange(16, dtype=torch.int64, device=dev)))
     rows = [row]
+    moves = []
     for i in range(1, S + 1):
         qc = q_seg[:, i - 1:i]
         td = tpad[:, i - 1:i - 1 + W]
@@ -63,7 +86,16 @@ def banded_dp_segment(q_seg: torch.Tensor, tpad: torch.Tensor,
         cur = torch.cummin(cand - wk, dim=1).values + wk
         row = torch.where(valid, cur.clamp(max=VINF), VINF)
         rows.append(row)
-    return torch.stack(rows, dim=1)
+        if want_moves:
+            move = torch.where(row == diag, sub,
+                               torch.where(row == vert, MOVE_VERT,
+                                           MOVE_HORIZ))
+            packed = (move.reshape(B, W // 16, 16).long() * pack_w).sum(2)
+            packed = torch.where(packed >= 1 << 31, packed - (1 << 32),
+                                 packed)
+            moves.append(packed.to(torch.int32))
+    return (torch.stack(rows, dim=1),
+            torch.stack(moves, dim=1) if want_moves else None)
 
 
 def pick_end_local(rows: torch.Tensor, seg_qlen: torch.Tensor,
@@ -111,35 +143,103 @@ def _unpack_best(r_best, w_best, v_best, W: int):
 
 def dp_segment_best_plain(q_seg: torch.Tensor, tpad: torch.Tensor,
                           tmax: torch.Tensor, seg_q: torch.Tensor,
-                          active: torch.Tensor, S: int, W: int):
-    """Plain PyTorch version of the DP kernel, on any device.
+                          active: torch.Tensor, S: int, W: int,
+                          want_moves: bool = False):
+    """Plain PyTorch version of both DP kernels, on any device.
 
-    Returns (r_best, w_best, j_best, d_best, ind_best) int32 [B].  An
-    inactive lane gets the kernel's skip record (r=0, w=W/2, v=VINF).
+    Returns (r_best, w_best, j_best, d_best, ind_best) int32 [B], preceded
+    by the packed moves int32 [B, S, W/16] with ``want_moves``.  An inactive
+    lane gets the kernels' skip record (r=0, w=W/2, v=VINF) and zero moves.
+    Unlike the kernel it fills the move rows past ``seg_q`` too; no
+    traceback reads them.
     """
-    rows = banded_dp_segment(q_seg, tpad, tmax, W)
+    rows, moves = banded_dp_segment(q_seg, tpad, tmax, W, want_moves)
     r, w, v = pick_end_local(rows, seg_q, tmax, W)
     r = torch.where(active, r, 0)
     w = torch.where(active, w, W // 2)
     v = torch.where(active, v, VINF)
-    return _unpack_best(r, w, v, W)
+    best = _unpack_best(r, w, v, W)
+    if not want_moves:
+        return best
+    return (torch.where(active[:, None, None], moves, 0), *best)
 
 
 def dp_segment_best(q_seg: torch.Tensor, tpad: torch.Tensor,
                     tmax: torch.Tensor, seg_q: torch.Tensor,
-                    active: torch.Tensor, S: int, W: int):
-    """One DP segment + local-best endpoint; the kernel for CUDA tensors.
+                    active: torch.Tensor, S: int, W: int,
+                    want_moves: bool = False):
+    """One DP segment + local-best endpoint; the kernels for CUDA tensors.
 
     tpad is the framed [B, S + W] window, active bool [B].  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (which raises on what
-    it does not take).  Returns (r_best, w_best, j_best, d_best, ind_best).
+    the plain version; CUDA tensors launch the counts-only kernel or, with
+    ``want_moves``, the move-writing one (which raise on what they do not
+    take).  Returns (r_best, w_best, j_best, d_best, ind_best), preceded by
+    the packed moves [B, S, W/16] with ``want_moves``.
     """
     if q_seg.device.type == "cpu":
-        return dp_segment_best_plain(q_seg, tpad, tmax, seg_q, active, S, W)
-    from .dp_kernel import dp_segment_best_cuda
+        return dp_segment_best_plain(q_seg, tpad, tmax, seg_q, active, S, W,
+                                     want_moves)
+    from .dp_kernel import dp_segment_best_cuda, dp_segment_best_moves_cuda
 
+    if want_moves:
+        moves, r, w, v = dp_segment_best_moves_cuda(q_seg, tpad, tmax, seg_q,
+                                                    active, S, W)
+        return (moves, *_unpack_best(r, w, v, W))
     r, w, v = dp_segment_best_cuda(q_seg, tpad, tmax, seg_q, active, S, W)
     return _unpack_best(r, w, v, W)
+
+
+def traceback_rows(moves: torch.Tensor, seg_qlen: torch.Tensor,
+                   w_end: torch.Tensor, W: int):
+    """Row-major traceback: walk DP rows (S steps) from (seg_qlen, w_end).
+
+    Within a DP row the backward path is a maximal run of HORIZ cells ending
+    at the first non-HORIZ cell at or left of the entry column, so one row
+    costs a few ops over [N, W] and no gather along the path.
+
+    moves packed int32 [N, S, W/16].  Returns (mv, h, w_out, w0):
+      mv int32 [N, S]: mv[b, r-1] = the diagonal/vertical move that left
+        row r (MOVE_MATCH/MISMATCH/VERT), or -1 if the walk never visited
+        row r (r > seg_qlen, or the path broke: only on endpoint-gated
+        segments, which callers mask out);
+      h int32 [N, S]: HORIZ columns emitted at row r before the exit move;
+      w_out int32 [N, S]: band column of the exit move (-1 if none);
+      w0 int32 [N]: band column at row 0 (leading target deletions =
+        max(w0 - W/2, 0)).
+
+    The reference carries the position as a one-hot row; here it is the
+    column itself.  A VERT out of the last column empties the one-hot, which
+    then reads as column 0 everywhere, so that case maps to 0.
+    """
+    N, S, _ = moves.shape
+    dev = moves.device
+    w_iota = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    shift16 = 2 * torch.arange(16, dtype=torch.int32, device=dev)
+    r_end = seg_qlen.to(torch.int32)
+    w = w_end.to(torch.int32)
+    alive = torch.ones(N, dtype=torch.bool, device=dev)
+    minus1 = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    mv_s, h_s, wo_s = [], [], []
+    for r in range(S, 0, -1):
+        # arithmetic >> then & 3 is sign-safe for the top 2-bit slot
+        mv = ((moves[:, r - 1, :, None] >> shift16) & 3).reshape(N, W)
+        act = alive & (r_end >= r)
+        cand = (mv != MOVE_HORIZ) & (w_iota <= w[:, None])
+        w_out = torch.where(cand, w_iota, -1).max(dim=1).values
+        found = act & (w_out >= 0)
+        mv_at = torch.gather(mv, 1, w_out.clamp(min=0).long()[:, None])[:, 0]
+        mv_out = torch.where(found, mv_at, minus1)
+        h_s.append(torch.where(found, w - w_out, 0))
+        # VERT leaves to (r-1, w+1); diagonal to (r-1, w)
+        w_vert = torch.where(w_out + 1 < W, w_out + 1, 0)
+        w_next = torch.where(mv_out == MOVE_VERT, w_vert, w_out)
+        w = torch.where(found, w_next, w)
+        alive = alive & (found | ~act)
+        mv_s.append(mv_out)
+        wo_s.append(torch.where(found, w_out, minus1))
+    # steps ran from row S down: reverse into ascending row order
+    stack = lambda xs: torch.stack(xs[::-1], dim=1)
+    return stack(mv_s), stack(h_s), stack(wo_s), w
 
 
 class ExtensionResult(NamedTuple):
@@ -167,12 +267,21 @@ def _slice_rows(rows: torch.Tensor, start: torch.Tensor, size: int):
 
 def _extend_direction_impl(q_pad, t_pad, q0, t0, qlen, tlen, *, S, W,
                            max_segs, min_seg_identity,
-                           dp: Callable = dp_segment_best):
-    """Segmented banded extension in one direction, counts only.
+                           dp: Callable = dp_segment_best,
+                           collect_ops: bool = False):
+    """Segmented banded extension in one direction.
 
-    Mirrors the counts branch of mecat_tpu.ops.align._extend_direction_impl
-    including its early exit: the loop stops once no lane is active, which
-    costs one host sync per segment.
+    Mirrors mecat_tpu.ops.align._extend_direction_impl including the counts
+    branch's early exit: the loop stops once no lane is active, which costs
+    one host sync per segment.  Returns (ExtensionResult, raw); raw is None
+    unless ``collect_ops``.
+
+    With ``collect_ops`` every segment also keeps (moves [B, S, W/16],
+    r_end, w_end, qoff_before, toff_before, ok), stacked on a leading
+    segment axis G.  The reference always scans ``max_segs`` segments there;
+    the segments after the last active lane are all ``ok = False`` and every
+    consumer masks by ``ok``, so this loop stops early too (after at least
+    one segment) and G <= max_segs.
     """
     B = q_pad.shape[0]
     half = W // 2
@@ -181,20 +290,27 @@ def _extend_direction_impl(q_pad, t_pad, q0, t0, qlen, tlen, *, S, W,
     qoff, toff, dist, matches, alen, nsegs = (zeros.clone() for _ in range(6))
     active = (qlen > 0) & (tlen > 0)
     slack = max(1, S // 4)
+    raw = []
     n = 0
-    while n < max_segs and bool(active.any()):
+    while n < max_segs and ((collect_ops and n == 0) or bool(active.any())):
         seg_q = (qlen - qoff).clamp(0, S).to(torch.int32)
         rem_t = (tlen - toff).clamp(0, S + half).to(torch.int32)
         q_seg = _slice_rows(q_pad, q0 + qoff, S).contiguous()
         t_seg = _slice_rows(t_pad, t0 + toff, S + W).contiguous()
-        r_end, _, j_end, d_seg, ind_seg = dp(q_seg, t_seg, rem_t, seg_q,
-                                             active, S, W)
+        if collect_ops:
+            moves, r_end, w_end, j_end, d_seg, ind_seg = dp(
+                q_seg, t_seg, rem_t, seg_q, active, S, W, want_moves=True)
+        else:
+            r_end, _, j_end, d_seg, ind_seg = dp(q_seg, t_seg, rem_t, seg_q,
+                                                 active, S, W)
         m_seg = (torch.div(r_end + j_end + ind_seg, 2, rounding_mode="floor")
                  - d_seg).clamp(min=0)
         a_seg = m_seg + d_seg
         ident = m_seg.to(torch.float32) / a_seg.clamp(min=1).to(torch.float32)
         ok = (active & (r_end + j_end > 0) & (d_seg < INF)
               & ((ident >= min_seg_identity) | (a_seg < 32)))
+        if collect_ops:
+            raw.append((moves, r_end, w_end, qoff, toff, ok))
         qoff = torch.where(ok, qoff + r_end, qoff)
         toff = torch.where(ok, toff + j_end, toff)
         dist = torch.where(ok, dist + d_seg, dist)
@@ -204,7 +320,10 @@ def _extend_direction_impl(q_pad, t_pad, q0, t0, qlen, tlen, *, S, W,
         active = (ok & (r_end >= seg_q - slack) & (r_end >= 1)
                   & (qoff < qlen) & (toff < tlen))
         n += 1
-    return ExtensionResult(qoff, toff, dist, matches, alen, nsegs)
+    res = ExtensionResult(qoff, toff, dist, matches, alen, nsegs)
+    if not collect_ops:
+        return res, None
+    return res, tuple(torch.stack(x) for x in zip(*raw))
 
 
 class PairAlignment(NamedTuple):
@@ -229,6 +348,12 @@ def _pad(a: torch.Tensor, extra: int, sentinel: int, prefix: int = 0):
     return out
 
 
+def _masked(a: torch.Tensor, n: torch.Tensor, sentinel: int):
+    """a with every column at or past n[b] replaced by the sentinel."""
+    col = torch.arange(a.shape[1], dtype=torch.int32, device=a.device)
+    return torch.where(col[None, :] < n[:, None], a, sentinel).to(a.dtype)
+
+
 def extend_pair_batch(q: torch.Tensor, t: torch.Tensor,
                       qlen: torch.Tensor, tlen: torch.Tensor,
                       qseed: torch.Tensor, tseed: torch.Tensor,
@@ -247,11 +372,8 @@ def extend_pair_batch(q: torch.Tensor, t: torch.Tensor,
     """
     B, Lq = q.shape
     Lt = t.shape[1]
-    dev = q.device
-    col = torch.arange(Lq, dtype=torch.int32, device=dev)
-    qm = torch.where(col[None, :] < qlen[:, None], q, Q_SENTINEL).to(q.dtype)
-    colt = torch.arange(Lt, dtype=torch.int32, device=dev)
-    tm = torch.where(colt[None, :] < tlen[:, None], t, T_SENTINEL).to(t.dtype)
+    qm = _masked(q, qlen, Q_SENTINEL)
+    tm = _masked(t, tlen, T_SENTINEL)
     # the reverse direction flips the WHOLE padded row of width Lq/Lt, so
     # its offsets are Lq - qseed and Lt - tseed
     q_both = torch.cat([_pad(qm, S, Q_SENTINEL),
@@ -259,7 +381,7 @@ def extend_pair_batch(q: torch.Tensor, t: torch.Tensor,
     t_both = torch.cat([_pad(tm, S + W, T_SENTINEL, prefix=W // 2),
                         _pad(torch.flip(tm, dims=[1]), S + W, T_SENTINEL,
                              prefix=W // 2)])
-    both = _extend_direction_impl(
+    both, _ = _extend_direction_impl(
         q_both, t_both,
         torch.cat([qseed, Lq - qseed]), torch.cat([tseed, Lt - tseed]),
         torch.cat([qlen - qseed, qseed]), torch.cat([tlen - tseed, tseed]),
@@ -267,6 +389,11 @@ def extend_pair_batch(q: torch.Tensor, t: torch.Tensor,
         dp=dp)
     right = ExtensionResult(*(x[:B] for x in both))
     left = ExtensionResult(*(x[B:] for x in both))
+    return _pair_alignment(left, right, qseed, tseed)
+
+
+def _pair_alignment(left: ExtensionResult, right: ExtensionResult,
+                    qseed: torch.Tensor, tseed: torch.Tensor):
     matches = left.matches + right.matches
     alen = left.align_len + right.align_len
     identity = 100.0 * matches / alen.clamp(min=1)
@@ -276,3 +403,52 @@ def extend_pair_batch(q: torch.Tensor, t: torch.Tensor,
         dist=left.dist + right.dist, matches=matches, align_len=alen,
         identity=identity.to(torch.float32),
         n_segs=left.n_segs + right.n_segs)
+
+
+def extend_pair_batch_rows(q: torch.Tensor, t: torch.Tensor,
+                           qlen: torch.Tensor, tlen: torch.Tensor,
+                           qseed: torch.Tensor, tseed: torch.Tensor,
+                           *, S: int = C.ALIGN_SEGMENT,
+                           W: int = C.ALIGN_BAND, max_segs: int = 64,
+                           min_seg_identity: float = C.MIN_SEGMENT_IDENTITY,
+                           max_segs_left: int = 0,
+                           dp: Callable = dp_segment_best):
+    """Extend both directions and trace every segment back row by row.
+
+    The two directions run separately with their own segment budgets
+    (``max_segs`` right, ``max_segs_left`` left, 0 = the same), then ONE
+    :func:`traceback_rows` walks every (segment, pair) lane of both.
+    Returns (pa, right_rows, left_rows); each rows tuple is (mv, h, wo
+    [G, B, S], w0 [G, B], qoff, toff, ok [G, B]) in the direction's local
+    coordinates, the raw material of ops/consensus_banded.  G is the number
+    of segments the direction ran (see :func:`_extend_direction_impl`);
+    entries where ``ok`` is False are unspecified.
+    """
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    qm = _masked(q, qlen, Q_SENTINEL)
+    tm = _masked(t, tlen, T_SENTINEL)
+    kw = dict(S=S, W=W, min_seg_identity=min_seg_identity, dp=dp,
+              collect_ops=True)
+    right, right_raw = _extend_direction_impl(
+        _pad(qm, S, Q_SENTINEL), _pad(tm, S + W, T_SENTINEL, prefix=W // 2),
+        qseed, tseed, qlen - qseed, tlen - tseed, max_segs=max_segs, **kw)
+    left, left_raw = _extend_direction_impl(
+        _pad(torch.flip(qm, dims=[1]), S, Q_SENTINEL),
+        _pad(torch.flip(tm, dims=[1]), S + W, T_SENTINEL, prefix=W // 2),
+        Lq - qseed, Lt - tseed, qseed, tseed,
+        max_segs=max_segs_left or max_segs, **kw)
+
+    moves2, r2, w2, qo2, to2, ok2 = (torch.cat([r, l]) for r, l
+                                     in zip(right_raw, left_raw))
+    G2 = moves2.shape[0]
+    mv2, h2, wo2, w02 = traceback_rows(
+        moves2.reshape(G2 * B, S, -1), r2.reshape(-1), w2.reshape(-1), W)
+    mv2, h2, wo2 = (a.reshape(G2, B, S) for a in (mv2, h2, wo2))
+    w02 = w02.reshape(G2, B)
+    G = right_raw[0].shape[0]
+    right_rows = (mv2[:G], h2[:G], wo2[:G], w02[:G], qo2[:G], to2[:G],
+                  ok2[:G])
+    left_rows = (mv2[G:], h2[G:], wo2[G:], w02[G:], qo2[G:], to2[G:],
+                 ok2[G:])
+    return _pair_alignment(left, right, qseed, tseed), right_rows, left_rows

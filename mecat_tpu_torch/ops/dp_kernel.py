@@ -1,13 +1,15 @@
-"""Build, bind and launch the Hopper DP-segment kernel (csrc/dp_segment.cu).
+"""Build, bind and launch the Hopper DP-segment kernels (csrc/dp_segment.cu).
 
-The kernel replaces ``mecat_tpu/ops/pallas_dp.py:_dp_kernel`` (counts-only
-form).  It is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C entry point at first CUDA use, rebuilt when the source
-changes, and called through ``ctypes`` on PyTorch's current stream.  Nothing
-here runs at import: CPU-only machines import this module freely.
+The source replaces ``mecat_tpu/ops/pallas_dp.py:_dp_kernel`` in both forms:
+counts only (:func:`dp_segment_best_cuda`) and move-writing
+(:func:`dp_segment_best_moves_cuda`).  It is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with plain C entry points at first CUDA
+use, rebuilt when the source changes, and called through ``ctypes`` on
+PyTorch's current stream.  Nothing here runs at import: CPU-only machines
+import this module freely.
 
-``LAUNCHES`` counts kernel launches, so a run can show that its DP went
-through the kernel.
+``LAUNCHES`` and ``LAUNCHES_MOVES`` count the launches of the two kernels,
+so a run can show that its DP went through them.
 """
 from __future__ import annotations
 
@@ -30,8 +32,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: (cudaErrorInvalidValue); the geometry checks live in the .cu file
 _INVALID_VALUE = 1
 
-#: number of kernel launches since process start (or the caller's reset)
+#: launches of the counts-only kernel since process start (or the caller's
+#: reset)
 LAUNCHES = 0
+#: launches of the move-writing kernel
+LAUNCHES_MOVES = 0
 
 _lib = None
 
@@ -80,10 +85,11 @@ def _load():
     if _lib is None:
         build()
         lib = ctypes.CDLL(LIB_PATH)
-        fn = lib.mecat_dp_segment_best
-        fn.argtypes = ([ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for fn, n_ptr in ((lib.mecat_dp_segment_best, 8),
+                          (lib.mecat_dp_segment_best_moves, 9)):
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -100,15 +106,10 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def dp_segment_best_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
-                         tmax: torch.Tensor, seg_q: torch.Tensor,
-                         active: torch.Tensor, S: int, W: int):
-    """Launch the kernel; returns (r_best, w_best, v_best) int32 [B].
-
-    q_seg uint8 [B, S]; tpad uint8 [B, S+W] framed window; tmax, seg_q int32
-    [B]; active bool [B].  Raises on anything the kernel does not take.
-    """
-    global LAUNCHES
+def _launch(q_seg, tpad, tmax, seg_q, active, S: int, W: int,
+            with_moves: bool):
+    """Check the inputs, allocate the outputs and launch one of the two
+    kernels.  Returns (r, w, v, moves or None); no counter is touched."""
     if q_seg.device.type != "cuda":
         raise ValueError(f"DP kernel needs CUDA tensors, got {q_seg.device}")
     B = q_seg.shape[0]
@@ -122,17 +123,54 @@ def dp_segment_best_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
     r = torch.empty(B, dtype=torch.int32, device=dev)
     w = torch.empty(B, dtype=torch.int32, device=dev)
     v = torch.empty(B, dtype=torch.int32, device=dev)
+    # zero-filled: the kernel leaves rows past its early stop unwritten
+    moves = (torch.zeros((B, S, max(W // 16, 1)), dtype=torch.int32,
+                         device=dev) if with_moves else None)
     if B == 0:
-        return r, w, v
-    with torch.cuda.device(dev):
-        rc = lib.mecat_dp_segment_best(
-            q_seg.data_ptr(), tpad.data_ptr(), tmax.data_ptr(),
+        return r, w, v, moves
+    ptrs = [q_seg.data_ptr(), tpad.data_ptr(), tmax.data_ptr(),
             seg_q.data_ptr(), active.data_ptr(), r.data_ptr(), w.data_ptr(),
-            v.data_ptr(), B, S, W, torch.cuda.current_stream().cuda_stream)
+            v.data_ptr()]
+    fn = lib.mecat_dp_segment_best
+    if with_moves:
+        ptrs.append(moves.data_ptr())
+        fn = lib.mecat_dp_segment_best_moves
+    with torch.cuda.device(dev):
+        rc = fn(*ptrs, B, S, W, torch.cuda.current_stream().cuda_stream)
     if rc == _INVALID_VALUE:
         raise ValueError(f"the DP kernel does not take S={S}, W={W} "
                          "(see mecat_tpu_torch/csrc/dp_segment.cu)")
     if rc != 0:
         raise RuntimeError(f"DP kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    return r, w, v, moves
+
+
+def dp_segment_best_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
+                         tmax: torch.Tensor, seg_q: torch.Tensor,
+                         active: torch.Tensor, S: int, W: int):
+    """Launch the counts-only kernel; returns (r_best, w_best, v_best)
+    int32 [B].
+
+    q_seg uint8 [B, S]; tpad uint8 [B, S+W] framed window; tmax, seg_q int32
+    [B]; active bool [B].  Raises on anything the kernel does not take.
+    """
+    global LAUNCHES
+    r, w, v, _ = _launch(q_seg, tpad, tmax, seg_q, active, S, W, False)
+    if q_seg.shape[0]:
+        LAUNCHES += 1
     return r, w, v
+
+
+def dp_segment_best_moves_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
+                               tmax: torch.Tensor, seg_q: torch.Tensor,
+                               active: torch.Tensor, S: int, W: int):
+    """Launch the move-writing kernel; returns (moves, r_best, w_best,
+    v_best): moves int32 [B, S, W/16], 16 2-bit codes per word, zero in the
+    rows the kernel did not reach (past ``seg_q`` or an all-VINF row) and in
+    inactive lanes; the rest as :func:`dp_segment_best_cuda`.
+    """
+    global LAUNCHES_MOVES
+    r, w, v, moves = _launch(q_seg, tpad, tmax, seg_q, active, S, W, True)
+    if q_seg.shape[0]:
+        LAUNCHES_MOVES += 1
+    return moves, r, w, v

@@ -14,12 +14,13 @@ import numpy as np
 from ..io.packed_db import _REVCOMP, PackedDB
 
 
-def bucket_length(n: int, minimum: int = 1024) -> int:
+def bucket_length(n: int, minimum: int = 1024, pow2: bool = False) -> int:
     """Padded length >= n from a ladder of powers of two and their 1.5x
-    midpoints, multiples of 1024."""
+    midpoints, multiples of 1024; ``pow2`` drops the midpoints (the cns
+    table shapes)."""
     n = max(n, minimum)
     p = 1 << max(10, (n - 1).bit_length())
-    b = p if n > 3 * p // 4 else 3 * p // 4
+    b = p if (pow2 or n > 3 * p // 4) else 3 * p // 4
     return max(minimum, int(math.ceil(b / 1024)) * 1024)
 
 

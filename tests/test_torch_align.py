@@ -9,13 +9,14 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# tiny tensors: one thread is as fast, and several test workers share the cores
+torch.set_num_threads(1)
 jnp = pytest.importorskip("jax.numpy")
 
 from mecat_tpu.ops import align as ref
-from mecat_tpu.utils.sim import mutate
 from mecat_tpu_torch.ops import align as port
 from mecat_tpu_torch.ops import dp_kernel
-from mecat_tpu_torch.testing import dp_inputs
+from mecat_tpu_torch.testing import dp_inputs, pair_inputs
 
 
 def _ref_best(q, tpad, tmax, seg_q, W):
@@ -73,43 +74,6 @@ def test_dp_segment_best_dispatches_on_tensor_device():
         assert torch.equal(g, w)
     with pytest.raises(ValueError):          # the kernel takes CUDA only
         dp_kernel.dp_segment_best_cuda(*args, S, W)
-
-
-def pair_inputs(n, L, seed):
-    """Query/target pairs around a shared source with seeds near the true
-    diagonal, plus edge lanes: seed at 0 and at the end, empty query, a
-    seed far off the diagonal, a random (junk) target, and a target longer
-    than its row."""
-    rng = np.random.default_rng(seed)
-    q = np.zeros((n, L), np.uint8)
-    t = np.zeros((n, L), np.uint8)
-    qlen = np.zeros(n, np.int32)
-    tlen = np.zeros(n, np.int32)
-    qseed = np.zeros(n, np.int32)
-    tseed = np.zeros(n, np.int32)
-    for b in range(n):
-        m = int(rng.integers(L // 3, L * 3 // 4))
-        src = rng.integers(0, 4, m, dtype=np.uint8)
-        a = mutate(src, rng, 0.03, 0.06, 0.03)[:L]
-        c = mutate(src, rng, 0.03, 0.06, 0.03)[:L]
-        if b == 5:
-            c = rng.integers(0, 4, len(c), dtype=np.uint8)
-        q[b, :len(a)], t[b, :len(c)] = a, c
-        qlen[b], tlen[b] = len(a), len(c)
-        s = int(rng.integers(0, len(a)))
-        qseed[b] = s
-        tseed[b] = min(int(s * len(c) / len(a)), len(c) - 1)
-    qseed[1], tseed[1] = 0, 0
-    qseed[2], tseed[2] = qlen[2], tlen[2] - 1
-    qlen[3] = 0
-    qseed[3] = 0
-    tseed[4] = (tseed[4] + tlen[4] // 2) % tlen[4]
-    # a target longer than its row (a truncated target window): the seed
-    # lies past the row, so the reverse direction starts at a negative
-    # offset, which lax.dynamic_slice wraps before it clamps
-    tlen[6] = L + 300
-    tseed[6] = L + 100
-    return q, t, qlen, tlen, qseed, tseed
 
 
 def test_slice_rows_matches_vmapped_dynamic_slice():

@@ -1,4 +1,4 @@
-"""The Hopper DP kernel on the card, held against its plain PyTorch version.
+"""The Hopper DP kernels on the card, held against their plain PyTorch version.
 
 Every test needs a CUDA device with nvcc and skips elsewhere.  The GPU
 machine has no JAX and tests/conftest.py imports it, so run this file
@@ -43,6 +43,64 @@ def test_dp_kernel_matches_plain(cuda, S, W):
     assert dp_kernel.LAUNCHES == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("S,W", [(128, 64), (512, 128), (1024, 64)])
+def test_dp_moves_kernel_matches_plain(cuda, S, W):
+    """(r, w, j, d, ind) on every lane; the packed words of every row the
+    traceback can read (rows <= r_best of active lanes); the row walks of
+    both move matrices on every lane.  dp_inputs carries inactive lanes and
+    lanes with no valid cell."""
+    args = [torch.as_tensor(a, device=cuda)
+            for a in dp_inputs(S, W, 1024, seed=17)]
+    active = args[4]
+    before = dp_kernel.LAUNCHES_MOVES, dp_kernel.LAUNCHES
+    got = align.dp_segment_best(*args, S, W, want_moves=True)
+    want = align.dp_segment_best_plain(*args, S, W, want_moves=True)
+    torch.cuda.synchronize()
+    assert dp_kernel.LAUNCHES_MOVES == before[0] + 1
+    assert dp_kernel.LAUNCHES == before[1]
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    moves, r_best, w_best = got[0], got[1], got[2]
+    assert moves.shape == (1024, S, W // 16) and moves.dtype == torch.int32
+    row = torch.arange(1, S + 1, device=cuda)[None, :, None]
+    readable = (row <= r_best[:, None, None]) & active[:, None, None]
+    assert bool(readable.any())
+    assert torch.equal(torch.where(readable, moves, 0),
+                       torch.where(readable, want[0], 0))
+    assert not bool(moves[~active].any())     # an inactive lane writes none
+    for g, w in zip(align.traceback_rows(moves, r_best, w_best, W),
+                    align.traceback_rows(want[0], r_best, w_best, W)):
+        assert torch.equal(g, w)
+
+
+def test_dp_moves_kernel_rejects_what_it_does_not_take(cuda):
+    S, W = 128, 64
+    q, tpad, tmax, seg_q, active = (torch.as_tensor(a, device=cuda)
+                                    for a in dp_inputs(S, W, 64, seed=2))
+    with pytest.raises(ValueError):
+        dp_kernel.dp_segment_best_moves_cuda(
+            q, tpad.new_zeros(64, S + 96), tmax, seg_q, active, S, 96)
+    with pytest.raises(TypeError):
+        dp_kernel.dp_segment_best_moves_cuda(q, tpad, tmax.long(), seg_q,
+                                             active, S, W)
+
+
+def test_run_cns_golden_bytes_on_cuda(cuda):
+    from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
+    from mecat_tpu_torch.testing import GOLDEN_CNS
+
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "corrected.fasta")
+        before = dp_kernel.LAUNCHES_MOVES
+        run_cns(os.path.join(GOLDEN, "candidates.txt"),
+                os.path.join(GOLDEN, "reads.fasta"), out,
+                CnsOptions(**GOLDEN_CNS), device=cuda)
+        assert dp_kernel.LAUNCHES_MOVES > before
+        with open(out, "rb") as fh, \
+                open(os.path.join(GOLDEN, "corrected.fasta"), "rb") as gh:
+            assert fh.read() == gh.read()
 
 
 def test_dp_kernel_rejects_what_it_does_not_take(cuda):

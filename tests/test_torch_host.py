@@ -15,13 +15,18 @@ from mecat_tpu import constants as ref_C
 from mecat_tpu.io import fasta as ref_fasta
 from mecat_tpu.io import m4 as ref_m4
 from mecat_tpu.io.packed_db import PackedDB as RefDB
+from mecat_tpu.ops import consensus as ref_consensus
+from mecat_tpu.pipeline import common as ref_common
 from mecat_tpu.utils import sim as ref_sim
 from mecat_tpu_torch import constants as C
 from mecat_tpu_torch.io import fasta, m4
 from mecat_tpu_torch.io.packed_db import PackedDB
+from mecat_tpu_torch.ops import consensus
+from mecat_tpu_torch.pipeline import common
 from mecat_tpu_torch.utils import sim
 
-READS = os.path.join(os.path.dirname(__file__), "golden", "reads.fasta")
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+READS = os.path.join(GOLDEN, "reads.fasta")
 
 
 def _assert_db_equal(got, want):
@@ -34,9 +39,63 @@ def _assert_db_equal(got, want):
 
 def test_constants_equal_reference():
     names = [n for n in dir(C) if n.isupper()]
-    assert len(names) >= 18
+    assert len(names) >= 28
     for n in names:
         assert getattr(C, n) == getattr(ref_C, n), n
+
+
+def test_cns_presets_and_vote_defaults_equal_reference():
+    assert C.CNS_TECH_PRESETS == ref_C.CNS_TECH_PRESETS
+    assert sorted(C.CNS_TECH_PRESETS) == [C.TECH_PACBIO, C.TECH_NANOPORE]
+    assert consensus.GAP == ref_consensus.GAP
+    assert consensus.VoteParams._fields == ref_consensus.VoteParams._fields
+    assert (consensus.VoteParams._field_defaults
+            == ref_consensus.VoteParams._field_defaults)
+    # the builtin defaults, whatever the environment of this process says
+    assert tuple(consensus.default_vote_params()) == (65, 60, 5, 8, 0, 50, 25)
+
+
+@pytest.mark.parametrize("pow2", [False, True])
+def test_bucket_length_matches_reference(pow2):
+    for n in (0, 1, 1023, 1024, 1025, 1536, 1537, 3000, 3073, 6144, 6145,
+              8192, 8193, 12288, 12289, 50000, 131072, 131073):
+        assert (common.bucket_length(n, pow2=pow2)
+                == ref_common.bucket_length(n, pow2=pow2)), n
+        assert (common.bucket_length(n, minimum=4096, pow2=pow2)
+                == ref_common.bucket_length(n, minimum=4096, pow2=pow2)), n
+    assert common.max_segs_for(9000, 512) == ref_common.max_segs_for(9000, 512)
+
+
+def test_record_parsers_match_reference(tmp_path):
+    for name, read, ref_read in (
+            ("candidates.txt", m4.read_candidates, ref_m4.read_candidates),
+            ("overlaps.m4", m4.read_m4, ref_m4.read_m4)):
+        path = os.path.join(GOLDEN, name)
+        got, want = list(read(path)), list(ref_read(path))
+        assert len(got) == len(want) > 100
+        for g, w in zip(got, want):
+            assert vars(g) == vars(w)
+    # -g 1 lines carry the seed columns; blank lines are skipped; a float
+    # score is cut to its integer; short lines are refused
+    line = "3 9 81.25 44.0 0 10 900 1000 1 5 880 950 77 66"
+    g, w = m4.M4Record.parse(line), ref_m4.M4Record.parse(line)
+    assert vars(g) == vars(w) and (g.qext, g.sext, g.score) == (77, 66, 44)
+    assert m4.M4Record.parse(g.format()) == g
+    p = tmp_path / "c.txt"
+    p.write_text("\n1 2 30.0 1 40 500 0 60 700\n\n")
+    assert ([vars(r) for r in m4.read_candidates(str(p))]
+            == [vars(r) for r in ref_m4.read_candidates(str(p))])
+    for cls, bad in ((m4.M4Record, "1 2 3"), (m4.CandidateRecord, "1 2 3")):
+        with pytest.raises(ValueError):
+            cls.parse(bad)
+
+
+def test_format_fasta_matches_reference():
+    rng = np.random.default_rng(12)
+    for n in (0, 1, 79, 80, 81, 400):
+        codes = rng.integers(0, 4, n, dtype=np.uint8)
+        assert (fasta.format_fasta("r/1_0", codes)
+                == ref_fasta.format_fasta("r/1_0", codes))
 
 
 def test_packed_db_matches_reference():

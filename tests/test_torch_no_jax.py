@@ -1,9 +1,12 @@
 """The port runs where JAX is missing, as on the machine with the GPU.
 
 A subprocess blocks ``jax`` and ``jaxlib`` on ``sys.meta_path``, imports
-every module of ``mecat_tpu_torch`` and ``chip_smoke``, and runs
+every module of ``mecat_tpu_torch`` and ``chip_smoke``, runs
 ``run_pw(device="cpu")`` on the golden reads, which must reproduce
-``tests/golden/overlaps.m4``.  Neither JAX nor the JAX package
+``tests/golden/overlaps.m4``, and runs the ``mecat2cns`` CLI on a cut of the
+golden candidates, which must correct the templates it keeps whole.  Neither
+JAX
+nor the JAX package
 (``mecat_tpu``, whose init configures JAX) may be loaded at the end, and
 ``chip_smoke.main()`` must refuse to run without a CUDA device.
 """
@@ -49,6 +52,36 @@ with tempfile.TemporaryDirectory() as d:
     with open(out, "rb") as fh, \
             open(os.path.join(golden, "overlaps.m4"), "rb") as gh:
         assert fh.read() == gh.read(), "golden bytes differ"
+    # correction through the CLI, on the candidate lines that name one of
+    # the first 3 reads: those 3 templates keep all their supports, and a
+    # template's corrected reads depend on its own supports alone, so they
+    # must equal the golden file's
+    from mecat_tpu_torch.cli import mecat2cns
+    from mecat_tpu_torch.io.fasta import iter_fasta
+
+    cut = os.path.join(d, "cand_cut.txt")
+    with open(os.path.join(golden, "candidates.txt")) as fh, \
+            open(cut, "w") as oh:
+        oh.writelines(ln for ln in fh
+                      if {ln.split()[0], ln.split()[1]} & {"1", "2", "3"})
+    out = os.path.join(d, "corrected.fasta")
+    rc = mecat2cns.main(["-i", "0", "-a", "300", "-l", "500", "-r", "0.6",
+                         "-c", "4", "--extend-batch", "32",
+                         "--align-segment", "128", "--align-band", "64",
+                         "--device", "cpu", cut,
+                         os.path.join(golden, "reads.fasta"), out])
+    assert rc == 0
+    names = [r.name for r in iter_fasta(os.path.join(golden, "reads.fasta"))]
+    mine = lambda path: {r.name: r.codes.tobytes() for r in iter_fasta(path)
+                         if r.name.rsplit("_", 1)[0] in names[:3]}
+    got = mine(out)
+    assert len(got) >= 3, sorted(got)
+    try:
+        mecat2cns.main(["--rounds", "2", "--device", "cpu", "a", "b", "c"])
+    except SystemExit as e:
+        assert e.code == 2
+    else:
+        raise AssertionError("--rounds 2 did not exit")
 import chip_smoke
 
 assert chip_smoke.main([]) != 0, "chip_smoke ran without a CUDA device"
@@ -60,12 +93,13 @@ print("NO_JAX_OK", len(mods))
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
-    env = dict(os.environ, MECAT_TPU_METRICS="0", CUDA_VISIBLE_DEVICES="")
+    env = dict(os.environ, MECAT_TPU_METRICS="0", CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")    # the test workers share the cores
     proc = subprocess.run(
         [sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _SCRIPT],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_mods = int(proc.stdout.split("NO_JAX_OK")[1])
-    assert n_mods >= 18
+    assert n_mods >= 23
     assert '"ok"' not in proc.stdout           # no result line from the smoke

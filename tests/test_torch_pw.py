@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# tiny tensors: one thread is as fast, and several test workers share the cores
+torch.set_num_threads(1)
 jnp = pytest.importorskip("jax.numpy")
 
 from mecat_tpu.index.kmer_index import build_index
