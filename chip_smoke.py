@@ -6,15 +6,20 @@
 Phases, each reported on its own line; any failure ends the run with a
 non-zero exit and no result line:
 
-1. card: ``nvidia-smi`` name and power limit; build the Hopper DP kernels
-   from ``mecat_tpu_torch/csrc/dp_segment.cu`` and time the build;
+1. card: ``nvidia-smi`` name and power limit; build every Hopper kernel
+   source under ``mecat_tpu_torch/csrc/`` (one ``nvcc`` each, started
+   together) and time the builds;
 2. each kernel against its plain PyTorch version on the card at (S, W) =
-   (128, 64) and (512, 128), 4096 lanes (lanes with no valid cell and
-   inactive lanes included), median times and the card's bound for the same
-   work.  Counts-only kernel: r, w, j, d, ind equal on every lane.
-   Move-writing kernel: the same, the packed move words equal on every row
-   up to the lane's best row, and the row tracebacks of the two move
-   matrices equal on every lane;
+   (128, 64) and (512, 128), median times and the card's bound for the same
+   work.  DP kernels, 4096 lanes (lanes with no valid cell and inactive
+   lanes included).  Counts-only kernel: r, w, j, d, ind equal on every
+   lane.  Move-writing kernel: the same, the packed move words equal on
+   every row up to the lane's best row, and the row tracebacks of the two
+   move matrices equal on every lane.  The ``roll_micro`` family, 2048
+   lanes (the tool's own lanes plus lanes with varied tmax and segq): all 8
+   output rows of each of the five variants equal on every lane; then the
+   tool itself, ``mecat_tpu_torch.tools.roll_micro`` at its defaults, whose
+   launches are the family's main path;
 3. golden bytes: ``run_pw(device="cuda")`` on ``tests/golden/reads.fasta``
    reproduces ``tests/golden/overlaps.m4`` (-j 1) and ``candidates.txt``
    (-j 0), and ``run_cns(device="cuda")`` on the candidates reproduces
@@ -42,11 +47,26 @@ non-zero exit and no result line:
    16 templates;
 7. the CLIs ``mecat2pw -j 0`` then ``mecat2cns -i 0 -l 2000`` on the bench
    reads as subprocesses: wall seconds, the cns summary line, corrected
-   reads > 0 and move-kernel launches > 0.
+   reads > 0 and move-kernel launches > 0;
+8. mapping exactness: a 30 kb + 20 kb reference and 21 reads (one of them
+   junk), ``run_ref(device="cuda")`` and ``run_ref(device="cpu")`` in this
+   process give byte-equal SAM and byte-equal M4-format output; the junk
+   read is FLAG 4; both DP kernels were launched by the CUDA SAM run;
+9. mapping at a real reference size: one 46 Mb contig (seed 301), 2,000
+   simulated reads of mean 10 kb at 12 % error (seed 302), default
+   ``RefOptions``, SAM out, through ``python -m
+   mecat_tpu_torch.cli.mecat2ref --device cuda`` as a subprocess: wall and
+   ``run_ref`` seconds, reads/s, the phase split, launches of each DP
+   kernel, issued and useful DP lane-segments, peak device memory; one
+   primary line per read, at least 95 % of the mapped reads at their true
+   locus, every mapped CIGAR consuming its read.  ``--profile`` adds one
+   ``run_ref`` on the same files in this process under ``torch.profiler``
+   (after a warm one) for the card's busy share and its top kernels.
 
 Each kernel's launch counter is zeroed just before the timed run of its
-path (phase 4's steady passes, phase 6's timed pass) and read just after,
-so the reported launches are those of the main path only.  The line before
+path (phase 4's steady passes, phase 6's timed pass, the tool's run in
+phase 2, the CUDA SAM run of phase 8) and read just after, so the reported
+launches are those of the main paths only.  The line before
 the last is a JSON object with the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
 without the repository beside it.
@@ -68,6 +88,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "mecat_tpu_torch/csrc/dp_segment.cu"
 KERNEL_REPLACES = "mecat_tpu/ops/pallas_dp.py:56"          # _dp_kernel
 KERNEL_REPLACES_MOVES = "mecat_tpu/ops/pallas_dp.py:115"   # its move stream
+ROLL_SOURCE = "mecat_tpu_torch/csrc/roll_micro.cu"
+ROLL_REPLACES = "tools/roll_micro.py:155"                  # build_call
 
 # The card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet):
 # 3.35 TB/s of HBM, and for int32 a quarter of the 67 TFLOP/s float32
@@ -84,6 +106,18 @@ CFG = dict(k=13, stride=10, max_occ=16, num_candidates=16, diag_bin=256,
            L_target=L, S=512, W=128, max_segs=30, min_align_size=1000,
            min_identity=70.0)
 DP_LANES = 4096   # the bench's 2 * B * N extension lanes
+#: int32 operations per cell of each roll_micro variant, as the header of
+#: csrc/roll_micro.cu counts them
+ROLL_OPS_PER_CELL = {"full": 28, "noroll": 25, "nobest": 14, "elembest": 26,
+                     "baremin": 11}
+ROLL_LANES = 2048   # the tool's default
+
+# mapping at a real reference size (tools/ref_bench.py:39-44)
+REF_GENOME, REF_READS, REF_MEAN_LEN = 46_000_000, 2000, 10_000
+#: the small mapping check's options (tests/test_ref.py)
+REF_SMALL = dict(num_candidates=8, num_extend=3, min_align_size=400,
+                 kmer_size=10, scan_stride=5, scan_batch=16, extend_batch=32,
+                 align_segment=128, align_band=64)
 
 
 def say(msg: str) -> None:
@@ -196,6 +230,72 @@ def phase_kernel(S: int, W: int) -> dict:
         out[with_moves] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                **bound)
     return out
+
+
+def phase_roll_micro(S: int, W: int) -> dict:
+    """The five roll_micro variants against the plain version at one shape;
+    returns {variant: numbers}."""
+    import torch
+
+    from mecat_tpu_torch.ops import roll_micro as rm
+    from mecat_tpu_torch.testing import roll_micro_inputs
+
+    dev = torch.device("cuda")
+    args = [torch.as_tensor(a, device=dev)
+            for a in roll_micro_inputs(S, W, ROLL_LANES, seed=131 + S + W)]
+    cells = S * W * ROLL_LANES
+    # every row of every lane runs whatever the data holds: each input read
+    # once, the 8 results written once
+    t_bytes = ROLL_LANES * (S + S + W + 4 + 4 + 32) / HBM_BYTES_PER_S
+    out = {}
+    for name, (rolls, best) in rm.VARIANTS.items():
+        got = rm.roll_micro(*args, S, W, rolls, best)
+        want = rm.roll_micro_plain(*args, S, W, rolls, best)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"roll_micro {name} != plain at S={S} W={W}: "
+                f"{int((got != want).any(dim=1).sum())} lanes differ")
+        ms = cuda_median_ms(
+            lambda: rm.roll_micro(*args, S, W, rolls, best), 21)
+        plain_ms = cuda_median_ms(
+            lambda: rm.roll_micro_plain(*args, S, W, rolls, best), 2)
+        t_ops = cells * ROLL_OPS_PER_CELL[name] / INT32_OPS_PER_S
+        bound = dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes > t_ops else "operations")
+        say(f"phase 2: roll_micro {name} == plain at S={S} W={W} "
+            f"lanes={ROLL_LANES} (all 8 rows): kernel {ms:.4f} ms = "
+            f"{cells / ms / 1e6:.2f} Gcells/s, plain {plain_ms:.4f} ms "
+            f"(median), bound {bound['bound_ms']:.4f} ms by "
+            f"{bound['bound_by']}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         gcells_s=cells / ms / 1e6, **bound)
+    return out
+
+
+def phase_roll_micro_tool() -> int:
+    """The family's own path: the tool at its defaults on the card.  Returns
+    the kernel launches it made."""
+    import contextlib
+    import io
+
+    from mecat_tpu_torch.ops import roll_micro as rm
+    from mecat_tpu_torch.tools import roll_micro as tool
+
+    buf = io.StringIO()
+    rm.LAUNCHES = 0                      # the tool's run starts here
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(["--device", "cuda"])
+    launches = rm.LAUNCHES               # ... and ends here
+    line = buf.getvalue().strip().splitlines()[-1]
+    rec = json.loads(line)
+    if rc != 0 or launches <= 0 or rec.get("launches") != launches:
+        raise AssertionError(f"the roll_micro tool failed: rc {rc}, "
+                             f"{launches} launches, {line}")
+    say(f"phase 2: python -m mecat_tpu_torch.tools.roll_micro --device cuda: "
+        f"{line}")
+    return launches
 
 
 def phase_golden(work: str) -> None:
@@ -635,13 +735,206 @@ def phase_cli_cns(reads: str, n_reads: int, work: str) -> None:
                              "move-writing kernel")
 
 
+def phase_ref_small(work: str) -> dict:
+    """Mapping exactness on the card: CUDA and CPU runs give the same
+    bytes.  Returns the launches of the two DP kernels on the CUDA SAM
+    run."""
+    from mecat_tpu_torch.io.fasta import write_fasta
+    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.pipeline.ref import RefOptions, run_ref
+    from mecat_tpu_torch.utils.sim import random_genome, simulate_reads
+
+    g1 = random_genome(30000, seed=81)
+    g2 = random_genome(20000, seed=82)
+    ref = os.path.join(work, "small_genome.fasta")
+    write_fasta(ref, [("chr1", g1), ("chr2", g2)])
+    db, _ = simulate_reads(g1, 12, mean_len=2000, min_len=1000, seed=83,
+                           error_rate=0.08)
+    db2, _ = simulate_reads(g2, 8, mean_len=2000, min_len=1000, seed=84,
+                            error_rate=0.08)
+    seqs = [(f"c1_{i}", db.read(i)) for i in range(db.n_reads)]
+    seqs += [(f"c2_{i}", db2.read(i)) for i in range(db2.n_reads)]
+    seqs.append(("junk", random_genome(1500, seed=99)))
+    reads = os.path.join(work, "small_reads.fasta")
+    write_fasta(reads, seqs)
+
+    launches = {}
+    for fmt in ("sam", "m4"):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(work, f"small_{dev}.{fmt}")
+            if (fmt, dev) == ("sam", "cuda"):
+                dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+            t0 = time.time()
+            stats = run_ref(reads, ref, out,
+                            os.path.join(work, f"small_w_{dev}_{fmt}"),
+                            RefOptions(output_format=fmt, **REF_SMALL),
+                            device=dev)
+            dt = time.time() - t0
+            if (fmt, dev) == ("sam", "cuda"):
+                launches = dict(counts=dp_kernel.LAUNCHES,
+                                moves=dp_kernel.LAUNCHES_MOVES)
+            with open(out, "rb") as fh:
+                outs[dev] = fh.read()
+            if stats.mapped != len(seqs) - 1:
+                raise AssertionError(f"small mapping ({fmt}, {dev}): "
+                                     f"{stats.mapped} of {len(seqs)} mapped")
+            say(f"phase 8: run_ref {fmt} on {dev}: {stats.mapped}/"
+                f"{stats.reads} mapped in {dt:.2f} s")
+        if outs["cuda"] != outs["cpu"] or len(outs["cpu"]) < 200:
+            raise AssertionError(f"small mapping: {fmt} bytes differ between "
+                                 f"cuda and cpu")
+        if fmt == "sam":
+            junk = [ln.split("\t")[1] for ln in
+                    outs["cuda"].decode().splitlines()
+                    if ln.startswith("junk\t")]
+            if junk != ["4"]:
+                raise AssertionError(f"the junk read's FLAGs: {junk}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the CUDA SAM run launched {launches}")
+    say(f"phase 8: SAM and M4 output byte-equal between cuda and cpu, junk "
+        f"read FLAG 4, DP launches on the CUDA SAM run: {launches}")
+    return launches
+
+
+def cigar_query_len(cigar: str) -> int:
+    n = q = 0
+    for ch in cigar:
+        if ch.isdigit():
+            n = n * 10 + int(ch)
+        else:
+            if ch in "MIS":
+                q += n
+            n = 0
+    return q
+
+
+def profile_ref(reads: str, ref: str, work: str, path: str) -> None:
+    """Where a mapping run spends the card's time: ``run_ref`` in this
+    process, once to warm up and once under ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mecat_tpu_torch.pipeline.ref import run_ref
+
+    def one(tag):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        stats = run_ref(reads, ref, os.path.join(work, f"prof_{tag}.sam"),
+                        os.path.join(work, f"prof_w_{tag}"), device="cuda")
+        torch.cuda.synchronize()
+        return stats, time.time() - t0
+
+    _, warm_s = one("warm")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats, wall = one("prof")
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    total_us = sum(dev_us(e) for e in kernels)
+    say(f"profile ref: run_ref in this process: warm {warm_s:.3f} s; under "
+        f"torch.profiler wall {wall:.3f} s (index {stats.index_s:.3f}, prep "
+        f"{stats.prep_s:.3f}, scan {stats.scan_s:.3f}, count "
+        f"{stats.count_s:.3f}, ops {stats.ops_s:.3f}, emit "
+        f"{stats.emit_s:.3f}), kernel time {total_us / 1e6:.3f} s in "
+        f"{sum(e.count for e in kernels)} kernels (card busy "
+        f"{100 * total_us / 1e6 / wall:.1f} % of the profiled wall)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        say(f"profile ref:   {dev_us(e) / 1e3:9.3f} ms "
+            f"{100 * dev_us(e) / max(total_us, 1):5.1f} %  x{e.count:<7d} "
+            f"{e.key[:70]}")
+    with open(path + ".ref", "w") as fh:
+        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+
+
+def phase_ref_genome(work: str, profile_path: str | None) -> dict:
+    """Mapping at a real reference size through the CLI; returns its
+    summary."""
+    from mecat_tpu_torch.io.fasta import write_fasta
+    from mecat_tpu_torch.utils.sim import random_genome, simulate_reads
+
+    t0 = time.time()
+    genome = random_genome(REF_GENOME, seed=301)
+    db, truths = simulate_reads(genome, REF_READS, mean_len=REF_MEAN_LEN,
+                                min_len=3000, seed=302, error_rate=0.12)
+    ref = os.path.join(work, "ref.fasta")
+    reads = os.path.join(work, "ref_reads.fasta")
+    write_fasta(ref, [("chr_sim", genome)])
+    write_fasta(reads, [(db.name(i), db.read(i)) for i in range(db.n_reads)])
+    del genome
+    say(f"phase 9: simulated a {REF_GENOME} base contig and {db.n_reads} "
+        f"reads ({db.total_bases} bases, longest {int(db.lengths.max())}) "
+        f"in {time.time() - t0:.2f} s")
+    out = os.path.join(work, "ref.sam")
+    wall, summary = run_cli(
+        "mecat2ref", ["-d", reads, "-r", ref, "-w",
+                      os.path.join(work, "ref_wrk"), "-o", out,
+                      "--device", "cuda"], "ref")
+    say(f"phase 9: CLI mecat2ref on {db.n_reads} reads vs {REF_GENOME} "
+        f"bases: exit 0, wall {wall:.2f} s, run_ref "
+        f"{summary.get('seconds', 0.0):.2f} s, "
+        f"{db.n_reads / max(summary.get('seconds', 0.0), 1e-9):.2f} reads/s "
+        f"({db.n_reads / wall:.2f} of the wall)")
+    say("phase 9: CLI summary " + json.dumps(
+        {k: v for k, v in summary.items()
+         if k not in ("component", "ts", "event")}))
+
+    # one primary line per read; pos_agree by the rule of
+    # tools/ref_bench.py:63-89; every mapped CIGAR consumes its read
+    length = {db.name(i): int(db.lengths[i]) for i in range(db.n_reads)}
+    primary, mapped_pos = {}, {}
+    with open(out) as fh:
+        for line in fh:
+            if line.startswith("@"):
+                continue
+            f = line.split("\t")
+            flag = int(f[1])
+            if flag & 0x900:
+                continue
+            primary[f[0]] = primary.get(f[0], 0) + 1
+            if flag & 0x4:
+                continue
+            mapped_pos[f[0]] = int(f[3]) - 1
+            if not cigar_query_len(f[5]) == len(f[9]) == length[f[0]]:
+                raise AssertionError(f"CIGAR of {f[0]} consumes "
+                                     f"{cigar_query_len(f[5])} of "
+                                     f"{length[f[0]]} bases")
+    if sorted(primary) != sorted(length) or set(primary.values()) != {1}:
+        raise AssertionError("not one primary line per read")
+    agree = sum(1 for i, tr in enumerate(truths)
+                if db.name(i) in mapped_pos
+                and tr.start - 2000 <= mapped_pos[db.name(i)] <= tr.end + 2000)
+    mapped = len(mapped_pos)
+    pos_agree = agree / max(mapped, 1)
+    say(f"phase 9: {mapped} of {db.n_reads} reads mapped, pos_agree "
+        f"{pos_agree:.4f}, one primary line per read, every CIGAR consumes "
+        f"its read")
+    if pos_agree < 0.95 or mapped != summary.get("mapped"):
+        raise AssertionError(f"pos_agree {pos_agree:.4f} ({agree}/{mapped}); "
+                             f"the summary says {summary.get('mapped')}")
+    if min(summary.get("dp_launches", 0),
+           summary.get("dp_launches_moves", 0)) <= 0:
+        raise AssertionError("the mapping CLI's DP did not go through both "
+                             "kernels")
+    if profile_path:
+        profile_ref(reads, ref, work, profile_path)
+    return summary
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--passes", type=int, default=3,
                    help="steady passes over the bench batches (phase 4)")
     p.add_argument("--profile", metavar="PATH",
-                   help="profile one more phase-4 pass (full table to PATH) "
-                        "and the phase-6 cns pass (table to PATH.cns)")
+                   help="profile one more phase-4 pass (full table to PATH), "
+                        "the phase-6 cns pass (table to PATH.cns) and a "
+                        "phase-9 mapping run (table to PATH.ref)")
     args = p.parse_args(argv)
 
     import torch
@@ -655,14 +948,20 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops import cuda_build
 
     card = card_line()
     say(f"card: {card}")
-    build_s = dp_kernel.build(verbose=True)
-    say(f"phase 1: DP kernels built in {build_s:.2f} s")
+    t0 = time.time()
+    built = cuda_build.build_all(verbose=True)
+    say("phase 1: kernel libraries built side by side in "
+        f"{time.time() - t0:.2f} s: " + ", ".join(
+            f"{cuda_build.SOURCES[n]} {sec:.2f} s" for n, sec in built.items()))
 
-    stats = {(S, W): phase_kernel(S, W) for S, W in ((128, 64), (512, 128))}
+    shapes = ((128, 64), (512, 128))
+    stats = {(S, W): phase_kernel(S, W) for S, W in shapes}
+    roll = {(S, W): phase_roll_micro(S, W) for S, W in shapes}
+    roll_launches = phase_roll_micro_tool()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
     try:
@@ -679,25 +978,46 @@ def main(argv=None) -> int:
         phase_cli(reads, db.n_reads, work)
         cns = phase_cns(db, bench["supports"], args.profile)
         phase_cli_cns(reads, db.n_reads, work)
+        ref_small = phase_ref_small(work)
+        ref_cli = phase_ref_genome(work, args.profile)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # both main paths run S 512, W 128: that shape's times and bound
     main_shape = stats[(CFG["S"], CFG["W"])]
     kernels = []
-    for name, with_moves, replaces, launches in (
-            ("dp_segment_best", False, KERNEL_REPLACES, bench["launches"]),
+    for name, with_moves, replaces, launches, key, cli_key in (
+            ("dp_segment_best", False, KERNEL_REPLACES, bench["launches"],
+             "counts", "dp_launches"),
             ("dp_segment_best_moves", True, KERNEL_REPLACES_MOVES,
-             cns["launches"])):
+             cns["launches"], "moves", "dp_launches_moves")):
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": replaces, "launches": launches,
+            # the mapping pass: phase 8's CUDA SAM run in this process, and
+            # the CLI's own count of phase 9
+            "launches_mapping": ref_small[key],
+            "launches_mapping_cli": ref_cli[cli_key],
             "max_abs_err": max(s[with_moves]["max_abs_err"]
                                for s in stats.values()),
             **{k: main_shape[with_moves][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             # no single PyTorch call computes a banded min-plus DP segment
             "library_ms": None})
+    # the tool runs S 512, W 128; the family's headline numbers are `full`'s
+    roll_main = roll[(512, 128)]
+    kernels.append({
+        "name": "roll_micro", "route": "cuda", "source": ROLL_SOURCE,
+        "replaces": ROLL_REPLACES, "launches": roll_launches,
+        "max_abs_err": max(v["max_abs_err"] for s_ in roll.values()
+                           for v in s_.values()),
+        **{k: roll_main["full"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        # no PyTorch call computes any of the five row-update functions
+        "library_ms": None,
+        "variants": {n: {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "gcells_s")}
+                     for n, v in roll_main.items()}})
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

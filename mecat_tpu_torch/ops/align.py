@@ -1,8 +1,10 @@
 """Segmented banded extension aligner (port of mecat_tpu.ops.align).
 
-Two forms: counts only (:func:`extend_pair_batch`, the overlap path) and
-with the packed move matrix of every segment traced back row by row
-(:func:`extend_pair_batch_rows`, the correction path).  The DP of one
+Three forms: counts only (:func:`extend_pair_batch`, the overlap path and
+mapping's scoring pass), with the packed move matrix of every segment
+traced back row by row (:func:`extend_pair_batch_rows`, the correction
+path), and with it traced back column by column into op tapes
+(:func:`extend_pair_batch_with_ops`, mapping's CIGAR pass).  The DP of one
 segment runs in the hand-written Hopper kernels (``csrc/dp_segment.cu``
 through :mod:`.dp_kernel`) for CUDA tensors, and in their plain PyTorch
 version (:func:`banded_dp_segment` + :func:`pick_end_local`) for CPU
@@ -12,8 +14,7 @@ CUDA tensor launches the kernel or raises.
 Moves are 2-bit codes, 16 per int32 word along the band, laid out
 ``[lanes, S, W/16]`` (the JAX package keeps ``[S, W/16, lanes]``): the code
 of (row i, band cell w) is ``(moves[b, i-1, w//16] >> 2*(w%16)) & 3``.
-The column-tape tracebacks (``traceback_ops``, ``rows_to_tape``,
-``traceback_counts``, ``extend_pair_batch_with_ops``) are not ported.
+``traceback_counts`` has no caller in the reference and is not ported.
 
 Everything else mirrors ``mecat_tpu/ops/align.py`` op for op, so results
 are bit-equal: packed DP values and coordinates are int32, identities are
@@ -242,6 +243,129 @@ def traceback_rows(moves: torch.Tensor, seg_qlen: torch.Tensor,
     return stack(mv_s), stack(h_s), stack(wo_s), w
 
 
+def _read_move(flat: torch.Tensor, i: torch.Tensor, w: torch.Tensor,
+               S: int, W: int):
+    """The 2-bit move at (row i, band w) of every lane; flat int32 [N, S*Wp].
+
+    The lane's moves are indexed as ONE flat vector, as the reference does:
+    the word index (i-1)*Wp + w//16 is clipped to [0, S*Wp - 1], so i = 0
+    reads word 0 (masked by the caller), and w = W or w = -1 (a VERT out of
+    the last column, a HORIZ out of column 0) read a neighbour row's word.
+    ``w // 16`` and ``w % 16`` floor.
+    """
+    Wp = W // 16
+    idx = ((i - 1) * Wp + torch.div(w, 16, rounding_mode="floor")).clamp(
+        0, S * Wp - 1)
+    word = torch.gather(flat, 1, idx.long()[:, None])[:, 0]
+    # arithmetic >> then & 3 is sign-safe for the top 2-bit slot
+    return (word >> (2 * torch.remainder(w, 16))) & 3
+
+
+def max_tape_cols(S: int, W: int, min_seg_identity: float) -> int:
+    """Tape width sufficient for any segment that passes the identity gate.
+
+    A segment's column count a = m + mism + ins + del obeys
+    a <= 2*r_end + W/2 - (m + mism), so with the acceptance rule of the
+    segment loop (identity m/a >= p, or a < 32) the worst accepted segment
+    has a <= (2S + W/2)/(1 + p).  Segments failing the gate keep their tapes
+    but are masked to n_cols = 0 by the caller, so truncating their walk is
+    harmless.  Rounded up to a multiple of 64.
+    """
+    bound = int((2 * S + W // 2) / (1.0 + min_seg_identity)) + 1
+    return min(2 * S + W, -(-max(bound, 32) // 64) * 64)
+
+
+def _tape_indices(ops: torch.Tensor):
+    """(qi, tj) of a right-aligned op tape: inclusive cumsums of the chars
+    each column consumes, -1 where the column consumes none of that side."""
+    consumes_q = ((ops == MOVE_MATCH) | (ops == MOVE_MISMATCH)
+                  | (ops == MOVE_VERT))
+    consumes_t = (ops >= 0) & (ops != MOVE_VERT)
+    ct_i = consumes_t.to(torch.int32)
+    cq = torch.cumsum(consumes_q.to(torch.int32), dim=1, dtype=torch.int32)
+    ct = torch.cumsum(ct_i, dim=1, dtype=torch.int32)
+    qi = torch.where(consumes_q, cq - 1, -1)
+    tj = torch.where(ops >= 0, ct - ct_i, -1)
+    return qi, tj
+
+
+def traceback_ops(moves: torch.Tensor, seg_qlen: torch.Tensor,
+                  w_end: torch.Tensor, W: int, max_cols: int = 0):
+    """Column traceback from (seg_qlen, w_end) emitting the full op tape.
+
+    moves packed int32 [N, S, W/16].  Returns (ops, qi, tj, n_cols):
+      ops int8 [N, MAXC]: move codes in forward order, right-aligned (the
+        walk emits backwards from the end state), so column c of lane b is
+        ops[b, MAXC - n_cols[b] + c]; -1 in the unused prefix;
+      qi int32 [N, MAXC]: query char index of the column (-1 for deletions);
+      tj int32 [N, MAXC]: target char index (for insertions: the target
+        position the insert precedes);
+      n_cols int32 [N].
+    MAXC = max_cols if given, else 2*S + W (the unconditional worst case).
+    One loop of MAXC steps walks every lane at once; a step is a gather of
+    one move word per lane.
+    """
+    N, S, Wp = moves.shape
+    half = W // 2
+    MAXC = max_cols if max_cols else 2 * S + W
+    flat = moves.reshape(N, S * Wp)
+    i = seg_qlen.to(torch.int32)
+    w = w_end.to(torch.int32)
+    n = torch.zeros_like(i)
+    mv_s = []
+    for _ in range(MAXC):
+        in_dp = i > 0
+        # leading target deletions at row 0: i stays 0, j = w - half falls
+        tail_del = (i == 0) & (w - half > 0)
+        mv = torch.where(in_dp, _read_move(flat, i, w, S, W),
+                         torch.where(tail_del, MOVE_HORIZ, -1))
+        active = mv >= 0
+        di = in_dp & active & (mv != MOVE_HORIZ)
+        dw = torch.where(mv == MOVE_VERT, 1,
+                         torch.where(mv == MOVE_HORIZ, -1, 0))
+        i = i - di.to(torch.int32)
+        w = w + dw
+        n = n + active.to(torch.int32)
+        mv_s.append(mv.to(torch.int8))
+    ops = torch.flip(torch.stack(mv_s, dim=1), dims=[1])
+    qi, tj = _tape_indices(ops)
+    return ops, qi, tj, n
+
+
+def rows_to_tape(mv: torch.Tensor, h: torch.Tensor, w0: torch.Tensor,
+                 W: int, max_cols: int):
+    """Row-walk outputs -> the right-aligned op tape of :func:`traceback_ops`.
+
+    Forward tape = HORIZ^lead_del, then per visited row r ascending: mv_r
+    followed by HORIZ^h_r.  Returns (ops, qi, tj, n_cols) exactly as
+    :func:`traceback_ops` for any walk that fits max_cols (longer walks
+    differ only in which end is cut; both only occur on endpoint-gated
+    segments).
+    """
+    B, S = mv.shape
+    half = W // 2
+    MAXC = max_cols
+    dev = mv.device
+    emitted = mv >= 0
+    hc = torch.cumsum(h, dim=1, dtype=torch.int32)
+    n_rows = emitted.sum(dim=1, dtype=torch.int32)
+    lead = (w0 - half).clamp(min=0)
+    n_full = n_rows + hc[:, -1] + lead
+    n_cols = n_full.clamp(max=MAXC)
+    r_iota = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    p = lead[:, None] + r_iota + (hc - h)        # forward col of mv_r
+    slot = p + (MAXC - n_full)[:, None]
+    # a slot that is not written goes to a sentinel column that is cut off
+    slot = torch.where(emitted & (slot >= 0), slot, MAXC)
+    col = torch.arange(MAXC + 1, dtype=torch.int32, device=dev)[None, :]
+    ops = torch.where(col >= (MAXC - n_cols)[:, None], MOVE_HORIZ, -1
+                      ).to(torch.int8)
+    ops.scatter_(1, slot.long(), mv.to(torch.int8))
+    ops = ops[:, :MAXC].contiguous()
+    qi, tj = _tape_indices(ops)
+    return ops, qi, tj, n_cols
+
+
 class ExtensionResult(NamedTuple):
     q_adv: torch.Tensor     # query bases consumed from the start point
     t_adv: torch.Tensor     # target bases consumed
@@ -405,6 +529,32 @@ def _pair_alignment(left: ExtensionResult, right: ExtensionResult,
         n_segs=left.n_segs + right.n_segs)
 
 
+def _extend_both_with_moves(q, t, qlen, tlen, qseed, tseed, *, S, W,
+                             max_segs, min_seg_identity, max_segs_left, dp):
+    """Both directions, each with its own segment budget and its moves kept.
+
+    Returns (left, right, raw2, G): the two ExtensionResults, the raw
+    per-segment outputs (moves, r_end, w_end, qoff, toff, ok) of both
+    directions concatenated on the segment axis (right first), and the
+    number of right segments G.
+    """
+    Lq, Lt = q.shape[1], t.shape[1]
+    qm = _masked(q, qlen, Q_SENTINEL)
+    tm = _masked(t, tlen, T_SENTINEL)
+    kw = dict(S=S, W=W, min_seg_identity=min_seg_identity, dp=dp,
+              collect_ops=True)
+    right, right_raw = _extend_direction_impl(
+        _pad(qm, S, Q_SENTINEL), _pad(tm, S + W, T_SENTINEL, prefix=W // 2),
+        qseed, tseed, qlen - qseed, tlen - tseed, max_segs=max_segs, **kw)
+    left, left_raw = _extend_direction_impl(
+        _pad(torch.flip(qm, dims=[1]), S, Q_SENTINEL),
+        _pad(torch.flip(tm, dims=[1]), S + W, T_SENTINEL, prefix=W // 2),
+        Lq - qseed, Lt - tseed, qseed, tseed,
+        max_segs=max_segs_left or max_segs, **kw)
+    raw2 = tuple(torch.cat([r, l]) for r, l in zip(right_raw, left_raw))
+    return left, right, raw2, right_raw[0].shape[0]
+
+
 def extend_pair_batch_rows(q: torch.Tensor, t: torch.Tensor,
                            qlen: torch.Tensor, tlen: torch.Tensor,
                            qseed: torch.Tensor, tseed: torch.Tensor,
@@ -424,31 +574,55 @@ def extend_pair_batch_rows(q: torch.Tensor, t: torch.Tensor,
     of segments the direction ran (see :func:`_extend_direction_impl`);
     entries where ``ok`` is False are unspecified.
     """
-    B, Lq = q.shape
-    Lt = t.shape[1]
-    qm = _masked(q, qlen, Q_SENTINEL)
-    tm = _masked(t, tlen, T_SENTINEL)
-    kw = dict(S=S, W=W, min_seg_identity=min_seg_identity, dp=dp,
-              collect_ops=True)
-    right, right_raw = _extend_direction_impl(
-        _pad(qm, S, Q_SENTINEL), _pad(tm, S + W, T_SENTINEL, prefix=W // 2),
-        qseed, tseed, qlen - qseed, tlen - tseed, max_segs=max_segs, **kw)
-    left, left_raw = _extend_direction_impl(
-        _pad(torch.flip(qm, dims=[1]), S, Q_SENTINEL),
-        _pad(torch.flip(tm, dims=[1]), S + W, T_SENTINEL, prefix=W // 2),
-        Lq - qseed, Lt - tseed, qseed, tseed,
-        max_segs=max_segs_left or max_segs, **kw)
-
-    moves2, r2, w2, qo2, to2, ok2 = (torch.cat([r, l]) for r, l
-                                     in zip(right_raw, left_raw))
+    B = q.shape[0]
+    left, right, (moves2, r2, w2, qo2, to2, ok2), G = _extend_both_with_moves(
+        q, t, qlen, tlen, qseed, tseed, S=S, W=W, max_segs=max_segs,
+        min_seg_identity=min_seg_identity, max_segs_left=max_segs_left, dp=dp)
     G2 = moves2.shape[0]
     mv2, h2, wo2, w02 = traceback_rows(
         moves2.reshape(G2 * B, S, -1), r2.reshape(-1), w2.reshape(-1), W)
     mv2, h2, wo2 = (a.reshape(G2, B, S) for a in (mv2, h2, wo2))
     w02 = w02.reshape(G2, B)
-    G = right_raw[0].shape[0]
     right_rows = (mv2[:G], h2[:G], wo2[:G], w02[:G], qo2[:G], to2[:G],
                   ok2[:G])
     left_rows = (mv2[G:], h2[G:], wo2[G:], w02[G:], qo2[G:], to2[G:],
                  ok2[G:])
     return _pair_alignment(left, right, qseed, tseed), right_rows, left_rows
+
+
+def extend_pair_batch_with_ops(q: torch.Tensor, t: torch.Tensor,
+                               qlen: torch.Tensor, tlen: torch.Tensor,
+                               qseed: torch.Tensor, tseed: torch.Tensor,
+                               *, S: int = C.ALIGN_SEGMENT,
+                               W: int = C.ALIGN_BAND, max_segs: int = 64,
+                               min_seg_identity: float
+                               = C.MIN_SEGMENT_IDENTITY,
+                               max_segs_left: int = 0,
+                               dp: Callable = dp_segment_best):
+    """Extend both directions and trace every segment back into op tapes.
+
+    Returns (pa, right_tapes, left_tapes); each tapes tuple is (ops
+    [G, B, MAXC] int8, qi, tj [G, B, MAXC], n_cols [G, B], qoff_before,
+    toff_before, applied [G, B]) in the direction's local coordinates (left:
+    positions in the REVERSED prefixes), with MAXC =
+    :func:`max_tape_cols`.  ONE :func:`traceback_ops` walks every
+    (segment, pair) lane of both directions.  ``n_cols`` is 0 where the
+    segment was not applied.  G is the number of segments the direction ran
+    (the reference always scans its whole budget; the segments it scans
+    past that are all unapplied, with ``n_cols`` 0).
+    """
+    B = q.shape[0]
+    left, right, (moves2, r2, w2, qo2, to2, ok2), G = _extend_both_with_moves(
+        q, t, qlen, tlen, qseed, tseed, S=S, W=W, max_segs=max_segs,
+        min_seg_identity=min_seg_identity, max_segs_left=max_segs_left, dp=dp)
+    G2 = moves2.shape[0]
+    TC = max_tape_cols(S, W, min_seg_identity)
+    ops2, qi2, tj2, nc2 = traceback_ops(
+        moves2.reshape(G2 * B, S, -1), r2.reshape(-1), w2.reshape(-1), W,
+        max_cols=TC)
+    ops2, qi2, tj2 = (a.reshape(G2, B, TC) for a in (ops2, qi2, tj2))
+    nc2 = torch.where(ok2, nc2.reshape(G2, B), 0)
+    right_t = (ops2[:G], qi2[:G], tj2[:G], nc2[:G], qo2[:G], to2[:G],
+               ok2[:G])
+    left_t = (ops2[G:], qi2[G:], tj2[G:], nc2[G:], qo2[G:], to2[G:], ok2[G:])
+    return _pair_alignment(left, right, qseed, tseed), right_t, left_t

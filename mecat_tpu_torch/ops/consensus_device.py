@@ -1,5 +1,6 @@
-"""Device-resident pile-consensus vote (port of the vote stage of
-mecat_tpu.ops.consensus_device): tag counts -> emitted bases, on the device.
+"""Device-resident pile-consensus vote and op-tape stream compaction (port of
+mecat_tpu.ops.consensus_device): tag counts -> emitted bases, and
+per-segment op tapes -> one forward column stream per pair, on the device.
 
 :func:`call_tables` is the single-round call of the reference
 (``keep_template=False, draft_mode=False``): template self-votes, the
@@ -7,6 +8,10 @@ plurality base, homopolymer-run-pooled deletions and insertions, the
 window-pooled insertion rule, all in int32 with the reference's exact
 integer formulas.  Only the small emit/coverage arrays go to the host, where
 :func:`split_called` cuts the corrected read at thin coverage.
+
+:func:`ops_stream` compacts the tapes of
+:func:`..ops.align.extend_pair_batch_with_ops` into the forward op codes
+mapping turns into CIGARs.
 
 Not ported: the op-tape tag route (``accumulate_tags``; the banded route of
 :mod:`.consensus_banded` replaces it), the polish and draft modes, and the
@@ -18,6 +23,92 @@ import numpy as np
 import torch
 
 from .consensus import GAP, VoteParams, default_vote_params
+
+
+def _stream_one_direction(tapes, qseed, tseed, reverse: bool):
+    """One direction's tapes -> (ops, qpos, tpos, slot, n_total) flat views.
+
+    Per-column tensors shaped [B, G*MAXC] (stored layout order), the
+    in-stream slot of every column (template-forward compaction, -1 for an
+    unused column) and the per-pair total column count.
+    """
+    ops, qi, tj, n, qo, to, ok = tapes
+    G, B, MAXC = ops.shape
+    n = n.to(torch.int32)                                     # [G, B]
+    c_idx = torch.arange(MAXC, dtype=torch.int32, device=ops.device)
+    col_valid = c_idx >= (MAXC - n[:, :, None])
+    csum = torch.cumsum(n, dim=0, dtype=torch.int32)
+    if not reverse:
+        # forward order: segments ascending, stored order within segment
+        f = c_idx - (MAXC - n[:, :, None])
+        seg_base = csum - n                                   # [G, B]
+        qpos = torch.where(qi >= 0,
+                           qseed[None, :, None] + qo[:, :, None] + qi, -1)
+        tpos = tseed[None, :, None] + to[:, :, None] + tj
+    else:
+        # left tapes: template-forward = reversed segment order, reversed
+        # within segment
+        f = (MAXC - 1 - c_idx).expand(G, B, MAXC)
+        seg_base = csum[-1][None, :] - csum                   # [G, B]
+        qpos = torch.where(qi >= 0,
+                           qseed[None, :, None] - 1
+                           - (qo[:, :, None] + qi), -1)
+        tpos = tseed[None, :, None] - 1 - (to[:, :, None] + tj)
+    slot = torch.where(col_valid, seg_base[:, :, None] + f, -1)
+
+    def flat(a):
+        return a.transpose(0, 1).reshape(B, G * MAXC)
+
+    return (flat(ops.to(torch.int32)), flat(qpos), flat(tpos), flat(slot),
+            csum[-1])
+
+
+def _build_streams(right_t, left_t, qseed, tseed, CW: int):
+    """Both directions -> template-forward column streams int32 [B, CW]:
+    (ops, qpos, tpos), -1 beyond the alignment.
+
+    (ops, qpos) travel as one scattered word, (qpos + 1) * 4 + ops.  The
+    reference scatters in drop mode: an unused column goes to slot CW and a
+    slot past CW falls out too.  Here every such column goes to a sentinel
+    column CW that is cut off at the end; real slots are unique.
+    """
+    l_ops, l_qpos, l_tpos, l_slot, l_n = _stream_one_direction(
+        left_t, qseed, tseed, reverse=True)
+    r_ops, r_qpos, r_tpos, r_slot, _ = _stream_one_direction(
+        right_t, qseed, tseed, reverse=False)
+    B = l_ops.shape[0]
+    dev = l_ops.device
+    oq_s = torch.full((B, CW + 1), -1, dtype=torch.int32, device=dev)
+    tpos_s = torch.full((B, CW + 1), -1, dtype=torch.int32, device=dev)
+
+    def pack(ops, qpos):
+        return torch.where(ops >= 0, (qpos + 1) * 4 + ops, -1)
+
+    def scat(dst, src, slot):
+        slot = torch.where(slot >= 0, slot, CW).clamp(max=CW)
+        dst.scatter_(1, slot.long(), src)
+
+    # left stream occupies [0, l_n); right follows at l_n
+    scat(oq_s, pack(l_ops, l_qpos), l_slot)
+    scat(tpos_s, l_tpos, l_slot)
+    r_slot_g = torch.where(r_slot >= 0, r_slot + l_n[:, None], -1)
+    scat(oq_s, pack(r_ops, r_qpos), r_slot_g)
+    scat(tpos_s, r_tpos, r_slot_g)
+    oq_s, tpos_s = oq_s[:, :CW], tpos_s[:, :CW]
+
+    ops_s = torch.where(oq_s >= 0, oq_s & 3, -1)
+    qpos_s = torch.where(oq_s >= 0, (oq_s >> 2) - 1, -1)
+    return ops_s, qpos_s, tpos_s
+
+
+def ops_stream(right_t, left_t, qseed, tseed, CW: int) -> torch.Tensor:
+    """Forward-ordered alignment op codes per pair, compacted on the device.
+
+    int8 [B, CW]: ops (0..3) in template-forward order starting at slot 0,
+    -1 beyond the alignment; all mapping needs for exact CIGARs.
+    """
+    o, _, _ = _build_streams(right_t, left_t, qseed, tseed, CW)
+    return o.to(torch.int8)
 
 
 def _first_argmax(x: torch.Tensor):

@@ -42,11 +42,15 @@ def probe_hits(bases, lengths, offsets, pos_rid, pos_loc, cutoff: int,
                self_id, *, k: int = C.KMER_SIZE,
                stride: int = C.KMER_SCAN_STRIDE,
                max_occ: int = C.MAX_OCC_PER_KMER,
-               diag_bin: int = C.DDF_DIAG_BIN):
+               diag_bin: int = C.DDF_DIAG_BIN,
+               diag_shift: int = _DIAG_SHIFT):
     """Sampled k-mer probe -> flat (rid, dbin, qpos, toff, valid) hits [B, H].
 
     bases uint8 [B, L] (oriented), lengths and self_id int32 [B] (self_id -1:
-    no self read).  H = ceil(L / stride) * max_occ.
+    no self read).  H = ceil(L / stride) * max_occ.  ``diag_shift`` is added
+    to the diagonal before binning; the sum stays int32 and the bin is a
+    floor division, so target offsets past the shift (negative sums) keep
+    distinct, ordered bins.
     """
     B, L = bases.shape
     Q = (L + stride - 1) // stride
@@ -60,7 +64,7 @@ def probe_hits(bases, lengths, offsets, pos_rid, pos_loc, cutoff: int,
     toff = hit_loc.reshape(B, H)
     hqpos = qpos[None, :, None].expand(B, Q, max_occ).reshape(B, H)
     hvalid = hit_valid.reshape(B, H) & (rid != self_id[:, None])
-    dbin = torch.div(hqpos - toff + _DIAG_SHIFT, diag_bin,
+    dbin = torch.div(hqpos - toff + diag_shift, diag_bin,
                      rounding_mode="floor").to(torch.int32)
     return rid, dbin, hqpos, toff, hvalid
 
@@ -123,9 +127,10 @@ def scan_candidates(bases, lengths, offsets, pos_rid, pos_loc, cutoff: int,
                     stride: int = C.KMER_SCAN_STRIDE,
                     max_occ: int = C.MAX_OCC_PER_KMER,
                     num_candidates: int = C.DEFAULT_NUM_CANDIDATES,
-                    diag_bin: int = C.DDF_DIAG_BIN) -> Candidates:
+                    diag_bin: int = C.DDF_DIAG_BIN,
+                    diag_shift: int = _DIAG_SHIFT) -> Candidates:
     """Single-device candidate scan: probe_hits -> score_hits."""
     hits = probe_hits(bases, lengths, offsets, pos_rid, pos_loc, cutoff,
                       self_id, k=k, stride=stride, max_occ=max_occ,
-                      diag_bin=diag_bin)
+                      diag_bin=diag_bin, diag_shift=diag_shift)
     return score_hits(*hits, num_candidates=num_candidates)

@@ -2,11 +2,11 @@
 
 The source replaces ``mecat_tpu/ops/pallas_dp.py:_dp_kernel`` in both forms:
 counts only (:func:`dp_segment_best_cuda`) and move-writing
-(:func:`dp_segment_best_moves_cuda`).  It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with plain C entry points at first CUDA
-use, rebuilt when the source changes, and called through ``ctypes`` on
-PyTorch's current stream.  Nothing here runs at import: CPU-only machines
-import this module freely.
+(:func:`dp_segment_best_moves_cuda`).  :mod:`.cuda_build` compiles it with
+``nvcc`` for ``sm_90a`` into a shared library with plain C entry points at
+first CUDA use, and it is called through ``ctypes`` on PyTorch's current
+stream.  Nothing here runs at import: CPU-only machines import this module
+freely.
 
 ``LAUNCHES`` and ``LAUNCHES_MOVES`` count the launches of the two kernels,
 so a run can show that its DP went through them.
@@ -14,20 +14,13 @@ so a run can show that its DP went through them.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "dp_segment.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libmecat_dp.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from . import cuda_build
+from .cuda_build import check_tensor as _check
+
+LIBRARY = "mecat_dp"
 #: the C entry point's answer to a shape the kernel does not take
 #: (cudaErrorInvalidValue); the geometry checks live in the .cu file
 _INVALID_VALUE = 1
@@ -41,50 +34,11 @@ LAUNCHES_MOVES = 0
 _lib = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the DP kernel cannot be built")
-    return path
-
-
-def build(verbose: bool = False) -> float:
-    """Compile the kernel library unless an up-to-date one exists.
-
-    The library carries a stamp with the source's SHA-256; a changed source
-    rebuilds.  Returns the seconds spent compiling (0.0 when up to date).
-    """
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()
-    stamp = LIB_PATH + ".sha256"
-    if os.path.exists(LIB_PATH) and os.path.exists(stamp):
-        with open(stamp) as fh:
-            if fh.read().strip() == digest:
-                return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, SOURCE]
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, flush=True)
-    os.replace(tmp, LIB_PATH)
-    with open(stamp, "w") as fh:
-        fh.write(digest)
-    return time.time() - t0
-
-
 def _load():
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIB_PATH)
+        cuda_build.build(LIBRARY)
+        lib = ctypes.CDLL(cuda_build.lib_path(LIBRARY))
         for fn, n_ptr in ((lib.mecat_dp_segment_best, 8),
                           (lib.mecat_dp_segment_best_moves, 9)):
             fn.argtypes = ([ctypes.c_void_p] * n_ptr
@@ -92,18 +46,6 @@ def _load():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def _launch(q_seg, tpad, tmax, seg_q, active, S: int, W: int,

@@ -1,7 +1,8 @@
 """Inputs and option sets shared by the port's tests and ``chip_smoke.py``.
 
 ``dp_inputs`` makes DP-segment lanes as the kernel takes them,
-``pair_inputs`` query/target pairs with seeds for the segmented extension;
+``pair_inputs`` query/target pairs with seeds for the segmented extension,
+``roll_micro_inputs`` lanes for the row-update micro-benchmark family;
 ``GOLDEN_J1`` / ``GOLDEN_J0`` are the ``PwOptions`` that produced
 ``tests/golden/overlaps.m4`` and ``tests/golden/candidates.txt``, and
 ``GOLDEN_CNS`` the ``CnsOptions`` of ``tests/golden/corrected.fasta``.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .tools.roll_micro import make_inputs as roll_micro_tool_inputs
 from .utils.sim import mutate
 
 GOLDEN_J1 = dict(task=1, kmer_size=9, scan_stride=4, min_align_size=400,
@@ -88,3 +90,30 @@ def pair_inputs(n, L, seed):
     tlen[6] = L + 300
     tseed[6] = L + 100
     return q, t, qlen, tlen, qseed, tseed
+
+
+def roll_micro_inputs(S: int, W: int, n: int, seed: int):
+    """Lanes for the row-update micro-benchmark family.
+
+    The first half are the tool's own lanes (one source, seed 7, as the
+    query; its 1/1/1 % mutation, seed 11, as the target; tmax = S + W/2,
+    segq = S).  The second half have their own 4/4/4 % mutated sequences
+    and varied tmax and segq, with edge lanes: no valid cell (tmax = -1,
+    where every ``elem`` key is the wrapped masked one), segq = 0 and a
+    2-base target.  Returns numpy (q u8 [n,S], t u8 [n,S+W], tmax i32 [n],
+    segq i32 [n]).
+    """
+    q, t, tmax, segq = roll_micro_tool_inputs(n, S, W)
+    rng = np.random.default_rng(seed)
+    for b in range(n // 2, n):
+        own = rng.integers(0, 4, S + W, dtype=np.uint8)
+        dst = mutate(own, rng, 0.04, 0.04, 0.04)[:S + W]
+        q[b] = own[:S]
+        t[b] = 0
+        t[b, :len(dst)] = dst
+        tmax[b] = rng.integers(0, S + W // 2 + 1)
+        segq[b] = rng.integers(0, S + 1)
+    tmax[n // 2 + 1] = -1
+    segq[n // 2 + 2] = 0
+    tmax[n // 2 + 3] = 2
+    return q, t, tmax, segq

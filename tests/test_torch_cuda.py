@@ -1,4 +1,4 @@
-"""The Hopper DP kernels on the card, held against their plain PyTorch version.
+"""The Hopper kernels on the card, held against their plain PyTorch versions.
 
 Every test needs a CUDA device with nvcc and skips elsewhere.  The GPU
 machine has no JAX and tests/conftest.py imports it, so run this file
@@ -16,10 +16,10 @@ torch = pytest.importorskip("torch")
 
 from mecat_tpu_torch.index.kmer_index import build_index
 from mecat_tpu_torch.io.packed_db import PackedDB
-from mecat_tpu_torch.ops import align, dp_kernel
+from mecat_tpu_torch.ops import align, dp_kernel, roll_micro
 from mecat_tpu_torch.pipeline.device_step import overlap_step
 from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
-from mecat_tpu_torch.testing import GOLDEN_J1, dp_inputs
+from mecat_tpu_torch.testing import GOLDEN_J1, dp_inputs, roll_micro_inputs
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 pytestmark = pytest.mark.cuda
@@ -28,7 +28,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("the DP kernel runs only on a CUDA device")
+        pytest.skip("the kernels run only on a CUDA device")
     return torch.device("cuda")
 
 
@@ -151,3 +151,85 @@ def test_run_pw_golden_bytes_on_cuda(cuda):
         with open(out, "rb") as fh, \
                 open(os.path.join(GOLDEN, "overlaps.m4"), "rb") as gh:
             assert fh.read() == gh.read()
+
+
+@pytest.mark.parametrize("name", list(roll_micro.VARIANTS))
+@pytest.mark.parametrize("S,W", [(64, 32), (128, 64), (512, 128)])
+def test_roll_micro_kernel_matches_plain(cuda, name, S, W):
+    """All 8 output rows on every lane: the tool's lanes, lanes with varied
+    tmax and segq, a lane with no valid cell (the wrapped elem key)."""
+    rolls, best = roll_micro.VARIANTS[name]
+    args = [torch.as_tensor(a, device=cuda)
+            for a in roll_micro_inputs(S, W, 512, seed=S + W)]
+    before = roll_micro.LAUNCHES
+    got = roll_micro.roll_micro(*args, S, W, rolls, best)
+    want = roll_micro.roll_micro_plain(*args, S, W, rolls, best)
+    torch.cuda.synchronize()
+    assert roll_micro.LAUNCHES == before + 1
+    assert got.shape == (512, 8) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+def test_roll_micro_kernel_rejects_what_it_does_not_take(cuda):
+    S, W = 128, 64
+    q, t, tmax, segq = (torch.as_tensor(a, device=cuda)
+                        for a in roll_micro_inputs(S, W, 64, seed=2))
+    with pytest.raises(ValueError):      # not one of the five variants
+        roll_micro.roll_micro_cuda(q, t, tmax, segq, S, W, False, "elem")
+    with pytest.raises(ValueError):
+        roll_micro.roll_micro_cuda(q, t.new_zeros(64, S + 96), tmax, segq, S,
+                                   96, True, "log")
+    with pytest.raises(TypeError):
+        roll_micro.roll_micro_cuda(q, t, tmax.long(), segq, S, W, True, "log")
+    with pytest.raises(ValueError):
+        roll_micro.roll_micro_cuda(q, t, tmax, segq, S, W, True, "best")
+
+
+@pytest.mark.parametrize("S,W", [(128, 64), (512, 128)])
+def test_column_traceback_of_kernel_moves_matches_plain(cuda, S, W):
+    """traceback_ops reads the kernel's move words like the plain version's
+    wherever the segment has an endpoint (the rows above r_best are not
+    written by the kernel and not read by the walk)."""
+    args = [torch.as_tensor(a, device=cuda)
+            for a in dp_inputs(S, W, 512, seed=23)]
+    got = align.dp_segment_best(*args, S, W, want_moves=True)
+    want = align.dp_segment_best_plain(*args, S, W, want_moves=True)
+    r_best, w_best, d_best = got[1], got[2], got[4]
+    TC = align.max_tape_cols(S, W, 0.7)
+    reach = d_best < align.INF
+    assert int(reach.sum()) > 400
+    for g, w in zip(align.traceback_ops(got[0], r_best, w_best, W, TC),
+                    align.traceback_ops(want[0], r_best, w_best, W, TC)):
+        assert torch.equal(g[reach], w[reach])
+
+
+def test_run_ref_on_cuda_matches_cpu_bytes(cuda):
+    from mecat_tpu_torch.io.fasta import write_fasta
+    from mecat_tpu_torch.pipeline.ref import RefOptions, run_ref
+    from mecat_tpu_torch.utils.sim import random_genome, simulate_reads
+
+    opts = dict(num_candidates=8, num_extend=3, min_align_size=400,
+                kmer_size=10, scan_stride=5, scan_batch=16, extend_batch=32,
+                align_segment=128, align_band=64)
+    genome = random_genome(30000, seed=81)
+    db, _ = simulate_reads(genome, 12, mean_len=2000, min_len=1000, seed=83,
+                           error_rate=0.08)
+    with tempfile.TemporaryDirectory() as d:
+        ref, reads = os.path.join(d, "g.fasta"), os.path.join(d, "r.fasta")
+        write_fasta(ref, [("chr1", genome)])
+        write_fasta(reads, [(db.name(i), db.read(i))
+                            for i in range(db.n_reads)])
+        for fmt in ("sam", "m4"):
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(d, f"{dev}.{fmt}")
+                stats = run_ref(reads, ref, out, os.path.join(d, f"w{dev}"),
+                                RefOptions(output_format=fmt, **opts),
+                                device=dev)
+                with open(out, "rb") as fh:
+                    outs[dev] = fh.read()
+                if dev == "cuda":
+                    assert stats.dp_launches > 0
+                    assert (stats.dp_launches_moves > 0) == (fmt == "sam")
+                    assert stats.mapped == db.n_reads
+            assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 200

@@ -14,12 +14,13 @@ pytest.importorskip("torch")
 from mecat_tpu import constants as ref_C
 from mecat_tpu.io import fasta as ref_fasta
 from mecat_tpu.io import m4 as ref_m4
+from mecat_tpu.io import sam as ref_sam
 from mecat_tpu.io.packed_db import PackedDB as RefDB
 from mecat_tpu.ops import consensus as ref_consensus
 from mecat_tpu.pipeline import common as ref_common
 from mecat_tpu.utils import sim as ref_sim
 from mecat_tpu_torch import constants as C
-from mecat_tpu_torch.io import fasta, m4
+from mecat_tpu_torch.io import fasta, m4, sam
 from mecat_tpu_torch.io.packed_db import PackedDB
 from mecat_tpu_torch.ops import consensus
 from mecat_tpu_torch.pipeline import common
@@ -168,3 +169,31 @@ def test_simulator_matches_reference():
     _assert_db_equal(got, want)
     assert ([(t.start, t.end, t.strand) for t in got_truth]
             == [(t.start, t.end, t.strand) for t in want_truth])
+
+
+def test_sam_text_matches_reference():
+    contigs = [("chr1", 30000), ("chr2", 20000)]
+    assert sam.sam_header(contigs) == ref_sam.sam_header(contigs)
+    assert "@PG\tID:mecat_tpu\tPN:mecat2ref\tVN:0.1.0" in sam.sam_header([])
+    rng = np.random.default_rng(21)
+    cases = [(np.zeros(0, np.int8), 0, 0, 5), (np.zeros(0, np.int8), 0, 0, 0),
+             (np.array([0, 0, 1, 2, 0, 3, 3, 0], np.int32), 2, 8, 10)]
+    for n in (1, 7, 400):
+        ops = rng.choice(4, n, p=[0.7, 0.1, 0.1, 0.1]).astype(np.int8)
+        nq = int((ops != 3).sum())
+        cases.append((ops, 3, 3 + nq, 3 + nq + 4))
+        cases.append((ops, 0, nq, nq))
+    for ops, qb, qe, qsize in cases:
+        assert (sam.cigar_from_ops(ops, qb, qe, qsize)
+                == ref_sam.cigar_from_ops(ops, qb, qe, qsize))
+    assert sam.cigar_from_ops(cases[2][0], 2, 8, 10) == "2S3M1I1M2D1M2S"
+    for codes in (rng.integers(0, 4, 50, dtype=np.uint8),
+                  np.zeros(0, np.uint8)):
+        assert (sam.sam_line("r1", 16, "chr2", 1233, 37, "10M", codes,
+                             tags="NM:i:3\tAS:i:40")
+                == ref_sam.sam_line("r1", 16, "chr2", 1233, 37, "10M", codes,
+                                    tags="NM:i:3\tAS:i:40"))
+        assert (sam.sam_line("r1", 0, "chr1", 0, 60, "*", codes)
+                == ref_sam.sam_line("r1", 0, "chr1", 0, 60, "*", codes))
+        assert (sam.sam_unmapped("junk", codes)
+                == ref_sam.sam_unmapped("junk", codes))

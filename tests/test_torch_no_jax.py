@@ -4,11 +4,11 @@ A subprocess blocks ``jax`` and ``jaxlib`` on ``sys.meta_path``, imports
 every module of ``mecat_tpu_torch`` and ``chip_smoke``, runs
 ``run_pw(device="cpu")`` on the golden reads, which must reproduce
 ``tests/golden/overlaps.m4``, and runs the ``mecat2cns`` CLI on a cut of the
-golden candidates, which must correct the templates it keeps whole.  Neither
-JAX
-nor the JAX package
-(``mecat_tpu``, whose init configures JAX) may be loaded at the end, and
-``chip_smoke.main()`` must refuse to run without a CUDA device.
+golden candidates, which must correct the templates it keeps whole.  It then
+maps the golden reads back onto three of them with the ``mecat2ref`` CLI and
+runs the ``roll_micro`` tool, both on ``--device cpu``.  Neither JAX nor
+the JAX package (``mecat_tpu``, whose init configures JAX) may be loaded at
+the end, and ``chip_smoke.main()`` must refuse to run without a CUDA device.
 """
 import os
 import subprocess
@@ -82,6 +82,47 @@ with tempfile.TemporaryDirectory() as d:
         assert e.code == 2
     else:
         raise AssertionError("--rounds 2 did not exit")
+    # mapping through the CLI: the golden reads against three of their own
+    # number as the reference, so those three map onto themselves in full
+    from mecat_tpu_torch.cli import mecat2ref
+    from mecat_tpu_torch.io.fasta import write_fasta
+
+    recs = list(iter_fasta(os.path.join(golden, "reads.fasta")))
+    ref = os.path.join(d, "ref.fasta")
+    write_fasta(ref, [(r.name, r.codes) for r in recs[:3]])
+    sam = os.path.join(d, "out.sam")
+    rc = mecat2ref.main(["-d", os.path.join(golden, "reads.fasta"), "-r", ref,
+                         "-w", os.path.join(d, "wr"), "-o", sam, "-a", "400",
+                         "--kmer-size", "9", "--scan-stride", "4",
+                         "--scan-batch", "8", "--extend-batch", "32",
+                         "--align-segment", "128", "--align-band", "64",
+                         "--device", "cpu"])
+    assert rc == 0
+    with open(sam) as fh:
+        lines = [ln.split("\t") for ln in fh if not ln.startswith("@")]
+    assert len(lines) == len(recs)
+    for r, f in zip(recs[:3], lines[:3]):
+        assert (f[0], f[1], f[2], f[3]) == (r.name, "0", r.name, "1"), f[:6]
+        assert f[5] == f"{len(r.codes)}M", f[5]
+    try:
+        mecat2ref.main(["-d", "a", "-r", "b", "-w", "c", "-o", "e",
+                        "--device", "cuda"])
+    except SystemExit as e:
+        assert e.code == 2
+    else:
+        raise AssertionError("mecat2ref started without its device")
+    # the row-update micro-benchmark's tool: the plain version on the CPU,
+    # and no start at all on a missing card
+    from mecat_tpu_torch.tools import roll_micro
+
+    assert roll_micro.main(["--b", "4", "--s", "16", "--w", "32", "--reps",
+                            "1", "--device", "cpu"]) == 0
+    try:
+        roll_micro.main(["--b", "4", "--s", "16", "--w", "32"])
+    except SystemExit as e:
+        assert e.code == 2
+    else:
+        raise AssertionError("the roll_micro tool started without a card")
 import chip_smoke
 
 assert chip_smoke.main([]) != 0, "chip_smoke ran without a CUDA device"
@@ -101,5 +142,5 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_mods = int(proc.stdout.split("NO_JAX_OK")[1])
-    assert n_mods >= 23
+    assert n_mods >= 29
     assert '"ok"' not in proc.stdout           # no result line from the smoke
