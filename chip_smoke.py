@@ -15,7 +15,13 @@ non-zero exit and no result line:
    lanes included).  Counts-only kernel: r, w, j, d, ind equal on every
    lane.  Move-writing kernel: the same, the packed move words equal on
    every row up to the lane's best row, and the row tracebacks of the two
-   move matrices equal on every lane.  The ``roll_micro`` family, 2048
+   move matrices equal on every lane.  Then both DP wrappers alone
+   (``ops/dp_kernel``, nothing around them) at the shapes the paths
+   launch: (512, 128), full-length segments, 64 / 256 / 1,024 / 4,096 live
+   lanes scattered over 4,096 and 64 of 128, every lane held against the
+   plain version; ms a launch replayed from a CUDA graph, ms of one launch
+   from the host, ns a row, and the bound on the same inputs
+   (``--kernels-only`` stops here).  The ``roll_micro`` family, 2048
    lanes (the tool's own lanes plus lanes with varied tmax and segq): all 8
    output rows of each of the five variants equal on every lane; then the
    tool itself, ``mecat_tpu_torch.tools.roll_micro`` at its defaults, whose
@@ -98,7 +104,7 @@ ROLL_REPLACES = "tools/roll_micro.py:155"                  # build_call
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 #: int32 operations per DP cell, as the kernel source's header counts them
-OPS_PER_CELL = {False: 15, True: 21}
+OPS_PER_CELL = {False: 12, True: 18}
 
 # bench workload (bench.py:57-65)
 GENOME, COVERAGE, MEAN_LEN, B, L = 500_000, 15, 5000, 128, 8192
@@ -144,6 +150,25 @@ def cuda_median_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def cuda_graph_ms(fn, launches: int = 20, reps: int = 7) -> float:
+    """Device time of one call of ``fn`` with no host in the way: ``launches``
+    calls captured into one CUDA graph, the graph replayed ``reps`` times
+    between events; the median replay over ``launches``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_median_ms(graph.replay, reps) / launches
+    del graph
+    return ms
 
 
 def dp_bound(tmax, seg_q, active, S: int, W: int, with_moves: bool) -> dict:
@@ -229,6 +254,79 @@ def phase_kernel(S: int, W: int) -> dict:
             f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}")
         out[with_moves] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                **bound)
+    return out
+
+
+#: (lanes, live lanes) of the launches the paths make: the overlap and
+#: mapping paths launch 4,096 lanes of which 64-1,024 are live, the
+#: correction path 128 lanes of which about half are
+PATH_SHAPES = ((4096, 64), (4096, 256), (4096, 1024), (4096, 4096),
+               (128, 64))
+
+
+def phase_kernel_path_shapes(S: int, W: int) -> dict:
+    """Both kernels alone (the wrappers of ``ops/dp_kernel``, nothing
+    around them) at the shapes the paths launch: full-length segments
+    (``seg_q = S``), the live lanes scattered over the launch.  Every lane
+    is first held against the plain version.  Returns {with_moves: {"live
+    of lanes": numbers}}; ``ns_row`` is the kernel time over the rows of
+    the longest lane.  ``ms`` is the device time of a launch replayed from
+    a CUDA graph (back to back, no host between launches), ``one_launch_ms``
+    the time between two events around one call from the host, which holds
+    the wrapper's host time wherever the kernel is shorter than it."""
+    import torch
+
+    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops.align import dp_segment_best_plain
+    from mecat_tpu_torch.testing import dp_inputs_full
+
+    dev = torch.device("cuda")
+    q, tpad, tmax, seg_q = (
+        torch.as_tensor(a, device=dev)
+        for a in dp_inputs_full(S, W, max(n for n, _ in PATH_SHAPES),
+                                seed=141))
+    rng = np.random.default_rng(142)
+    out = {False: {}, True: {}}
+    for lanes, live in PATH_SHAPES:
+        mask = np.zeros(lanes, bool)
+        mask[rng.choice(lanes, live, replace=False)] = True
+        active = torch.as_tensor(mask, device=dev)
+        args = (q[:lanes], tpad[:lanes], tmax[:lanes], seg_q[:lanes], active)
+        rows = int(torch.minimum(seg_q[:lanes],
+                                 tmax[:lanes] + W // 2 + 1)[active].max())
+        for with_moves in (False, True):
+            fn = (dp_kernel.dp_segment_best_moves_cuda if with_moves
+                  else dp_kernel.dp_segment_best_cuda)
+            got = fn(*args, S, W)
+            want = dp_segment_best_plain(*args, S, W, want_moves=with_moves)
+            torch.cuda.synchronize()
+            r, w, v = got[-3:]
+            j = r - W // 2 + w
+            if not (torch.equal(r, want[-5]) and torch.equal(w, want[-4])
+                    and torch.equal(j, want[-3])):
+                raise AssertionError(
+                    f"kernel != plain at {live} live of {lanes} lanes, "
+                    f"moves={with_moves}")
+            if with_moves:
+                row = torch.arange(1, S + 1, device=dev)[None, :, None]
+                readable = row <= r[:, None, None]
+                if not torch.equal(torch.where(readable, got[0], 0),
+                                   torch.where(readable, want[0], 0)):
+                    raise AssertionError(
+                        f"move words differ at {live} live of {lanes} lanes")
+            del got, want
+            one_ms = cuda_median_ms(lambda: fn(*args, S, W), 21)
+            ms = cuda_graph_ms(lambda: fn(*args, S, W))
+            bound = dp_bound(tmax[:lanes], seg_q[:lanes], active, S, W,
+                             with_moves)
+            what = "moves kernel" if with_moves else "kernel"
+            say(f"phase 2: {what} alone at S={S} W={W}, {live} live of "
+                f"{lanes} lanes: {ms:.4f} ms a launch replayed from a CUDA "
+                f"graph, {1e6 * ms / rows:.1f} ns a row ({rows} rows); one "
+                f"launch from the host between two events {one_ms:.4f} ms; "
+                f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+            out[with_moves][f"{live} of {lanes}"] = dict(
+                ms=ms, ns_row=1e6 * ms / rows, one_launch_ms=one_ms, **bound)
     return out
 
 
@@ -935,6 +1033,9 @@ def main(argv=None) -> int:
                    help="profile one more phase-4 pass (full table to PATH), "
                         "the phase-6 cns pass (table to PATH.cns) and a "
                         "phase-9 mapping run (table to PATH.ref)")
+    p.add_argument("--kernels-only", action="store_true",
+                   help="stop after phase 2's DP kernel checks and timings "
+                        "(no result line)")
     args = p.parse_args(argv)
 
     import torch
@@ -960,6 +1061,12 @@ def main(argv=None) -> int:
 
     shapes = ((128, 64), (512, 128))
     stats = {(S, W): phase_kernel(S, W) for S, W in shapes}
+    path_shapes = phase_kernel_path_shapes(CFG["S"], CFG["W"])
+    if args.kernels_only:
+        say(json.dumps({"path_shapes": {
+            "moves" if m else "counts": v for m, v in path_shapes.items()}}))
+        say(f"card: {card}")
+        return 0
     roll = {(S, W): phase_roll_micro(S, W) for S, W in shapes}
     roll_launches = phase_roll_micro_tool()
 
@@ -1003,7 +1110,9 @@ def main(argv=None) -> int:
             **{k: main_shape[with_moves][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             # no single PyTorch call computes a banded min-plus DP segment
-            "library_ms": None})
+            "library_ms": None,
+            # the wrapper alone at the shapes the paths launch
+            "path_shapes": path_shapes[with_moves]})
     # the tool runs S 512, W 128; the family's headline numbers are `full`'s
     roll_main = roll[(512, 128)]
     kernels.append({

@@ -39,8 +39,8 @@ def _load():
     if _lib is None:
         cuda_build.build(LIBRARY)
         lib = ctypes.CDLL(cuda_build.lib_path(LIBRARY))
-        for fn, n_ptr in ((lib.mecat_dp_segment_best, 8),
-                          (lib.mecat_dp_segment_best_moves, 9)):
+        for fn, n_ptr in ((lib.mecat_dp_segment_best, 9),
+                          (lib.mecat_dp_segment_best_moves, 10)):
             fn.argtypes = ([ctypes.c_void_p] * n_ptr
                            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -65,11 +65,13 @@ def _launch(q_seg, tpad, tmax, seg_q, active, S: int, W: int,
     r = torch.empty(B, dtype=torch.int32, device=dev)
     w = torch.empty(B, dtype=torch.int32, device=dev)
     v = torch.empty(B, dtype=torch.int32, device=dev)
-    # zero-filled: the kernel leaves rows past its early stop unwritten
-    moves = (torch.zeros((B, S, max(W // 16, 1)), dtype=torch.int32,
+    # the kernel writes every word: zeros in the rows it does not compute
+    moves = (torch.empty((B, S, max(W // 16, 1)), dtype=torch.int32,
                          device=dev) if with_moves else None)
     if B == 0:
         return r, w, v, moves
+    # scratch: the kernel's warps count the lanes they have taken in it
+    next_lane = torch.empty(1, dtype=torch.int32, device=dev)
     ptrs = [q_seg.data_ptr(), tpad.data_ptr(), tmax.data_ptr(),
             seg_q.data_ptr(), active.data_ptr(), r.data_ptr(), w.data_ptr(),
             v.data_ptr()]
@@ -77,6 +79,7 @@ def _launch(q_seg, tpad, tmax, seg_q, active, S: int, W: int,
     if with_moves:
         ptrs.append(moves.data_ptr())
         fn = lib.mecat_dp_segment_best_moves
+    ptrs.append(next_lane.data_ptr())
     with torch.cuda.device(dev):
         rc = fn(*ptrs, B, S, W, torch.cuda.current_stream().cuda_stream)
     if rc == _INVALID_VALUE:
@@ -108,7 +111,7 @@ def dp_segment_best_moves_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
                                active: torch.Tensor, S: int, W: int):
     """Launch the move-writing kernel; returns (moves, r_best, w_best,
     v_best): moves int32 [B, S, W/16], 16 2-bit codes per word, zero in the
-    rows the kernel did not reach (past ``seg_q`` or an all-VINF row) and in
+    rows the kernel did not compute (past ``min(seg_q, tmax + W/2)``) and in
     inactive lanes; the rest as :func:`dp_segment_best_cuda`.
     """
     global LAUNCHES_MOVES

@@ -19,7 +19,8 @@ from mecat_tpu_torch.io.packed_db import PackedDB
 from mecat_tpu_torch.ops import align, dp_kernel, roll_micro
 from mecat_tpu_torch.pipeline.device_step import overlap_step
 from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
-from mecat_tpu_torch.testing import GOLDEN_J1, dp_inputs, roll_micro_inputs
+from mecat_tpu_torch.testing import (GOLDEN_J1, dp_inputs, dp_inputs_full,
+                                     roll_micro_inputs)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 pytestmark = pytest.mark.cuda
@@ -73,6 +74,91 @@ def test_dp_moves_kernel_matches_plain(cuda, S, W):
     for g, w in zip(align.traceback_rows(moves, r_best, w_best, W),
                     align.traceback_rows(want[0], r_best, w_best, W)):
         assert torch.equal(g, w)
+
+
+def _assert_kernels_match_plain(args, S, W):
+    """Both kernels on these lanes: (r, w, j, d, ind) on every lane, the
+    move words of rows 1..r_best, zeros above the lane's last row."""
+    want = align.dp_segment_best_plain(*args, S, W, want_moves=True)
+    got = align.dp_segment_best(*args, S, W)
+    got_m = align.dp_segment_best(*args, S, W, want_moves=True)
+    torch.cuda.synchronize()
+    for g, gm, w in zip(got, got_m[1:], want[1:]):
+        assert torch.equal(g, w) and torch.equal(gm, w)
+    tmax, seg_q, active = args[2:]
+    row = torch.arange(1, S + 1, device=tmax.device)[None, :, None]
+    readable = (row <= got_m[1][:, None, None]) & active[:, None, None]
+    assert torch.equal(torch.where(readable, got_m[0], 0),
+                       torch.where(readable, want[0], 0))
+    last = torch.minimum(seg_q, tmax + W // 2).clamp(min=0)
+    last = torch.where(active & (tmax >= 0), last, 0)
+    assert not bool(torch.where(row > last[:, None, None], got_m[0], 0).any())
+    return got_m
+
+
+@pytest.mark.parametrize("lanes,live", [(4096, 64), (128, 1), (128, 64)])
+def test_dp_kernels_with_few_live_lanes(cuda, lanes, live):
+    """The launches the paths make: full-length segments, most lanes
+    inactive, the live ones scattered."""
+    S, W = 512, 128
+    q, tpad, tmax, seg_q = dp_inputs_full(S, W, lanes, seed=31)
+    mask = np.zeros(lanes, bool)
+    mask[np.random.default_rng(lanes + live).choice(lanes, live,
+                                                    replace=False)] = True
+    args = [torch.as_tensor(a, device=cuda)
+            for a in (q, tpad, tmax, seg_q, mask)]
+    got = _assert_kernels_match_plain(args, S, W)
+    assert int((got[1] > S // 2).sum()) == live
+    assert not bool(got[0][~args[4]].any())
+
+
+@pytest.mark.parametrize("S,W", [(128, 64), (512, 128)])
+def test_dp_kernels_short_lane_next_to_full_lanes(cuda, S, W):
+    """Lanes of one block (four neighbours) that end on different rows: a
+    short query, a short target, an empty one, between full-length lanes."""
+    q, tpad, tmax, seg_q = dp_inputs_full(S, W, 64, seed=37)
+    seg_q[1::4] = np.arange(16) * (S // 16) + 1       # 1 .. S - S/16 + 1
+    tmax[2:32:4] = np.arange(8) * 5                   # the band leaves t
+    tmax[34] = -1
+    seg_q[38] = 0
+    args = [torch.as_tensor(a, device=cuda)
+            for a in (q, tpad, tmax, seg_q, np.ones(64, bool))]
+    got = _assert_kernels_match_plain(args, S, W)
+    assert bool((got[1][0::4] > S // 2).all())        # the full lanes
+
+
+def test_dp_moves_kernel_writes_every_word_of_an_uninitialised_buffer(
+        cuda, monkeypatch):
+    """The wrapper allocates the move buffer with torch.empty; the kernel
+    must write zeros into every row it does not compute.  Here torch.empty
+    hands out buffers full of ones."""
+    S, W = 512, 128
+    q, tpad, tmax, seg_q, active = dp_inputs(S, W, 256, seed=41)
+    seg_q[3], seg_q[8], tmax[9] = 17, 300, 40
+    args = [torch.as_tensor(a, device=cuda)
+            for a in (q, tpad, tmax, seg_q, active)]
+    real_empty = torch.empty
+    asked = []
+
+    def ones_empty(*size, **kw):
+        asked.append(size)
+        return real_empty(*size, **kw).fill_(1)
+
+    monkeypatch.setattr(torch, "empty", ones_empty)
+    moves, r_best, _, _ = dp_kernel.dp_segment_best_moves_cuda(*args, S, W)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert ((256, S, W // 16),) in asked
+    tmax, seg_q, active = args[2:]
+    last = torch.minimum(seg_q, tmax + W // 2).clamp(min=0)
+    last = torch.where(active & (tmax >= 0), last, 0)
+    assert bool((r_best <= last).all())
+    row = torch.arange(1, S + 1, device=cuda)[None, :, None]
+    assert not bool(torch.where(row > last[:, None, None], moves, 0).any())
+    want = align.dp_segment_best_plain(*args, S, W, want_moves=True)[0]
+    readable = (row <= r_best[:, None, None]) & active[:, None, None]
+    assert torch.equal(torch.where(readable, moves, 0),
+                       torch.where(readable, want, 0))
 
 
 def test_dp_moves_kernel_rejects_what_it_does_not_take(cuda):
