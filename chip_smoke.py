@@ -51,9 +51,11 @@ non-zero exit and no result line:
    the same corrected reads.  ``--profile`` adds a pass with synchronising timers
    around the chunk's stages and a ``torch.profiler`` pass over the first
    16 templates;
-7. the CLIs ``mecat2pw -j 0`` then ``mecat2cns -i 0 -l 2000`` on the bench
-   reads as subprocesses: wall seconds, the cns summary line, corrected
-   reads > 0 and move-kernel launches > 0;
+7. the CLIs ``mecat2pw -j 0`` then ``mecat2cns -i 0 -l 2000`` as
+   subprocesses, cut in depth to the bench reads that start in the first
+   quarter of the genome (the same 15x pile depth over 125 kb; phase 11
+   runs the same two stages on every read): wall seconds, the cns summary
+   line, corrected reads > 0 and move-kernel launches > 0;
 8. mapping exactness: a 30 kb + 20 kb reference and 21 reads (one of them
    junk), ``run_ref(device="cuda")`` and ``run_ref(device="cpu")`` in this
    process give byte-equal SAM and byte-equal M4-format output; the junk
@@ -67,13 +69,38 @@ non-zero exit and no result line:
    primary line per read, at least 95 % of the mapped reads at their true
    locus, every mapped CIGAR consuming its read.  ``--profile`` adds one
    ``run_ref`` on the same files in this process under ``torch.profiler``
-   (after a warm one) for the card's busy share and its top kernels.
+   (after a warm one) for the card's busy share and its top kernels;
+10. correction rounds: (a) the simulated pile of
+   ``mecat_tpu_torch.testing.cns_pile`` through ``run_cns`` with
+   ``rounds=2`` on ``cuda`` and on ``cpu``: byte-equal corrected reads; (b)
+   phase 6's workload through ``correct_batch_rounds`` with ``rounds=2``: a
+   warm pass, then a timed pass; supports/s, corrected reads and bases,
+   move-kernel launches, issued and useful lane-segments, peak device
+   memory, beside phase 6's single-round figures;
+11. the correct+trim pipeline at full width: ``python -m
+   mecat_tpu_torch.cli.pipeline -d reads.fasta -o out -g 500000 -a 1000
+   --min-length 2000 --device cuda`` on every bench read as a subprocess:
+   wall seconds, seconds a stage, reads and bases after each stage, each
+   stage's own summary line; a second call must skip all five stages;
+12. the assembler at full width: ``python -m mecat_tpu_torch.cli.mecat2canu
+   -p bench -d wrk -trim-assemble -pacbio-corrected out/corrected.fasta
+   genomeSize=500k --device cuda`` on phase 11's corrected reads: wall
+   seconds, seconds a stage, overlaps, unitigs, contigs, N50, the longest
+   contig, polish tiles and kernel launches, and the share of the longest
+   contig's 21-mers (both strands) that occur in the simulated genome;
+   every stage marker exists and a second call re-runs nothing.  Before it,
+   the polish exactness check: a 7-read contig polished in device tiles on
+   ``cuda`` equals the same on ``cpu`` and the host route.  ``--profile``
+   adds one polish pass of the longest contig under the stage timers of
+   phase 6.
 
 Each kernel's launch counter is zeroed just before the timed run of its
 path (phase 4's steady passes, phase 6's timed pass, the tool's run in
-phase 2, the CUDA SAM run of phase 8) and read just after, so the reported
-launches are those of the main paths only.  The line before
-the last is a JSON object with the kernels' numbers; the last line is
+phase 2, the CUDA SAM run of phase 8, phase 10's timed pass) and read just
+after, so the reported launches are those of the main paths only; the CLIs
+of phases 9, 11 and 12 are processes of their own and report their own
+counts.  The line before the last is a JSON object with the kernels'
+numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
 without the repository beside it.
 """
@@ -436,9 +463,9 @@ def bench_reads():
     n_reads = int(GENOME * COVERAGE / MEAN_LEN)
     n_reads -= n_reads % B or B
     genome = random_genome(GENOME, seed=91)
-    db, _ = simulate_reads(genome, n_reads, mean_len=MEAN_LEN, min_len=2000,
-                           seed=92, error_rate=0.12)
-    return db
+    db, truths = simulate_reads(genome, n_reads, mean_len=MEAN_LEN,
+                                min_len=2000, seed=92, error_rate=0.12)
+    return db, truths, genome
 
 
 def steady_pass(batches, table, overlap_step):
@@ -593,6 +620,7 @@ class StageTimers:
     def __init__(self):
         import torch
 
+        from mecat_tpu_torch.assembly import ctgcns
         from mecat_tpu_torch.ops import align, consensus_banded
         from mecat_tpu_torch.pipeline import cns
 
@@ -608,6 +636,7 @@ class StageTimers:
                       (cns, "banded_accumulate_tags",
                        "tags total (planes + presence + tally)"),
                       (cns, "call_tables", "vote"),
+                      (ctgcns, "call_tables", "vote"),
                       (cns, "plan_pairs", "host planning"),
                       (cns, "_collect_slice_device", "pull + split")]
         self.saved = []
@@ -706,7 +735,8 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
                              "differ between the kernel and the plain DP")
     say(f"phase 6: the 8 most-supported templates through the plain DP "
         f"({plain_s:.2f} s): the same {len(want)} corrected reads")
-    return dict(launches=launches)
+    return dict(launches=launches, templates=templates, opts=opts,
+                round1=dict(seconds=dt, stats=stats, peak_gb=peak_gb))
 
 
 def profile_cns(one_pass, templates, path: str) -> None:
@@ -751,9 +781,10 @@ def profile_cns(one_pass, templates, path: str) -> None:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
 
 
-def run_cli(module: str, argv: list, component: str):
+def run_cli_summaries(module: str, argv: list):
     """Run one of the port's CLIs as a subprocess; returns (wall seconds,
-    its metrics summary record).  Raises unless it exits 0 with a summary."""
+    every metrics summary record it printed, in order).  Raises unless it
+    exits 0."""
     cmd = [sys.executable, "-m", f"mecat_tpu_torch.cli.{module}", *argv]
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -762,16 +793,19 @@ def run_cli(module: str, argv: list, component: str):
     if proc.returncode != 0:
         raise RuntimeError(f"CLI {module} exited {proc.returncode}:\n"
                            f"{proc.stderr[-4000:]}")
-    summary = None
-    for line in proc.stderr.splitlines():
-        if line.startswith("{"):
-            rec = json.loads(line)
-            if (rec.get("component") == component
-                    and rec.get("event") == "summary"):
-                summary = rec
-    if summary is None:
+    records = [json.loads(line) for line in proc.stderr.splitlines()
+               if line.startswith("{")]
+    return wall, [r for r in records if r.get("event") == "summary"]
+
+
+def run_cli(module: str, argv: list, component: str):
+    """Run one of the port's CLIs as a subprocess; returns (wall seconds,
+    its metrics summary record).  Raises unless it exits 0 with a summary."""
+    wall, summaries = run_cli_summaries(module, argv)
+    mine = [r for r in summaries if r.get("component") == component]
+    if not mine:
         raise AssertionError(f"CLI {module} printed no metrics summary")
-    return wall, summary
+    return wall, mine[-1]
 
 
 def count_lines(path: str, prefix: str = "") -> int:
@@ -804,12 +838,14 @@ def phase_cli(reads: str, n_reads: int, work: str) -> None:
 
 
 def phase_cli_cns(reads: str, n_reads: int, work: str) -> None:
+    """``reads``: the depth cut of the bench reads (see the module text)."""
     cand = os.path.join(work, "bench_cand.txt")
     pw_wall, pw = run_cli(
         "mecat2pw", ["-j", "0", "-d", reads, "-o", cand, "-w",
                      os.path.join(work, "wrk0"), "-n", "16"], "pw")
     n_cand = count_lines(cand)
-    say(f"phase 7: CLI mecat2pw -j 0 -n 16 on {n_reads} reads: exit 0, "
+    say(f"phase 7: CLI mecat2pw -j 0 -n 16 on {n_reads} reads (cut: the "
+        f"bench reads that start in the first quarter of the genome): exit 0, "
         f"{n_cand} candidate records, wall {pw_wall:.2f} s (run_pw "
         f"{pw.get('seconds', 0.0):.2f} s)")
     if n_cand <= 0:
@@ -1025,18 +1061,390 @@ def phase_ref_genome(work: str, profile_path: str | None) -> dict:
     return summary
 
 
+def phase_rounds_small(work: str) -> None:
+    """Phase 10a: two correction rounds give the same bytes on the card and
+    on the CPU."""
+    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
+    from mecat_tpu_torch.testing import PILE_CNS, cns_pile
+
+    d = os.path.join(work, "pile")
+    os.makedirs(d)
+    _, reads, cand = cns_pile(d, device="cuda")
+    got, secs, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(d, f"rounds2_{dev}.fasta")
+        before = dp_kernel.LAUNCHES_MOVES
+        t0 = time.time()
+        run_cns(cand, reads, out, CnsOptions(rounds=2, **PILE_CNS),
+                device=dev)
+        secs[dev] = time.time() - t0
+        launches[dev] = dp_kernel.LAUNCHES_MOVES - before
+        with open(out, "rb") as fh:
+            got[dev] = fh.read()
+    if not got["cuda"] or got["cuda"] != got["cpu"]:
+        raise AssertionError("rounds=2 corrected reads differ between cuda "
+                             "and cpu (or none came out)")
+    if launches["cuda"] <= 0 or launches["cpu"] != 0:
+        raise AssertionError(f"rounds=2 move-kernel launches: {launches}")
+    say(f"phase 10: run_cns rounds=2 on the 28-read pile: "
+        f"{got['cuda'].count(b'>')} corrected reads, {len(got['cuda'])} "
+        f"bytes, byte-equal on cuda ({secs['cuda']:.2f} s, "
+        f"{launches['cuda']} move-kernel launches) and cpu "
+        f"({secs['cpu']:.2f} s)")
+
+
+def phase_rounds(db, by_template: dict, cns: dict) -> dict:
+    """Phase 10b: phase 6's workload with two correction rounds."""
+    import dataclasses
+
+    import torch
+
+    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.pipeline.cns import (CnsStats, correct_batch_rounds,
+                                              device_volume)
+
+    dev = torch.device("cuda")
+    templates = cns["templates"]
+    opts = dataclasses.replace(cns["opts"], rounds=2)
+    dev_vol = device_volume(db, dev)
+
+    def one_pass():
+        stats = CnsStats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = list(correct_batch_rounds(db, templates, by_template, opts,
+                                        stats, device=dev, dev_vol=dev_vol))
+        torch.cuda.synchronize()
+        return out, stats, time.time() - t0
+
+    _, _, warm_s = one_pass()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run starts here ...
+    dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+    out, stats, dt = one_pass()
+    # ... and ends here
+    launches_counts, launches = dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    r1 = cns["round1"]
+    s1 = r1["stats"]
+    if launches_counts != 0:
+        raise AssertionError(f"the correction rounds launched the counts-only "
+                             f"kernel {launches_counts} times; they align "
+                             f"through the move-writing kernel alone")
+    if launches <= cns["launches"]:
+        raise AssertionError(f"two rounds launched {launches} move kernels, "
+                             f"one round {cns['launches']}")
+    if stats.templates != len(templates) or stats.templates != s1.templates:
+        raise AssertionError(f"templates counted {stats.templates} times for "
+                             f"{len(templates)} templates")
+    if stats.supports_aligned <= s1.supports_aligned:
+        raise AssertionError("the draft round aligned no supports")
+    if stats.corrected_reads <= 0 or stats.corrected_reads != len(out):
+        raise AssertionError(f"rounds=2 corrected {stats.corrected_reads} "
+                             f"reads, yielded {len(out)}")
+    if any(seg.dtype != np.uint8 or int(seg.max()) > 3 for _, seg in out):
+        raise AssertionError("a corrected read holds something else than "
+                             "base codes 0..3")
+    say(f"phase 10: cns at full width, rounds=2: {len(templates)} templates, "
+        f"{stats.supports_aligned} supports aligned (both rounds) in "
+        f"{dt:.4f} s (warm pass {warm_s:.4f} s): "
+        f"{stats.supports_aligned / dt:.1f} supports/s, "
+        f"{stats.corrected_reads} corrected reads, {stats.corrected_bases} "
+        f"bases, {launches} move-kernel launches, lane-segments issued "
+        f"{stats.dp_lane_segs_issued}, useful {stats.dp_lane_segs_useful}, "
+        f"peak device memory {peak_gb:.3f} GB")
+    say(f"phase 10: beside it, rounds=1 (phase 6): {s1.supports_aligned} "
+        f"supports in {r1['seconds']:.4f} s: "
+        f"{s1.supports_aligned / r1['seconds']:.1f} supports/s, "
+        f"{s1.corrected_reads} corrected reads, {s1.corrected_bases} bases, "
+        f"{cns['launches']} launches, lane-segments issued "
+        f"{s1.dp_lane_segs_issued}, useful {s1.dp_lane_segs_useful}, peak "
+        f"{r1['peak_gb']:.3f} GB; two rounds take "
+        f"{dt / r1['seconds']:.2f}x the seconds")
+    return dict(launches=dict(counts=launches_counts, moves=launches))
+
+
+def fasta_counts(path: str):
+    """(reads, bases) of a FASTA file."""
+    from mecat_tpu_torch.io.packed_db import PackedDB
+
+    db = PackedDB.from_fasta(path)
+    return db.n_reads, db.total_bases
+
+
+def summary_fields(rec: dict) -> str:
+    return json.dumps({k: v for k, v in rec.items()
+                       if k not in ("component", "ts", "event")})
+
+
+PIPELINE_STAGES = ("pw-candidates", "cns", "extract", "asm-overlaps", "trim")
+PIPELINE_ARTIFACTS = ("candidates.txt", "corrected.fasta", "extracted.fasta",
+                      "asm_overlaps.m4", "trimmed.fasta")
+
+
+def phase_pipeline(reads: str, n_reads: int, n_bases: int, work: str) -> dict:
+    """Phase 11: the correct+trim pipeline CLI on every bench read, then once
+    more to show the resume.  Returns the corrected reads' path and the
+    launches its stages reported."""
+    out = os.path.join(work, "out")
+    argv = ["-d", reads, "-o", out, "-g", str(GENOME), "-a", "1000",
+            "--min-length", "2000", "--device", "cuda"]
+    wall, summaries = run_cli_summaries("pipeline", argv)
+    pipe = [r for r in summaries if r["component"] == "pipeline"]
+    pws = [r for r in summaries if r["component"] == "pw"]
+    cns = [r for r in summaries if r["component"] == "cns"]
+    if len(pipe) != 1 or len(pws) != 2 or len(cns) != 1:
+        raise AssertionError("the pipeline CLI printed "
+                             f"{[r['component'] for r in summaries]}")
+    pipe = pipe[0]
+    if pipe.get("stages_run") != len(PIPELINE_STAGES):
+        raise AssertionError(f"the pipeline ran {pipe.get('stages_run')} "
+                             f"stages of {len(PIPELINE_STAGES)}")
+    paths = [os.path.join(out, a) for a in PIPELINE_ARTIFACTS]
+    for path in paths:
+        if not os.path.exists(path) or os.path.getsize(path) == 0:
+            raise AssertionError(f"pipeline artifact {path} is missing or "
+                                 f"empty")
+    stage_s = {n: pipe.get(f"{n}_seconds") for n in PIPELINE_STAGES}
+    say(f"phase 11: CLI pipeline -g {GENOME} -a 1000 --min-length 2000 "
+        f"--device cuda on {n_reads} reads, {n_bases} bases: exit 0, wall "
+        f"{wall:.2f} s, of which in the five stages "
+        f"{sum(stage_s.values()):.2f} s; seconds a stage "
+        + json.dumps(stage_s))
+    corrected, extracted, trimmed = (fasta_counts(paths[i]) for i in (1, 2, 4))
+    say(f"phase 11: after pw-candidates {count_lines(paths[0])} candidate "
+        f"records; after cns {corrected[0]} reads, {corrected[1]} bases; "
+        f"after extract {extracted[0]} reads, {extracted[1]} bases; after "
+        f"asm-overlaps {count_lines(paths[3])} M4 records; after trim "
+        f"{trimmed[0]} reads, {trimmed[1]} bases")
+    for name, rec in (("pw-candidates", pws[0]), ("cns", cns[0]),
+                      ("asm-overlaps", pws[1])):
+        say(f"phase 11: stage {name} summary " + summary_fields(rec))
+    if corrected[0] <= 0 or cns[0].get("corrected_reads") != corrected[0]:
+        raise AssertionError("the pipeline's cns stage wrote no corrected "
+                             "reads, or not as many as its summary says")
+    if trimmed[0] <= 0:
+        raise AssertionError("the pipeline trimmed every read away")
+    launches = dict(counts=sum(r.get("dp_launches", 0) for r in pws),
+                    moves=cns[0].get("dp_launches", 0))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a pipeline stage's DP did not go through its "
+                             f"kernel: {launches}")
+
+    stamps = [os.stat(p).st_mtime_ns for p in paths]
+    wall2, again = run_cli_summaries("pipeline", argv)
+    pipe2 = [r for r in again if r["component"] == "pipeline"]
+    if (len(again) != 1 or len(pipe2) != 1 or pipe2[0].get("stages_run") != 0
+            or [os.stat(p).st_mtime_ns for p in paths] != stamps):
+        raise AssertionError(f"the second pipeline call did not skip every "
+                             f"stage: {again}")
+    say(f"phase 11: a second call skipped all five stages (wall "
+        f"{wall2:.2f} s, every artifact untouched)")
+    return dict(corrected=paths[1], launches=launches, wall=wall)
+
+
+def kmer_share(seq: np.ndarray, genome: np.ndarray, k: int = 21) -> float:
+    """Share of the k-mers of ``seq`` that occur in ``genome`` on either
+    strand."""
+    def kmers(codes):
+        c = np.asarray(codes).astype(np.uint64)
+        n = len(c) - k + 1
+        v = np.zeros(n, np.uint64)
+        for i in range(k):
+            v = (v << np.uint64(2)) | c[i:i + n]
+        return v
+
+    ref = np.union1d(kmers(genome), kmers((3 - genome)[::-1]))
+    return float(np.isin(kmers(seq), ref).mean())
+
+
+def phase_polish_small(work: str) -> None:
+    """The polish exactness check: a 7-read contig (1.2 kb reads at 5 %
+    substitutions every 800 bases) through the tiled device polish on the
+    card, on the CPU, and through the host route."""
+    from mecat_tpu_torch.assembly import ctgcns
+    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.testing import polish_case
+
+    db, tig, backbone = polish_case(work, 6000, 7, seed=77)
+    opts = ctgcns.CtgCnsOptions(extend_batch=8, align_segment=128,
+                                align_band=64)
+    before = dp_kernel.LAUNCHES_MOVES
+    t0 = time.time()
+    got = ctgcns._polish_contig_device(db, tig, backbone, opts, device="cuda")
+    cuda_s = time.time() - t0
+    launches = dp_kernel.LAUNCHES_MOVES - before
+    cpu = ctgcns._polish_contig_device(db, tig, backbone, opts, device="cpu")
+    host = ctgcns._polish_contig_host(db, tig, backbone, opts, device="cuda")
+    picked = ctgcns.polish_contig(db, tig, backbone, opts, device="cuda")
+    for name, other in (("the cpu", cpu), ("the host route", host),
+                        ("polish_contig", picked)):
+        if not np.array_equal(got, other):
+            raise AssertionError(f"the polished 7-read contig differs "
+                                 f"between cuda tiles and {name}")
+    if launches <= 0 or np.array_equal(got, backbone) or len(got) == 0:
+        raise AssertionError(f"the small polish did nothing: {launches} "
+                             f"move-kernel launches")
+    say(f"phase 12: polish exactness: the 7-read contig ({len(backbone)} "
+        f"backbone bases -> {len(got)}) in device tiles on cuda "
+        f"({cuda_s:.2f} s, {launches} move-kernel launches) == the same on "
+        f"cpu == the host route == polish_contig")
+
+
+ASM_MARKERS = ("gatekeeper", "meryl", "trim", "overlap", "ovstore", "erate",
+               "unitig", "consensus", "output")
+
+
+def phase_assembly(corrected: str, genome: np.ndarray, work: str,
+                   profile: bool) -> dict:
+    """Phase 12: the assembler CLI on the pipeline's corrected reads, then
+    once more to show the resume."""
+    from mecat_tpu_torch.io.packed_db import PackedDB
+
+    wrk = os.path.join(work, "wrk")
+    argv = ["-p", "bench", "-d", wrk, "-trim-assemble", "-pacbio-corrected",
+            corrected, "genomeSize=500k", "--device", "cuda"]
+    wall, summaries = run_cli_summaries("mecat2canu", argv)
+    canu = [r for r in summaries if r["component"] == "canu"]
+    if len(canu) != 1:
+        raise AssertionError("the assembler CLI printed "
+                             f"{[r['component'] for r in summaries]}")
+    canu = canu[0]
+    missing = [m for m in ASM_MARKERS
+               if not os.path.exists(os.path.join(wrk, m + ".done"))]
+    if missing or canu.get("stages_run") != len(ASM_MARKERS):
+        raise AssertionError(f"assembler stages: {canu.get('stages_run')} "
+                             f"run, markers missing: {missing}")
+    stage_s = {m: canu.get(f"{m}_seconds") for m in ASM_MARKERS}
+    n_in = fasta_counts(corrected)
+    say(f"phase 12: CLI mecat2canu -trim-assemble genomeSize=500k --device "
+        f"cuda on {n_in[0]} corrected reads, {n_in[1]} bases: exit 0, wall "
+        f"{wall:.2f} s, run_assembly {canu.get('seconds')} s; seconds a "
+        f"stage " + json.dumps(stage_s))
+    say("phase 12: assembler summary " + summary_fields(canu))
+    contigs = PackedDB.from_fasta(os.path.join(wrk, "bench.contigs.fasta"))
+    if contigs.n_reads <= 0 or contigs.n_reads != canu.get("n_contigs"):
+        raise AssertionError("the assembler wrote no contigs, or not as many "
+                             "as its summary says")
+    longest = int(np.argmax(contigs.lengths))
+    share = kmer_share(contigs.read(longest), genome)
+    say(f"phase 12: {canu.get('n_reads')} reads kept, "
+        f"{canu.get('n_overlaps')} overlaps, {canu.get('n_unitigs')} unitigs, "
+        f"{contigs.n_reads} contigs, {contigs.total_bases} bases, N50 "
+        f"{canu.get('n50')}, longest {int(contigs.lengths[longest])}; "
+        f"polish: {canu.get('polish_tiles')} tiles, "
+        f"{canu.get('polish_alignments')} (read, tile) alignments, "
+        f"{canu.get('polish_contigs_device')} contigs in device tiles, "
+        f"{canu.get('polish_contigs_host')} through the host route; launches "
+        f"{canu.get('dp_launches')} counts / {canu.get('dp_launches_moves')} "
+        f"moves; peak device memory {canu.get('peak_device_gb')} GB; "
+        f"{100 * share:.2f} % of the longest contig's 21-mers occur "
+        f"in the simulated genome")
+    for name in ("bench.layout.txt", "bench.contigs.gfa", "bench.report",
+                 "bench.trimmedReads.fasta", "bench.asm.m4"):
+        if not os.path.exists(os.path.join(wrk, name)):
+            raise AssertionError(f"assembler artifact {name} is missing")
+    if min(canu.get("dp_launches", 0), canu.get("dp_launches_moves", 0)) <= 0:
+        raise AssertionError("the assembler's DP did not go through both "
+                             "kernels")
+    if canu.get("polish_tiles", 0) <= 0:
+        raise AssertionError("no contig was polished in device tiles")
+    if share < 0.9:
+        raise AssertionError(f"only {100 * share:.2f} % of the longest "
+                             f"contig's 21-mers occur in the genome")
+    if int(contigs.lengths[longest]) < 200_000:
+        raise AssertionError(f"the longest contig has "
+                             f"{int(contigs.lengths[longest])} bases of a "
+                             f"{GENOME} base genome")
+
+    wall2, again = run_cli_summaries("mecat2canu", argv)
+    if (len(again) != 1 or again[0].get("stages_run") != 0
+            or again[0].get("dp_launches_moves") != 0
+            or again[0].get("n50") != canu.get("n50")):
+        raise AssertionError(f"the second assembler call re-ran something: "
+                             f"{again}")
+    say(f"phase 12: a second call re-ran nothing (wall {wall2:.2f} s, the "
+        f"same report)")
+    if profile:
+        profile_polish(wrk)
+    return dict(launches=dict(counts=canu["dp_launches"],
+                              moves=canu["dp_launches_moves"]), wall=wall)
+
+
+def profile_polish(wrk: str) -> None:
+    """One polish pass of the assembly's largest unitig in this process,
+    under the synchronising stage timers of the cns chunk."""
+    import torch
+
+    from mecat_tpu_torch.assembly import ctgcns
+    from mecat_tpu_torch.assembly.unitig import arrays_to_layouts
+    from mecat_tpu_torch.io.packed_db import PackedDB
+
+    db = PackedDB.from_fasta(os.path.join(wrk, "bench.trimmedReads.fasta"))
+    tigs = arrays_to_layouts(np.load(os.path.join(wrk, "bench.layout.npz")))
+    tig = max(tigs, key=lambda t: len(t.rows))
+    backbone = ctgcns.stitch_backbone(db, tig)
+    opts = ctgcns.CtgCnsOptions()
+    ctgcns.polish_contig(db, tig, backbone, opts, device="cuda")    # warm
+    stats = ctgcns.PolishStats()
+    with StageTimers() as tm:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ctgcns.polish_contig(db, tig, backbone, opts, device="cuda",
+                             stats=stats)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    say(f"profile polish: the largest unitig ({len(tig.rows)} reads, "
+        f"{len(backbone)} backbone bases, {stats.tiles} tiles, "
+        f"{stats.alignments} alignments) under synchronising stage timers: "
+        f"wall {wall:.3f} s")
+    for label, sec in sorted(tm.seconds.items(), key=lambda kv: -kv[1]):
+        say(f"profile polish:   {sec:9.3f} s {100 * sec / wall:5.1f} %  "
+            f"x{tm.calls[label]:<5d} {label}")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ctgcns.polish_contig(db, tig, backbone, opts, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    total_us = sum(dev_us(e) for e in kernels)
+    say(f"profile polish: the same pass under torch.profiler: wall "
+        f"{wall:.3f} s, kernel time {total_us / 1e6:.3f} s in "
+        f"{sum(e.count for e in kernels)} kernels (card busy "
+        f"{100 * total_us / 1e6 / wall:.1f} % of the profiled wall)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        say(f"profile polish:   {dev_us(e) / 1e3:9.3f} ms "
+            f"{100 * dev_us(e) / max(total_us, 1):5.1f} %  x{e.count:<7d} "
+            f"{e.key[:70]}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--passes", type=int, default=3,
                    help="steady passes over the bench batches (phase 4)")
     p.add_argument("--profile", metavar="PATH",
                    help="profile one more phase-4 pass (full table to PATH), "
-                        "the phase-6 cns pass (table to PATH.cns) and a "
-                        "phase-9 mapping run (table to PATH.ref)")
+                        "the phase-6 cns pass (table to PATH.cns), a "
+                        "phase-9 mapping run (table to PATH.ref) and one "
+                        "polish pass of phase 12 under stage timers")
     p.add_argument("--kernels-only", action="store_true",
                    help="stop after phase 2's DP kernel checks and timings "
                         "(no result line)")
     args = p.parse_args(argv)
+    t_start = time.time()
 
     import torch
 
@@ -1073,7 +1481,7 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
     try:
         t0 = time.time()
-        db = bench_reads()
+        db, truths, genome = bench_reads()
         say(f"bench reads simulated in {time.time() - t0:.2f} s")
         phase_golden(work)
         bench = phase_bench(db, args.passes, args.profile)
@@ -1084,11 +1492,22 @@ def main(argv=None) -> int:
                             for i in range(db.n_reads)])
         phase_cli(reads, db.n_reads, work)
         cns = phase_cns(db, bench["supports"], args.profile)
-        phase_cli_cns(reads, db.n_reads, work)
+        # phase 7's depth cut: the reads of the genome's first quarter
+        cut = [i for i, t in enumerate(truths) if t.start < GENOME // 4]
+        reads_cut = os.path.join(work, "bench_reads_cut.fasta")
+        write_fasta(reads_cut, [(db.name(i), db.read(i)) for i in cut])
+        phase_cli_cns(reads_cut, len(cut), work)
         ref_small = phase_ref_small(work)
         ref_cli = phase_ref_genome(work, args.profile)
+        phase_rounds_small(work)
+        rounds = phase_rounds(db, bench["supports"], cns)
+        pipeline = phase_pipeline(reads, db.n_reads, db.total_bases, work)
+        phase_polish_small(work)
+        assembly = phase_assembly(pipeline["corrected"], genome, work,
+                                  bool(args.profile))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    say(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
 
     # both main paths run S 512, W 128: that shape's times and bound
     main_shape = stats[(CFG["S"], CFG["W"])]
@@ -1105,6 +1524,11 @@ def main(argv=None) -> int:
             # the CLI's own count of phase 9
             "launches_mapping": ref_small[key],
             "launches_mapping_cli": ref_cli[cli_key],
+            # phase 10's timed two-round pass in this process, and the
+            # counts the CLIs of phases 11 and 12 report
+            "launches_rounds": rounds["launches"][key],
+            "launches_pipeline_cli": pipeline["launches"][key],
+            "launches_assembly_cli": assembly["launches"][key],
             "max_abs_err": max(s[with_moves]["max_abs_err"]
                                for s in stats.values()),
             **{k: main_shape[with_moves][k]
@@ -1124,8 +1548,10 @@ def main(argv=None) -> int:
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         # no PyTorch call computes any of the five row-update functions
         "library_ms": None,
-        "variants": {n: {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "gcells_s")}
+        "variants": {n: {"library_ms": None,
+                         **{k: v[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "gcells_s")}}
                      for n, v in roll_main.items()}})
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

@@ -2,16 +2,16 @@
 
 Usage:
     python -m mecat_tpu_torch.cli.mecat2cns -i 0 [-x 0|1] [-p batch]
-        [-r ratio] [-a ovlsize] [-c cov] [-l minlen] [--device cuda]
-        input reads output
+        [-r ratio] [-a ovlsize] [-c cov] [-l minlen] [--rounds N]
+        [--draft-est-coverage C] [--device cuda] input reads output
 
 ``-t`` (threads) is accepted for compatibility; parallelism is device
 batching.  ``--device`` names the torch device (default ``cuda``); the tool
 refuses to start if that device does not exist.  Flags left unset take the
 ``-x`` technology preset: with ``-x 0`` corrected segments under 5000 bases
 are dropped and alignments under 2000 bases filtered, so short reads need
-``-l`` and ``-a``.  Only ``--rounds 1`` is ported; any other value exits
-with code 2.
+``-l`` and ``-a``.  ``--rounds 2`` realigns the raw supports against the
+first round's full-length drafts before the final vote.
 """
 from __future__ import annotations
 
@@ -50,10 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop recruiting supports once their summed extents "
                         "reach this many template lengths (0 disables)")
     p.add_argument("--rounds", type=int, default=1,
-                   help="correction rounds; only 1 is ported")
+                   help="correction rounds: 2 realigns the raw supports "
+                        "against the round-1 draft (about twice the "
+                        "alignment work)")
     p.add_argument("--draft-est-coverage", type=int, default=None,
-                   help="est-coverage cap for non-final rounds (accepted; "
-                        "unused while only one round is ported)")
+                   help="est-coverage cap for non-final rounds (drafting "
+                        "needs less coverage than the final vote). "
+                        "Default: same as max-est-coverage")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("input", help="candidates/M4 file from mecat2pw")
@@ -65,9 +68,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.rounds != 1:
-        parser.error(f"--rounds {args.rounds} is not ported yet: only a "
-                     "single correction round runs on PyTorch")
     if not device_exists(args.device):
         parser.error(f"device {args.device!r} does not exist on this machine")
     opts = CnsOptions.for_tech(
@@ -78,7 +78,9 @@ def main(argv=None) -> int:
         min_align_size=args.min_align_size, min_coverage=args.min_coverage,
         min_length=args.min_length, align_segment=args.align_segment,
         align_band=args.align_band, extend_batch=args.extend_batch,
-        max_est_coverage=args.max_est_coverage)
+        max_est_coverage=args.max_est_coverage,
+        draft_est_coverage=args.draft_est_coverage,
+        rounds=args.rounds)
     stats = run_cns(args.input, args.reads, args.output, opts,
                     device=args.device)
     log.info("done: %d templates, %d supports aligned, %d corrected reads "

@@ -1,12 +1,17 @@
 """PackedDB: the read database as one flat uint8 code array (NumPy).
 
-Copy of the parts of ``mecat_tpu.io.packed_db`` the overlap path uses,
-without its native C++ fast path and its 2-bit disk form.  Reads are
-concatenated in input order (read id = input index); ``starts`` and
+Copy of ``mecat_tpu.io.packed_db`` without its native C++ fast paths.  Reads
+are concatenated in input order (read id = input index); ``starts`` and
 ``lengths`` address them, which is the layout the device index consumes.
+The disk form is 2-bit packed (4 bases a byte, A=0 C=1 G=2 T=3, base i of
+the stream in bits ``2*(i%4)`` of byte ``i//4``) with a ``.npz`` index and a
+JSON name list: the same three files the original writes, so a store saved
+by one package loads in the other.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Iterable, List, Sequence, Tuple
 
@@ -21,6 +26,26 @@ _REVCOMP = np.array([3, 2, 1, 0], dtype=np.uint8)  # A<->T, C<->G in 2-bit codes
 def revcomp(codes: np.ndarray) -> np.ndarray:
     """Reverse complement of a uint8 code array."""
     return _REVCOMP[codes][::-1]
+
+
+def pack_2bit(codes: np.ndarray) -> np.ndarray:
+    """uint8 codes {0..3} -> 2-bit packed bytes (4 bases a byte, LSB first)."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    n = len(codes)
+    padded = np.zeros((n + 3) // 4 * 4, dtype=np.uint8)
+    padded[:n] = codes
+    quads = padded.reshape(-1, 4)
+    return (quads[:, 0] | (quads[:, 1] << 2) | (quads[:, 2] << 4)
+            | (quads[:, 3] << 6)).astype(np.uint8)
+
+
+def unpack_2bit(packed: np.ndarray, n_bases: int) -> np.ndarray:
+    """2-bit packed bytes -> uint8 codes {0..3} of length n_bases."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    out = np.empty((len(packed), 4), dtype=np.uint8)
+    for k in range(4):
+        out[:, k] = (packed >> (2 * k)) & 3
+    return out.reshape(-1)[:n_bases]
 
 
 @dataclass
@@ -66,6 +91,33 @@ class PackedDB:
     def name(self, i: int) -> str:
         return self.names[i] if self.names else str(i)
 
+    def append(self, records: Iterable[FastaRecord]) -> "PackedDB":
+        """New PackedDB with ``records`` appended after the existing reads.
+
+        Existing read ids keep their offsets (a device volume built from
+        the old db stays valid as a prefix); appended read i gets id
+        n_reads + i.  Correction rounds > 1 add each round's drafts this
+        way, as template reads, without touching support ids.
+        """
+        recs = list(records)
+        if not recs:
+            return self
+        tail_lengths = np.asarray([len(r.codes) for r in recs],
+                                  dtype=np.int32)
+        tail_starts = (self.total_bases
+                       + np.concatenate([[0], np.cumsum(
+                           tail_lengths[:-1], dtype=np.int64)]))
+        codes = np.concatenate(
+            [self.codes] + [np.asarray(r.codes, dtype=np.uint8)
+                            for r in recs])
+        names = ((list(self.names) if self.names
+                  else [str(i) for i in range(self.n_reads)])
+                 + [r.name for r in recs])
+        return PackedDB(codes=codes,
+                        starts=np.concatenate([self.starts, tail_starts]),
+                        lengths=np.concatenate([self.lengths, tail_lengths]),
+                        names=names)
+
     def subset(self, idx: Sequence[int]) -> "PackedDB":
         idx = np.asarray(idx, dtype=np.int64)
         return PackedDB.from_records(
@@ -88,6 +140,27 @@ class PackedDB:
         if begin < self.n_reads or not vols:
             vols.append((begin, self.n_reads))
         return vols
+
+    def save(self, prefix: str) -> None:
+        """Write ``prefix``.pac.npy (2-bit packed bases), .idx.npz and
+        .names.json."""
+        np.save(prefix + ".pac.npy", pack_2bit(self.codes))
+        np.savez(prefix + ".idx.npz", starts=self.starts, lengths=self.lengths,
+                 total_bases=np.int64(self.total_bases))
+        with open(prefix + ".names.json", "w") as fh:
+            json.dump(self.names, fh)
+
+    @classmethod
+    def load(cls, prefix: str) -> "PackedDB":
+        packed = np.load(prefix + ".pac.npy")
+        idx = np.load(prefix + ".idx.npz")
+        codes = unpack_2bit(packed, int(idx["total_bases"]))
+        names: List[str] = []
+        if os.path.exists(prefix + ".names.json"):
+            with open(prefix + ".names.json") as fh:
+                names = json.load(fh)
+        return cls(codes=codes, starts=idx["starts"].astype(np.int64),
+                   lengths=idx["lengths"].astype(np.int32), names=names)
 
     def padded_batch(self, read_ids: Sequence[int], pad_to: int | None = None,
                      multiple: int = 128) -> Tuple[np.ndarray, np.ndarray]:

@@ -2,11 +2,12 @@
 mecat_tpu.ops.consensus_device): tag counts -> emitted bases, and
 per-segment op tapes -> one forward column stream per pair, on the device.
 
-:func:`call_tables` is the single-round call of the reference
-(``keep_template=False, draft_mode=False``): template self-votes, the
-plurality base, homopolymer-run-pooled deletions and insertions, the
-window-pooled insertion rule, all in int32 with the reference's exact
-integer formulas.  Only the small emit/coverage arrays go to the host, where
+:func:`call_tables` is the vote: template self-votes, the plurality base,
+homopolymer-run-pooled deletions and insertions, the window-pooled insertion
+rule, all in int32 with the reference's exact integer formulas.  Its
+``draft_mode`` keeps the template base at thin coverage (the full-length
+drafts of correction rounds > 1) and its ``keep_template`` is the contig
+polish's vote.  Only the small emit/coverage arrays go to the host, where
 :func:`split_called` cuts the corrected read at thin coverage.
 
 :func:`ops_stream` compacts the tapes of
@@ -14,8 +15,8 @@ integer formulas.  Only the small emit/coverage arrays go to the host, where
 mapping turns into CIGARs.
 
 Not ported: the op-tape tag route (``accumulate_tags``; the banded route of
-:mod:`.consensus_banded` replaces it), the polish and draft modes, and the
-nibble packing of the emit pull.
+:mod:`.consensus_banded` replaces it) and the nibble packing of the emit
+pull.
 """
 from __future__ import annotations
 
@@ -151,12 +152,23 @@ def call_tables(counts: torch.Tensor,        # int32 [T, L, D1, 5]
                 tlen: torch.Tensor,          # int32 [T]
                 has_support: torch.Tensor,   # bool [T]
                 min_coverage: int,
+                keep_template: bool = False,
+                draft_mode: bool = False,
                 vote: VoteParams | None = None):
-    """The vote over one slice's tag tables.
+    """The vote over one slice's tag tables (``CnsTable.call`` on the device).
 
     Returns (emit int32 [T, L, D1] base code or -1, cov_ok bool [T, L]).
     The template self-votes are added to ``counts`` IN PLACE (the table is
     spent after its vote), so call it once per table.
+
+    ``keep_template=True`` is ``CnsTable.call_polished`` instead (contig
+    consensus): no self-vote, no window-pooled rule, and the template base
+    is kept verbatim wherever coverage is thin.
+
+    ``draft_mode=True`` is ``CnsTable.call_draft`` (correction rounds > 1):
+    the vote rules of the normal call, but thin-coverage positions of a
+    supported template keep the template base, so the draft is full-length
+    and seed coordinates can be mapped through it.
     """
     vote = vote or default_vote_params()
     T, L, D1, _ = counts.shape
@@ -164,16 +176,18 @@ def call_tables(counts: torch.Tensor,        # int32 [T, L, D1, 5]
     tmpl = template.to(torch.int32)
     l_idx = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
     in_read = l_idx < tlen[:, None]
-    # template self-votes, only where a support produced a table
-    counts[:, :, 0, :].scatter_add_(
-        2, tmpl.long()[:, :, None],
-        (in_read & has_support[:, None]).to(torch.int32)[:, :, None])
+    self_vote = 0 if keep_template else 1
+    if not keep_template:
+        # template self-votes, only where a support produced a table
+        counts[:, :, 0, :].scatter_add_(
+            2, tmpl.long()[:, :, None],
+            (in_read & has_support[:, None]).to(torch.int32)[:, :, None])
 
     coverage = torch.cumsum(cov_diff[:, :L], dim=1, dtype=torch.int32)
     cov_ok = (coverage >= min_coverage) & in_read & has_support[:, None]
     base_win = _first_argmax(counts[:, :, 0, :4])             # [T, L] no GAP
     deleted = _run_pooled_deletions_dev(tmpl, counts, coverage, tlen,
-                                        self_vote=1, vote=vote)
+                                        self_vote=self_vote, vote=vote)
     ins = counts[:, :, 1:, :4]
     ins_tot = ins.sum(dim=3, dtype=torch.int32)               # [T, L, D1-1]
     ins_win = _first_argmax(ins)
@@ -182,17 +196,25 @@ def call_tables(counts: torch.Tensor,        # int32 [T, L, D1, 5]
         dim=2).bool()
 
     base0 = torch.where(cov_ok & ~deleted, base_win, -1)
+    if keep_template or draft_mode:
+        # thin coverage keeps the template verbatim (polish: always; draft:
+        # where the normal call would leave a split gap)
+        kept = in_read & has_support[:, None] if draft_mode else in_read
+        base0 = torch.where(cov_ok, base0, torch.where(kept, tmpl, -1))
     ins_slots = torch.where(cov_ok[:, :, None] & ins_emit, ins_win, -1)
     extra = _run_pooled_insertions_dev(tmpl, counts, coverage, ins_emit,
-                                       ins_win, tlen, self_vote=1, vote=vote)
-    extra = torch.where(cov_ok, extra, 0)
+                                       ins_win, tlen, self_vote=self_vote,
+                                       vote=vote)
+    gate = (coverage >= min_coverage) if keep_template else cov_ok
+    extra = torch.where(gate, extra, 0)
     # fill the first `extra` free slots at each run start with the run letter
     free = ins_slots < 0
     frank = torch.cumsum(free.to(torch.int32), dim=2, dtype=torch.int32)
     fill = free & (frank <= extra[:, :, None])
     ins_slots = torch.where(fill, tmpl[:, :, None], ins_slots)
-    ins_slots = _window_pooled_insertions_dev(counts, coverage, ins_slots,
-                                              cov_ok, vote)
+    if not keep_template:
+        ins_slots = _window_pooled_insertions_dev(counts, coverage,
+                                                  ins_slots, cov_ok, vote)
     emit = torch.cat([base0[:, :, None], ins_slots], dim=2)
     return emit, cov_ok
 

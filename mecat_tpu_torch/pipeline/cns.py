@@ -1,5 +1,5 @@
-"""mecat2cns on a torch device: single-round pile-consensus correction
-(port of the device route of mecat_tpu.pipeline.cns).
+"""mecat2cns on a torch device: pile-consensus correction, one round or
+several (port of mecat_tpu.pipeline.cns).
 
 1. parse candidates (``-i 0``, from mecat2pw -j 0) or M4 overlaps
    (``-i 1``), symmetrised so every read collects supports from both record
@@ -18,28 +18,35 @@ Corrected read headers are ``{name}_{k}`` for the k-th segment of a split
 template.  Output is independent of the partition size, the table cap and
 the input spill mode.
 
-Left for later: correction rounds > 1, the polish mode, and the host route
-with its NumPy vote.  Table slices run one after the other.
+With ``rounds`` > 1 (:func:`correct_batch_rounds`) every non-final round
+votes full-length drafts instead, appends them to the read database and to
+the device volume as fresh template reads, and maps every support seed's
+template coordinate through the draft's emit map; the supports stay the raw
+reads.  :func:`correct_batch` is the host route (op tapes pulled, NumPy
+``CnsTable`` vote): the exact oracle of the device route, not what
+``run_cns`` runs.  Table slices run one after the other.
 """
 from __future__ import annotations
 
 import os
 import shutil
 import time
-from dataclasses import dataclass
-from typing import Callable, List, NamedTuple, Optional
+from dataclasses import dataclass, replace
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import constants as C
-from ..io.fasta import format_fasta
+from ..io.fasta import FastaRecord, format_fasta
 from ..io.m4 import read_candidates, read_m4
-from ..io.packed_db import PackedDB
+from ..io.packed_db import PackedDB, revcomp
 from ..ops import dp_kernel
 from ..ops.align import (dp_segment_best, dynamic_slice_start,
-                         extend_pair_batch_rows)
-from ..ops.consensus import VoteParams, default_vote_params
+                         extend_pair_batch_rows, extend_pair_batch_with_ops)
+from ..ops.consensus import (CnsTable, VoteParams, columns_to_tags,
+                             default_vote_params, emit_to_draft,
+                             tapes_to_columns)
 from ..ops.consensus_banded import banded_accumulate_tags
 from ..ops.consensus_device import call_tables, split_called
 from ..utils.log import get_logger
@@ -64,7 +71,13 @@ class CnsOptions:
     #: stop recruiting supports once their summed dovetail extents reach
     #: this many template lengths (score-sorted prefix; 0 = off)
     max_est_coverage: int = 25
-    #: correction rounds; only 1 is ported
+    #: estimated-coverage cap for non-final rounds (rounds > 1): a draft
+    #: only has to be mostly clean, so it may be voted from fewer supports.
+    #: None = use max_est_coverage.
+    draft_est_coverage: Optional[int] = None
+    #: correction rounds (--rounds).  Rounds > 1 re-align the same raw
+    #: supports against the previous round's full-length draft, with the
+    #: seeds mapped through the draft's emit map.
     rounds: int = 1
     align_segment: int = C.ALIGN_SEGMENT
     align_band: int = C.ALIGN_BAND
@@ -561,11 +574,13 @@ def make_cns_chunk(*, L_s, L_t, S, W, max_segs, max_segs_left,
 def _dispatch_slice_device(db: PackedDB, templates: List[int], by_template,
                            opts: CnsOptions, stats: CnsStats,
                            dev_vol: DeviceVolume,
-                           dp: Callable = dp_segment_best):
+                           dp: Callable = dp_segment_best,
+                           draft_mode: bool = False):
     """Plan one table slice and run its chunks and its vote on the device.
 
     Returns (templates, emit, cov_ok, has) device tensors for
-    :func:`_collect_slice_device`, or None when no template in the slice
+    :func:`_collect_slice_device` (or, voted with ``draft_mode``, for
+    :func:`_collect_slice_drafts`), or None when no template in the slice
     has supports.  T is padded to the slot bucket: inert slots never
     accumulate tags (no pair references them) and never emit.  L_s is a
     function of L_t and the longest read, and msegs bounds per-direction
@@ -614,20 +629,25 @@ def _dispatch_slice_device(db: PackedDB, templates: List[int], by_template,
 
     emit, cov_ok = call_tables(counts, cov_diff, tmpl_mat,
                                torch.as_tensor(tmpl_len, device=dev), has,
-                               opts.min_coverage, vote=opts.vote_params())
+                               opts.min_coverage, draft_mode=draft_mode,
+                               vote=opts.vote_params())
     return templates, emit, cov_ok, has
+
+
+def _pull_emit(emit: torch.Tensor) -> np.ndarray:
+    """A slice's emit array on the host: only the delta slots that emitted
+    anything, as int8 (insertion runs longer than 1-2 are rare, and the
+    prefix rule makes the truncation exact: the dropped slots are all -1)."""
+    max_ins = int((emit[:, :, 1:] >= 0).sum(dim=2).max())
+    return emit[:, :, :max_ins + 1].to(torch.int8).cpu().numpy()
 
 
 def _collect_slice_device(db: PackedDB, pending, opts: CnsOptions,
                           stats: CnsStats):
-    """Pull one slice's emit arrays and yield its corrected segments.
-
-    Pulls only the delta slots that emitted anything, as int8 (insertion
-    runs longer than 1-2 are rare, and the prefix rule makes the truncation
-    exact: the dropped slots are all -1), and cov_ok as bool."""
+    """Pull one slice's emit arrays (:func:`_pull_emit`, cov_ok as bool) and
+    yield its corrected segments."""
     templates, emit, cov_ok, has = pending
-    max_ins = int((emit[:, :, 1:] >= 0).sum(dim=2).max())
-    emit = emit[:, :, :max_ins + 1].to(torch.int8).cpu().numpy()
+    emit = _pull_emit(emit)
     cov_ok = cov_ok.cpu().numpy()
     has_support = has.cpu().numpy()
     for i, t in enumerate(templates):
@@ -642,19 +662,32 @@ def _collect_slice_device(db: PackedDB, pending, opts: CnsOptions,
             yield (f"{db.name(t)}_{k}", seg)
 
 
-def _require_single_round(opts: CnsOptions) -> None:
-    if opts.rounds != 1:
-        raise NotImplementedError(
-            f"correction rounds > 1 are not ported yet (rounds={opts.rounds})")
+def _collect_slice_drafts(db: PackedDB, pending, opts: CnsOptions,
+                          stats: CnsStats):
+    """Draft-mode twin of :func:`_collect_slice_device`: yields
+    (template_id, (draft_bases, pos_map)) per supported template.
+
+    The same emit pull; :func:`..ops.consensus.emit_to_draft` (shared with
+    the host ``CnsTable.call_draft``) turns the emit rows into the
+    full-length draft plus the old -> new coordinate map for the next
+    round's seed remapping.  Touches no statistics."""
+    templates, emit, _, has = pending
+    emit = _pull_emit(emit)
+    has_support = has.cpu().numpy()
+    for i, t in enumerate(templates):
+        if has_support[i]:
+            yield t, emit_to_draft(emit[i][:int(db.lengths[t])])
 
 
 def correct_batch_device(db: PackedDB, templates: List[int], by_template,
                          opts: CnsOptions, stats: CnsStats, *, device,
                          dev_vol: Optional[DeviceVolume] = None,
                          cap: Optional[int] = None,
-                         dp: Callable = dp_segment_best):
+                         dp: Callable = dp_segment_best,
+                         _draft: bool = False):
     """Align supports and vote consensus for one batch of templates, on
-    ``device`` (a GENERATOR of (name, bases)).
+    ``device`` (a GENERATOR of (name, bases); with ``_draft``, of
+    (template_id, (draft_bases, pos_map)) from the draft vote).
 
     The volume goes to the device once (``dev_vol`` caches it across
     batches); per chunk only pair ids and seeds go up and nothing comes back
@@ -663,21 +696,229 @@ def correct_batch_device(db: PackedDB, templates: List[int], by_template,
     table-bytes cap (default :func:`table_cap` of the device); the output
     does not depend on it.
     """
-    _require_single_round(opts)
     if dev_vol is None:
         dev_vol = device_volume(db, device)   # once, not once per slice
     if cap is None:
         cap = table_cap(device)
+    collect = _collect_slice_drafts if _draft else _collect_slice_device
     slices = plan_table_slices(db, templates, cap)
     for k, sl in enumerate(slices):
         pending = _dispatch_slice_device(db, sl, by_template, opts, stats,
-                                         dev_vol, dp=dp)
+                                         dev_vol, dp=dp, draft_mode=_draft)
         if pending is None:
             continue
-        yield from _collect_slice_device(db, pending, opts, stats)
+        yield from collect(db, pending, opts, stats)
         if len(slices) > 1:
             log.info("cns: table slice %d/%d collected (%d corrected)",
                      k + 1, len(slices), stats.corrected_reads)
+
+
+def correct_batch(db: PackedDB, templates: List[int], by_template,
+                  opts: CnsOptions, stats: CnsStats, *, device,
+                  dp: Callable = dp_segment_best,
+                  _draft: bool = False) -> list:
+    """The host route: the same alignments, but the op tapes come back to
+    the host and a NumPy :class:`..ops.consensus.CnsTable` per template
+    tallies and votes.  The exact oracle of :func:`correct_batch_device`.
+
+    Returns [(name, bases)]; with ``_draft`` [(template_id, (draft_bases,
+    pos_map))] through ``CnsTable.call_draft``, leaving the templates and
+    corrected_* statistics alone.
+    """
+    pairs = [(int(t), int(s), int(sdir), int(spos), int(tpos))
+             for t in templates
+             for s, sdir, spos, tpos, _ in select_supports(db, by_template, t,
+                                                           opts)]
+    if not pairs:
+        return []
+    L_t = bucket_length(max(int(db.lengths[t]) for t in templates))
+    L_s = bucket_length(max(int(db.lengths[p[1]]) for p in pairs))
+    S, W = opts.align_segment, opts.align_band
+    msegs = max_segs_for(max(L_t, L_s), S)
+    P = opts.extend_batch
+    vote = opts.vote_params()
+    f32 = np.float32
+    tables: Dict[int, CnsTable] = {}
+    for ofs in range(0, len(pairs), P):
+        chunk = pairs[ofs:ofs + P]
+        n = len(chunk)
+        q_b = np.zeros((n, L_s), dtype=np.uint8)
+        t_b = np.zeros((n, L_t), dtype=np.uint8)
+        qlen, tlen, qs, ts = (np.zeros(n, np.int32) for _ in range(4))
+        sup_bases = []
+        for i, (t, s, sdir, spos, tpos) in enumerate(chunk):
+            sb = (revcomp(db.read(s)) if sdir else db.read(s))[:L_s]
+            tb = db.read(t)[:L_t]
+            q_b[i, :len(sb)] = sb
+            t_b[i, :len(tb)] = tb
+            qlen[i], tlen[i] = len(sb), len(tb)
+            qs[i] = min(max(spos, 0), len(sb) - 1)
+            ts[i] = min(max(tpos, 0), len(tb) - 1)
+            sup_bases.append(sb)
+        padded = pad_to_batch([q_b, t_b, qlen, tlen, qs, ts], P)
+        pa, right_t, left_t = extend_pair_batch_with_ops(
+            *(torch.as_tensor(a, device=device) for a in padded),
+            S=S, W=W, max_segs=msegs, dp=dp)
+        stats.supports_aligned += n
+        cols = tapes_to_columns(right_t, left_t, padded[4], padded[5],
+                                n_pairs=n)
+        ident, tbeg, tend, qbeg, qend = (
+            x.cpu().numpy()[:n] for x in (pa.identity, pa.tbeg, pa.tend,
+                                          pa.qbeg, pa.qend))
+        for i, (t, s, sdir, spos, tpos) in enumerate(chunk):
+            # the gates of _keep_pairs, float32 as there
+            extent = (min(int(qs[i]), int(ts[i]))
+                      + min(int(qlen[i]) - int(qs[i]),
+                            int(tlen[i]) - int(ts[i])))
+            ratio = f32(qend[i] - qbeg[i]) / f32(max(1, extent))
+            if (ident[i] < f32(opts.min_identity)
+                    or int(tend[i] - tbeg[i]) < opts.min_align_size
+                    or ratio < f32(opts.min_mapping_ratio)):
+                continue
+            if t not in tables:
+                tables[t] = CnsTable(db.read(t))
+            pos, delta, base = columns_to_tags(
+                *cols[i], support=sup_bases[i], tlen=int(db.lengths[t]))
+            tables[t].add_tags(pos, delta, base,
+                               (int(tbeg[i]), int(tend[i])))
+
+    out = []
+    for t in templates:
+        table = tables.get(t)
+        if _draft:
+            if table is not None:
+                table.add_template_votes()
+                out.append((t, table.call_draft(
+                    min_coverage=opts.min_coverage, vote=vote)))
+            continue
+        stats.templates += 1
+        if table is None:
+            continue
+        table.add_template_votes()
+        for k, seg in enumerate(table.call(min_coverage=opts.min_coverage,
+                                           min_length=opts.min_length,
+                                           vote=vote)):
+            out.append((f"{db.name(t)}_{k}", seg))
+            stats.corrected_reads += 1
+            stats.corrected_bases += len(seg)
+    return out
+
+
+def append_device_volume(dev_vol: DeviceVolume, tail_db: PackedDB,
+                         n_old_reads: int) -> DeviceVolume:
+    """Extend a device volume with the appended drafts of ``tail_db`` (a
+    PackedDB built by :meth:`PackedDB.append`).
+
+    Only the tail goes to the device; the original [fwd | rc | slack]
+    layout stays a prefix and ``n_bases`` stays the ORIGINAL forward-base
+    count, so the support reads' forward and reverse-complement addressing
+    (2 * n_bases - start - length) is untouched.  Drafts are template-side
+    only and always gathered forward, so they need no rc half, just fresh
+    slack after them so that no window slice clamps.  The volume grows by
+    concatenation.
+    """
+    vol_cat, starts_d, lengths_d, n_bases = dev_vol
+    dev = vol_cat.device
+    tail_start = int(tail_db.starts[n_old_reads])
+    tail_lengths = tail_db.lengths[n_old_reads:]
+    slack = int(3 * int(tail_lengths.max()) + 1024)
+    base = int(vol_cat.shape[0])
+    tail = torch.from_numpy(
+        np.ascontiguousarray(tail_db.codes[tail_start:])).to(dev)
+    vol2 = torch.cat([vol_cat, tail,
+                      torch.zeros(slack, dtype=vol_cat.dtype, device=dev)])
+    starts2 = torch.cat([starts_d, torch.as_tensor(
+        (base + (tail_db.starts[n_old_reads:] - tail_start)).astype(np.int64),
+        device=dev)])
+    lengths2 = torch.cat([lengths_d, torch.as_tensor(
+        np.asarray(tail_lengths).astype(np.int32), device=dev)])
+    return DeviceVolume(vol2, starts2, lengths2, n_bases)
+
+
+def append_drafts(cur_db: PackedDB, cur_ids: List[int], cur_by,
+                  drafts: Dict[int, Tuple[np.ndarray, np.ndarray]]):
+    """Append one round's drafts as fresh template reads and remap seeds.
+
+    Templates without a draft (or with an empty one) keep their id and
+    their supports; drafted template t becomes a new read with t's NAME,
+    and every support seed's template coordinate maps through the draft's
+    emit map.  Returns (new_db, new_ids, new_by, n_old_reads).
+    """
+    recs, new_ids, new_by = [], [], {}
+    base_id = cur_db.n_reads
+    for t in cur_ids:
+        d = drafts.get(t)
+        if d is None or len(d[0]) == 0:
+            new_ids.append(t)
+            if t in cur_by:
+                new_by[t] = cur_by.get(t)
+            continue
+        draft, pos_map = d
+        nid = base_id + len(recs)
+        recs.append(FastaRecord(cur_db.name(t), draft))
+        new_ids.append(nid)
+        lim = len(draft) - 1
+        new_by[nid] = [
+            (s, sdir, spos,
+             min(int(pos_map[min(int(ts), len(pos_map) - 1)]), lim),
+             score)
+            for (s, sdir, spos, ts, score) in cur_by.get(t, [])]
+    n_old = cur_db.n_reads
+    return cur_db.append(recs), new_ids, new_by, n_old
+
+
+def correct_batch_rounds(db: PackedDB, templates: List[int], by_template,
+                         opts: CnsOptions, stats: CnsStats, *, device,
+                         dev_vol: Optional[DeviceVolume] = None,
+                         cap: Optional[int] = None,
+                         dp: Callable = dp_segment_best,
+                         host: bool = False):
+    """Iterative correction driver (a GENERATOR; see CnsOptions.rounds).
+
+    Each non-final round produces full-length DRAFTS (the draft vote),
+    appends them to the db as fresh template reads with the ORIGINAL names,
+    and remaps every support seed's template coordinate through the draft's
+    emit map.  Supports always stay the raw reads, so the output is
+    independent of template partitioning exactly like the single-round
+    path.  Draft rounds add to ``supports_aligned`` only; the final round
+    runs the normal vote and split.  ``host`` takes the host route
+    (:func:`correct_batch`) for every round instead of the device route.
+    """
+    rounds = max(1, int(opts.rounds))
+    cur_db, cur_ids, cur_by, cur_vol = db, list(templates), by_template, \
+        dev_vol
+    draft_opts = opts
+    if opts.draft_est_coverage:
+        draft_opts = replace(opts,
+                             max_est_coverage=int(opts.draft_est_coverage))
+    for _ in range(rounds - 1):
+        scratch = CnsStats()
+        if host:
+            drafts = dict(correct_batch(cur_db, cur_ids, cur_by, draft_opts,
+                                        scratch, device=device, dp=dp,
+                                        _draft=True))
+        else:
+            if cur_vol is None:
+                cur_vol = device_volume(cur_db, device)
+            drafts = dict(correct_batch_device(
+                cur_db, cur_ids, cur_by, draft_opts, scratch, device=device,
+                dev_vol=cur_vol, cap=cap, dp=dp, _draft=True))
+        stats.supports_aligned += scratch.supports_aligned
+        stats.dp_lane_segs_issued += scratch.dp_lane_segs_issued
+        stats.dp_lane_segs_useful += scratch.dp_lane_segs_useful
+        if not drafts:
+            break
+        cur_db, cur_ids, cur_by, n_old = append_drafts(
+            cur_db, cur_ids, cur_by, drafts)
+        if not host and cur_db.n_reads > n_old:
+            cur_vol = append_device_volume(cur_vol, cur_db, n_old)
+    if host:
+        yield from correct_batch(cur_db, cur_ids, cur_by, opts, stats,
+                                 device=device, dp=dp)
+    else:
+        yield from correct_batch_device(cur_db, cur_ids, cur_by, opts, stats,
+                                        device=device, dev_vol=cur_vol,
+                                        cap=cap, dp=dp)
 
 
 #: input files above this size are spilled to partitions by default
@@ -693,7 +934,6 @@ def run_cns(input_path: str, reads_path: str, out_path: str,
     support records to per-template-range partition files first (default:
     only for inputs above STREAM_BYTES)."""
     opts = opts or CnsOptions()
-    _require_single_round(opts)
     device = torch.device(device)
     t0 = time.time()
     launches0 = dp_kernel.LAUNCHES_MOVES
@@ -708,7 +948,7 @@ def run_cns(input_path: str, reads_path: str, out_path: str,
         templates = sorted(by_template)
         for ofs in range(0, len(templates), opts.partition_size):
             batch = templates[ofs:ofs + opts.partition_size]
-            for name, seg in correct_batch_device(
+            for name, seg in correct_batch_rounds(
                     db, batch, by_template, opts, stats, device=device,
                     dev_vol=dev_vol, cap=cap):
                 fh.write(format_fasta(name, seg))
@@ -749,5 +989,8 @@ def run_cns(input_path: str, reads_path: str, out_path: str,
     met.set("dp_gcells_useful", round(stats.dp_lane_segs_useful * S * W / 1e9,
                                       3))
     met.set("dp_launches", dp_kernel.LAUNCHES_MOVES - launches0)
+    if device.type == "cuda":
+        met.set("peak_device_gb",
+                round(torch.cuda.max_memory_allocated(device) / 1e9, 3))
     met.emit_summary()
     return stats

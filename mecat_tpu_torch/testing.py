@@ -9,15 +9,25 @@ against the plain version;
 ``GOLDEN_J1`` / ``GOLDEN_J0`` are the ``PwOptions`` that produced
 ``tests/golden/overlaps.m4`` and ``tests/golden/candidates.txt``, and
 ``GOLDEN_CNS`` the ``CnsOptions`` of ``tests/golden/corrected.fasta``.
+``cns_pile`` is the simulated pile of the correction tests with its
+candidates (``PILE_PW`` / ``PILE_CNS`` are its options); ``tiled_reads``,
+``noisy_tiled_reads``, ``perfect_overlaps`` and ``db_from`` make the tiled
+layouts of the assembly tests, and ``polish_case`` a contig of such reads
+stitched and ready to polish.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
+from .io.fasta import write_fasta
+from .io.m4 import M4Record, format_block
+from .io.packed_db import PackedDB, revcomp
 from .ops.align import IND_K, VINF, _NEG, _unpack_best
 from .tools.roll_micro import make_inputs as roll_micro_tool_inputs
-from .utils.sim import mutate
+from .utils.sim import mutate, random_genome, simulate_reads
 
 GOLDEN_J1 = dict(task=1, kmer_size=9, scan_stride=4, min_align_size=400,
                  num_candidates=12, scan_batch=8, extend_batch=32,
@@ -27,6 +37,104 @@ GOLDEN_J0 = dict(task=0, kmer_size=9, scan_stride=4, num_candidates=12,
 #: the CnsOptions that made tests/golden/corrected.fasta from candidates.txt
 GOLDEN_CNS = dict(min_align_size=300, min_length=500, extend_batch=32,
                   align_segment=128, align_band=64)
+#: the candidate scan and the correction options of :func:`cns_pile`
+PILE_PW = dict(kmer_size=9, scan_stride=4, num_candidates=12, scan_batch=8,
+               min_block_score=2)
+PILE_CNS = GOLDEN_CNS
+
+
+def cns_pile(work_dir: str, *, device):
+    """28 reads of mean 1.8 kb at 10 % error over a 9 kb genome, written to
+    ``work_dir``/r.fa, and their ``-j 0`` candidates in ``work_dir``/c.txt
+    (made on ``device``).  Returns (db, reads path, candidates path)."""
+    from .pipeline.pw import PwOptions, run_pw
+
+    genome = random_genome(9000, seed=51)
+    db, _ = simulate_reads(genome, 28, mean_len=1800, min_len=1000,
+                           seed=52, error_rate=0.1)
+    reads = os.path.join(work_dir, "r.fa")
+    write_fasta(reads, [(db.name(i), db.read(i)) for i in range(db.n_reads)])
+    cand = os.path.join(work_dir, "c.txt")
+    run_pw(reads, cand, os.path.join(work_dir, "w0"),
+           PwOptions(task=0, **PILE_PW), db=db, device=device)
+    return db, reads, cand
+
+
+def tiled_reads(genome, n, read_len, step, flip_every=0):
+    """Reads tiling the genome with a fixed overlap; read i is reverse
+    complemented where ``flip_every`` and i % flip_every == 1.  Returns
+    (reads, orients)."""
+    reads, orients = [], []
+    for i in range(n):
+        r = genome[i * step:i * step + read_len]
+        o = 1 if (flip_every and i % flip_every == 1) else 0
+        reads.append(revcomp(r) if o else r)
+        orients.append(o)
+    return reads, orients
+
+
+def noisy_tiled_reads(genome, n, read_len, step, seed, rate=0.05):
+    """Forward tiled reads with ``rate`` substitutions each."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n):
+        r = np.array(genome[i * step:i * step + read_len])
+        err = rng.random(len(r)) < rate
+        r[err] = (r[err] + rng.integers(1, 4, err.sum())) % 4
+        reads.append(r)
+    return reads
+
+
+def db_from(reads) -> PackedDB:
+    """A PackedDB of the given code arrays, named r0, r1, ..."""
+    lens = np.array([len(r) for r in reads], dtype=np.int32)
+    starts = np.zeros(len(reads), dtype=np.int64)
+    np.cumsum(lens[:-1].astype(np.int64), out=starts[1:])
+    return PackedDB(np.concatenate(reads), starts, lens,
+                    [f"r{i}" for i in range(len(reads))])
+
+
+def m4_record(q, s, qspan, sspan, qlen, slen, strand=0, ident=99.0,
+              score=100) -> M4Record:
+    """An M4 record of 0-based read ids q, s."""
+    return M4Record(qid=q + 1, sid=s + 1, identity=ident, score=score,
+                    qstrand=0, qstart=qspan[0], qend=qspan[1], qsize=qlen,
+                    sstrand=strand, sstart=sspan[0], send=sspan[1],
+                    ssize=slen)
+
+
+def perfect_overlaps(reads, orients, read_len, step):
+    """Exact M4 records of a tiled layout (adjacent pairs only)."""
+    ov = read_len - step
+    out = []
+    for i in range(len(reads) - 1):
+        o = orients[i] ^ orients[i + 1]
+        # read i's right part on read i + 1's left part, in forward
+        # coordinates of each read
+        qs = (step, read_len) if not orients[i] else (0, ov)
+        ss = (0, ov) if not orients[i + 1] else (step, read_len)
+        out.append(m4_record(i, i + 1, qs, ss, read_len, read_len, strand=o))
+    return out
+
+
+def polish_case(work_dir: str, genome_len: int, n: int, seed: int):
+    """A contig to polish: ``n`` noisy 1.2 kb reads every 800 bases of a
+    random genome (seed, seed + 1), their perfect overlaps, the one unitig
+    and its stitched backbone.  Returns (db, tig, backbone)."""
+    from .assembly.ctgcns import stitch_backbone
+    from .assembly.ovstore import OverlapStore
+    from .assembly.unitig import build_unitigs
+
+    read_len, step = 1200, 800
+    genome = random_genome(genome_len, seed=seed)
+    reads = noisy_tiled_reads(genome, n, read_len, step, seed + 1)
+    db = db_from(reads)
+    m4p = os.path.join(work_dir, f"polish_{seed}.m4")
+    with open(m4p, "w") as fh:
+        fh.write(format_block(perfect_overlaps(reads, [0] * n, read_len,
+                                               step)))
+    tig = build_unitigs(OverlapStore.from_m4(m4p, n), end_slack=60).unitigs[0]
+    return db, tig, stitch_backbone(db, tig)
 
 
 def dp_inputs(S: int, W: int, n: int, seed: int):

@@ -100,3 +100,56 @@ def test_extend_pair_batch_matches_jax(S, W, max_segs):
         assert g.numpy().dtype == w.dtype, name
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
 
+
+
+def test_extend_pair_batch_matches_the_scalar_oracle():
+    """The C++ scalar engine (native/src/scalar_baseline.cpp) is the
+    algorithm-level oracle of the JAX ``extend_pair_batch``; the port's is
+    held to it the same way: every integer field of every pair bit-equal on
+    real candidate pairs, identity within 1e-3.  Needs the native library
+    (the test may load it; the port never does)."""
+    try:
+        from mecat_tpu.native.scalar import ScalarEngine
+    except Exception as exc:               # no toolchain, no library
+        pytest.skip(f"native scalar engine not built: {exc}")
+    from mecat_tpu import constants as C
+    from mecat_tpu.utils.sim import random_genome, simulate_reads
+
+    db, _ = simulate_reads(random_genome(40000, seed=17), 48, mean_len=1800,
+                           min_len=1000, seed=18, error_rate=0.1)
+    try:
+        eng = ScalarEngine(db.codes, db.starts, db.lengths, k=13)
+    except Exception as exc:
+        pytest.skip(f"native scalar engine not built: {exc}")
+    cutoff = eng.cutoff()
+    S, W, max_segs = 128, 64, 40
+    pairs = []
+    for r in range(db.n_reads):
+        tgt, score, qseed, tseed = eng.scan_read(
+            db.read(r), r, cutoff=cutoff, stride=10, max_occ=16, diag_bin=256,
+            n_cand=12)
+        pairs += [(r, int(tgt[j]), int(qseed[j]), int(tseed[j]))
+                  for j in range(len(tgt)) if score[j] >= C.MIN_BLOCK_SCORE]
+    pairs = pairs[:96]
+    assert len(pairs) >= 32
+    B, L = len(pairs), 4096
+    q_b, t_b = (np.zeros((B, L), np.uint8) for _ in range(2))
+    qlen, tlen, qs, ts = (np.zeros(B, np.int32) for _ in range(4))
+    for i, (r, t, q0, t0) in enumerate(pairs):
+        qr, tr = db.read(r), db.read(t)
+        q_b[i, :len(qr)], t_b[i, :len(tr)] = qr, tr
+        qlen[i], tlen[i], qs[i], ts[i] = len(qr), len(tr), q0, t0
+    res = port.extend_pair_batch(
+        *(torch.as_tensor(a) for a in (q_b, t_b, qlen, tlen, qs, ts)),
+        S=S, W=W, max_segs=max_segs)
+    fields = ("qbeg", "qend", "tbeg", "tend", "dist", "matches", "align_len")
+    got = {f: getattr(res, f).numpy() for f in fields}
+    ident = res.identity.numpy()
+    for i, (r, t, q0, t0) in enumerate(pairs):
+        d = eng.extend_pair(db.read(r), db.read(t), q0, t0, S=S, W=W,
+                            max_segs=max_segs, penalty=C.ALIGN_TRIM_PENALTY,
+                            min_seg_identity=C.MIN_SEGMENT_IDENTITY)
+        want = (d["qbeg"], d["qend"], d["tbeg"], d["tend"], d["dist"],
+                d["matches"], d["alen"])
+        assert tuple(int(got[f][i]) for f in fields) == want, (i, pairs[i])
+        assert abs(d["identity"] - float(ident[i])) < 1e-3

@@ -238,17 +238,26 @@ def test_cli_on_cpu_matches_jax_run_cns_and_the_api(tmp_path):
 
 
 def test_cli_refuses_rounds_and_missing_device(tmp_path, capsys):
+    """``--rounds 2`` is no longer refused (it runs, here on the candidate
+    lines that name the first read); a missing device still is."""
     out = str(tmp_path / "x.fasta")
+    cut = str(tmp_path / "cut.txt")
+    with open(_golden_args(out)[0]) as fh, open(cut, "w") as oh:
+        oh.writelines(ln for ln in fh if "1" in ln.split()[:2])
+    rc = mecat2cns.main(["--rounds", "2", "-a", "300", "-l", "500",
+                         "--extend-batch", "32", "--align-segment", "128",
+                         "--align-band", "64", "--device", "cpu", cut,
+                         *_golden_args(out)[1:]])
+    assert rc == 0 and "not ported" not in capsys.readouterr().err
+    with open(out, "rb") as fh:
+        assert fh.read().count(b">") >= 1
+    assert not hasattr(port, "_require_single_round")
+    missing = str(tmp_path / "y.fasta")
     with pytest.raises(SystemExit) as e:
-        mecat2cns.main(["--rounds", "2", "--device", "cpu",
-                        *_golden_args(out)])
+        mecat2cns.main(["--device", "cuda:7", *_golden_args(missing)])
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
-    assert not os.path.exists(out)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit) as e:
-            mecat2cns.main(["--device", "cuda", *_golden_args(out)])
+            mecat2cns.main(["--device", "cuda", *_golden_args(missing)])
         assert e.value.code == 2
-    with pytest.raises(NotImplementedError):
-        port.run_cns(*_golden_args(out), port.CnsOptions(rounds=2),
-                     device="cpu")
+    assert not os.path.exists(missing)

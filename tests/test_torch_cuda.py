@@ -319,3 +319,56 @@ def test_run_ref_on_cuda_matches_cpu_bytes(cuda):
                     assert (stats.dp_launches_moves > 0) == (fmt == "sam")
                     assert stats.mapped == db.n_reads
             assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 200
+
+
+@pytest.mark.parametrize("rounds", [2, 3])
+def test_run_cns_rounds_on_cuda_match_cpu_bytes(cuda, rounds):
+    """Draft rounds on the card: the appended volume, the remapped seeds and
+    the draft vote give the CPU's corrected reads byte for byte."""
+    from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
+    from mecat_tpu_torch.testing import PILE_CNS, cns_pile
+
+    with tempfile.TemporaryDirectory() as d:
+        _, reads, cand = cns_pile(d, device="cuda")
+        outs, aligned = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(d, f"{dev}.fasta")
+            before = dp_kernel.LAUNCHES_MOVES
+            stats = run_cns(cand, reads, out,
+                            CnsOptions(rounds=rounds, **PILE_CNS), device=dev)
+            assert (dp_kernel.LAUNCHES_MOVES > before) == (dev == "cuda")
+            aligned[dev] = stats.supports_aligned
+            with open(out, "rb") as fh:
+                outs[dev] = fh.read()
+        assert outs["cuda"] == outs["cpu"] and outs["cpu"].count(b">") > 10
+        assert aligned["cuda"] == aligned["cpu"]
+
+
+@pytest.mark.parametrize("genome_len,n,tile_max", [(6000, 7, None),
+                                                   (24000, 29, 8192)])
+def test_polish_on_cuda_matches_cpu_and_the_host_route(cuda, monkeypatch,
+                                                       genome_len, n,
+                                                       tile_max):
+    """The tiled device polish on the card, one tile and several: equal to
+    the same on the CPU, to the host route, and under a table cap that holds
+    one tile."""
+    from mecat_tpu_torch.assembly import ctgcns
+    from mecat_tpu_torch.testing import polish_case
+
+    if tile_max:
+        monkeypatch.setattr(ctgcns, "_TILE_L_MAX", tile_max)
+    opts = ctgcns.CtgCnsOptions(extend_batch=8, align_segment=128,
+                                align_band=64)
+    with tempfile.TemporaryDirectory() as d:
+        db, tig, backbone = polish_case(d, genome_len, n, seed=77)
+    before = dp_kernel.LAUNCHES_MOVES
+    got = ctgcns._polish_contig_device(db, tig, backbone, opts, device=cuda)
+    assert dp_kernel.LAUNCHES_MOVES > before
+    assert not np.array_equal(got, backbone)
+    for other in (
+            ctgcns._polish_contig_device(db, tig, backbone, opts,
+                                         device="cpu"),
+            ctgcns._polish_contig_device(db, tig, backbone, opts,
+                                         device=cuda, cap=1),
+            ctgcns._polish_contig_host(db, tig, backbone, opts, device=cuda)):
+        np.testing.assert_array_equal(got, other)

@@ -197,3 +197,119 @@ def test_sam_text_matches_reference():
                 == ref_sam.sam_line("r1", 0, "chr1", 0, 60, "*", codes))
         assert (sam.sam_unmapped("junk", codes)
                 == ref_sam.sam_unmapped("junk", codes))
+
+
+def test_pack_2bit_matches_reference():
+    from mecat_tpu.io import packed_db as ref_pdb
+    from mecat_tpu_torch.io import packed_db as pdb
+
+    rng = np.random.default_rng(17)
+    for n in (0, 1, 3, 4, 5, 1023):
+        codes = rng.integers(0, 4, n, dtype=np.uint8)
+        packed = pdb.pack_2bit(codes)
+        assert packed.dtype == np.uint8 and len(packed) == (n + 3) // 4
+        np.testing.assert_array_equal(packed, ref_pdb.pack_2bit(codes))
+        np.testing.assert_array_equal(pdb.unpack_2bit(packed, n), codes)
+        np.testing.assert_array_equal(pdb.unpack_2bit(packed, n),
+                                      ref_pdb.unpack_2bit(packed, n))
+
+
+def _random_tags(rng, L, n):
+    pos = rng.integers(0, L, n).astype(np.int32)
+    delta = np.where(rng.random(n) < 0.8, 0,
+                     rng.integers(1, 4, n)).astype(np.int32)
+    base = np.where(delta > 0, rng.integers(0, 4, n),
+                    rng.integers(0, 5, n)).astype(np.int32)
+    return pos, delta, base
+
+
+@pytest.mark.parametrize("seed,depth,window", [(1, 8, False), (2, 14, True),
+                                               (3, 5, False)])
+def test_cns_table_matches_reference(seed, depth, window):
+    """The host vote: the same tags into both tables, then ``call``,
+    ``call_draft`` and ``call_polished`` give the same arrays."""
+    rng = np.random.default_rng(seed)
+    L = 300
+    template = rng.integers(0, 4, L).astype(np.uint8)
+    runs = rng.random(L) < 0.5
+    for i in range(1, L):
+        if runs[i]:
+            template[i] = template[i - 1]
+    kw = dict(del_bias100=50, ins_bias100=70, pool_min_cov=3,
+              pool_min_cov_ins=3, win_radius=3, win_mass_frac100=30,
+              win_peak_frac100=10)
+    votes = ((consensus.VoteParams(**kw), ref_consensus.VoteParams(**kw))
+             if window else (None, ref_consensus.VoteParams(65, 60, 5, 8)))
+
+    def tables():
+        got, want = consensus.CnsTable(template), ref_consensus.CnsTable(
+            template)
+        r = np.random.default_rng(seed + 10)
+        for _ in range(depth):
+            a, b = sorted(int(x) for x in r.integers(-10, L + 10, 2))
+            pos, delta, base = _random_tags(r, L, 4 * (b - a) // 3)
+            # most supports agree with the template
+            agree = r.random(len(pos)) < 0.7
+            base = np.where(agree & (delta == 0), template[pos], base)
+            for t in (got, want):
+                t.add_tags(pos, delta, base, (a, b))
+        return got, want
+
+    got, want = tables()
+    np.testing.assert_array_equal(got.counts, want.counts)
+    np.testing.assert_array_equal(got.coverage, want.coverage)
+    np.testing.assert_array_equal(got.call_polished(min_coverage=2),
+                                  want.call_polished(min_coverage=2))
+    for t in (got, want):
+        t.add_template_votes()
+    gs = got.call(min_coverage=3, min_length=5, vote=votes[0])
+    ws = want.call(min_coverage=3, min_length=5, vote=votes[1])
+    assert len(gs) == len(ws) >= (depth > 5)
+    for g, w in zip(gs, ws):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(got.call_draft(min_coverage=3, vote=votes[0]),
+                    want.call_draft(min_coverage=3, vote=votes[1])):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_tapes_to_columns_and_tags_match_reference():
+    """Op tapes of the port's aligner (torch tensors) through the port's
+    copy, the same tapes as NumPy arrays through the original."""
+    import torch
+
+    from mecat_tpu_torch.ops.align import extend_pair_batch_with_ops
+    from mecat_tpu_torch.testing import pair_inputs
+
+    torch.set_num_threads(1)
+    q, t, qlen, tlen, qseed, tseed = pair_inputs(8, 700, seed=23)
+    _, right_t, left_t = extend_pair_batch_with_ops(
+        *(torch.as_tensor(a) for a in (q, t, qlen, tlen, qseed, tseed)),
+        S=128, W=64, max_segs=8, max_segs_left=6)
+    got = consensus.tapes_to_columns(right_t, left_t, torch.as_tensor(qseed),
+                                     tseed, n_pairs=7)
+    want = ref_consensus.tapes_to_columns(
+        [x.numpy() for x in right_t], [x.numpy() for x in left_t], qseed,
+        tseed, n_pairs=7)
+    assert len(got) == len(want) == 7
+    n_cols = 0
+    for b, (g, w) in enumerate(zip(got, want)):
+        for ga, wa in zip(g, w):
+            assert ga.dtype == wa.dtype
+            np.testing.assert_array_equal(ga, wa)
+        n_cols += len(g[0])
+        for max_delta in (15, 1):
+            gt = consensus.columns_to_tags(*g, support=q[b],
+                                           tlen=int(tlen[b]),
+                                           max_delta=max_delta)
+            wt = ref_consensus.columns_to_tags(*w, support=q[b],
+                                               tlen=int(tlen[b]),
+                                               max_delta=max_delta)
+            for ga, wa in zip(gt, wt):
+                assert ga.dtype == wa.dtype
+                np.testing.assert_array_equal(ga, wa)
+    assert n_cols > 1000
+    empty = consensus.columns_to_tags(*(np.zeros(0, np.int32),) * 3,
+                                      support=q[0], tlen=5)
+    assert [len(x) for x in empty] == [0, 0, 0]

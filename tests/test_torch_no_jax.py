@@ -4,9 +4,12 @@ A subprocess blocks ``jax`` and ``jaxlib`` on ``sys.meta_path``, imports
 every module of ``mecat_tpu_torch`` and ``chip_smoke``, runs
 ``run_pw(device="cpu")`` on the golden reads, which must reproduce
 ``tests/golden/overlaps.m4``, and runs the ``mecat2cns`` CLI on a cut of the
-golden candidates, which must correct the templates it keeps whole.  It then
-maps the golden reads back onto three of them with the ``mecat2ref`` CLI and
-runs the ``roll_micro`` tool, both on ``--device cpu``.  Neither JAX nor
+golden candidates, which must correct the templates it keeps whole, once
+more with ``--rounds 2``, then the ``pipeline``, ``extract_sequences`` and
+``mecat2canu`` CLIs on the golden reads.  It then maps the golden reads back
+onto three of them with the ``mecat2ref`` CLI and runs the ``roll_micro``
+tool.  All run on ``--device cpu``, and each new CLI must refuse to start
+without a device.  Neither JAX nor
 the JAX package (``mecat_tpu``, whose init configures JAX) may be loaded at
 the end, and ``chip_smoke.main()`` must refuse to run without a CUDA device.
 """
@@ -76,12 +79,54 @@ with tempfile.TemporaryDirectory() as d:
                          if r.name.rsplit("_", 1)[0] in names[:3]}
     got = mine(out)
     assert len(got) >= 3, sorted(got)
-    try:
-        mecat2cns.main(["--rounds", "2", "--device", "cpu", "a", "b", "c"])
-    except SystemExit as e:
-        assert e.code == 2
-    else:
-        raise AssertionError("--rounds 2 did not exit")
+    # two correction rounds through the same CLI: the same templates come
+    # out, and the second round changes at least one of them
+    out2 = os.path.join(d, "corrected2.fasta")
+    rc = mecat2cns.main(["-i", "0", "-a", "300", "-l", "500", "-r", "0.6",
+                         "-c", "4", "--extend-batch", "32",
+                         "--align-segment", "128", "--align-band", "64",
+                         "--rounds", "2", "--device", "cpu", cut,
+                         os.path.join(golden, "reads.fasta"), out2])
+    assert rc == 0
+    got2 = mine(out2)
+    assert len(got2) >= 3 and got2 != got, sorted(got2)
+    # the correct+trim pipeline, the sequence picker and the assembler on
+    # the golden reads (nanopore preset: these reads are short)
+    from mecat_tpu_torch.cli import extract_sequences, mecat2canu, pipeline
+
+    pipe = os.path.join(d, "pipe")
+    rc = pipeline.main(["-d", os.path.join(golden, "reads.fasta"), "-o", pipe,
+                        "-x", "1", "-g", "20000", "-a", "400", "-n", "12",
+                        "--min-coverage", "3", "--min-length", "500",
+                        "--kmer-size", "9", "--scan-stride", "4",
+                        "--scan-batch", "8", "--extend-batch", "32",
+                        "--align-segment", "128", "--align-band", "64",
+                        "--device", "cpu"])
+    assert rc == 0
+    for name in ("candidates.txt", "corrected.fasta", "extracted.fasta",
+                 "asm_overlaps.m4", "trimmed.fasta"):
+        assert os.path.getsize(os.path.join(pipe, name)) > 0, name
+    rc = extract_sequences.main([os.path.join(pipe, "corrected.fasta"),
+                                 os.path.join(d, "picked"), "20000", "2",
+                                 "--device", "cpu"])
+    assert rc == 0 and os.path.getsize(os.path.join(d, "picked.fasta")) > 0
+    rc = mecat2canu.main(["-p", "g", "-d", os.path.join(d, "asm"),
+                          "-assemble", "-pacbio-corrected",
+                          os.path.join(pipe, "trimmed.fasta"),
+                          "genomeSize=20k", "minOverlapLength=400",
+                          "--device", "cpu"])
+    assert rc == 0
+    assert os.path.exists(os.path.join(d, "asm", "output.done"))
+    for tool, argv in ((pipeline, ["-d", "a", "-o", "b", "-g", "1"]),
+                       (mecat2canu, ["-p", "a", "-d", "b",
+                                     "-pacbio-corrected", "c"]),
+                       (extract_sequences, ["a", "b", "1", "1"])):
+        try:
+            tool.main(argv)
+        except SystemExit as e:
+            assert e.code == 2
+        else:
+            raise AssertionError(f"{tool.__name__} started without a card")
     # mapping through the CLI: the golden reads against three of their own
     # number as the reference, so those three map onto themselves in full
     from mecat_tpu_torch.cli import mecat2ref
@@ -139,8 +184,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _SCRIPT],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
-        timeout=300)
+        timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_mods = int(proc.stdout.split("NO_JAX_OK")[1])
-    assert n_mods >= 29
+    assert n_mods >= 44
     assert '"ok"' not in proc.stdout           # no result line from the smoke
