@@ -92,14 +92,41 @@ non-zero exit and no result line:
    the polish exactness check: a 7-read contig polished in device tiles on
    ``cuda`` equals the same on ``cpu`` and the host route.  ``--profile``
    adds one polish pass of the longest contig under the stage timers of
-   phase 6.
+   phase 6;
+13. the fused pw route and the sharded drivers: (a) ``run_pw(route=
+   "fused")`` on ``cuda`` equals its ``cpu`` run, bytes and ``PwStats``, on
+   the reads of ``tests/test_dist.py`` and on ``tests/golden/reads.fasta``
+   at ``-j 1``; (b) the CLI ``mecat2pw -j 1 -n 16 -a 1000 --route fused
+   --device cuda`` on the bench reads beside phase 5's staged run: wall and
+   ``run_pw`` seconds, records, launches (counts kernel > 0, move kernel
+   0), issued and useful Gcells, the route's phase split; (c) one rank on
+   NCCL in this process (``init_distributed`` with a ``file://`` store):
+   ``run_pw_dist`` on the bench reads gives 13b's records, ``run_cns_dist``
+   with one and two rounds on the 28-read pile of ``testing.cns_pile``
+   gives ``run_cns``'s; (d) four ranks on ``cuda:0`` over ``gloo``
+   (``testing.run_ranks``: subprocesses, one thread each): the collectives
+   on CUDA tensors, ``sharded_overlap_step`` at (n_data, n_hash) = (2, 2)
+   equal to ``overlap_step`` on the data of ``tests/test_sharded.py``,
+   ``run_pw_dist`` at (2, 2) and (1, 4) equal to 13a's fused records,
+   ``run_cns_dist`` with two rounds equal to ``run_cns``; seconds, exchange
+   bytes and launches of every rank; then ``python -m
+   mecat_tpu_torch.parallel.dryrun 8 --device cuda`` at the production
+   shapes with its content check (every corrected segment above its raw
+   read's identity and at least 95 %).
+
+The sharded drivers start as ``torch.distributed`` ranks: under
+``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``, ``--device cuda``
+takes card ``LOCAL_RANK``), or with rank, world size and an init method
+given to ``parallel.dist.init_distributed``; NCCL where every rank has a
+card of its own, ``gloo`` on the CPU or where ranks share a card.
 
 Each kernel's launch counter is zeroed just before the timed run of its
 path (phase 4's steady passes, phase 6's timed pass, the tool's run in
-phase 2, the CUDA SAM run of phase 8, phase 10's timed pass) and read just
-after, so the reported launches are those of the main paths only; the CLIs
-of phases 9, 11 and 12 are processes of their own and report their own
-counts.  The line before the last is a JSON object with the kernels'
+phase 2, the CUDA SAM run of phase 8, phase 10's timed pass, phase 13c)
+and read just after, so the reported launches are those of the main paths
+only; the CLIs of phases 9, 11, 12 and 13b and the ranks of 13d are
+processes of their own and report their own counts (the dry run's summed
+over its ranks).  The line before the last is a JSON object with the kernels'
 numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
 without the repository beside it.
@@ -814,7 +841,7 @@ def count_lines(path: str, prefix: str = "") -> int:
                    and line.startswith(prefix))
 
 
-def phase_cli(reads: str, n_reads: int, work: str) -> None:
+def phase_cli(reads: str, n_reads: int, work: str) -> dict:
     out = os.path.join(work, "bench.m4")
     wall, summary = run_cli(
         "mecat2pw", ["-j", "1", "-d", reads, "-o", out, "-w",
@@ -835,6 +862,7 @@ def phase_cli(reads: str, n_reads: int, work: str) -> None:
         raise AssertionError("CLI wrote no overlaps")
     if summary.get("dp_launches", 0) <= 0:
         raise AssertionError("the CLI's DP did not go through the kernel")
+    return dict(records=n_rec, wall=wall, summary=summary)
 
 
 def phase_cli_cns(reads: str, n_reads: int, work: str) -> None:
@@ -1431,6 +1459,238 @@ def profile_polish(wrk: str) -> None:
             f"{e.key[:70]}")
 
 
+def pw_stats_fields(stats) -> dict:
+    return {k: getattr(stats, k) for k in ("candidates", "extended",
+                                           "overlaps", "cells",
+                                           "cells_useful")}
+
+
+def phase_fused_exact(work: str) -> dict:
+    """Phase 13a: the fused route on the card equals its CPU run, bytes and
+    PwStats, on the reads of tests/test_dist.py and on the golden reads.
+    Returns the paths of the test_dist reads and of their cuda M4."""
+    from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
+    from mecat_tpu_torch.testing import DIST_PW, GOLDEN_J1, dist_reads
+
+    d = os.path.join(work, "fused")
+    os.makedirs(d)
+    _, dreads = dist_reads(d)
+    golden = os.path.join(ROOT, "tests", "golden", "reads.fasta")
+    out = {}
+    for name, reads, opts in (("test_dist", dreads, DIST_PW),
+                              ("golden", golden, GOLDEN_J1)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(d, f"{name}_{dev}.m4")
+            t0 = time.time()
+            stats = run_pw(reads, path, os.path.join(d, f"w_{name}_{dev}"),
+                           PwOptions(**opts), device=dev, route="fused")
+            with open(path, "rb") as fh:
+                got[dev] = (fh.read(), pw_stats_fields(stats),
+                            time.time() - t0)
+            out[(name, dev)] = path
+        if got["cuda"][:2] != got["cpu"][:2] or not got["cuda"][0]:
+            raise AssertionError(f"fused run_pw on {name}: cuda and cpu "
+                                 f"differ ({got['cuda'][1]} / "
+                                 f"{got['cpu'][1]}) or wrote nothing")
+        n_rec = got["cuda"][0].count(b"\n")
+        say(f"phase 13: fused run_pw -j 1 on the {name} reads: "
+            f"{n_rec} records, bytes and PwStats "
+            f"{json.dumps(got['cuda'][1])} equal on cuda "
+            f"({got['cuda'][2]:.2f} s) and cpu ({got['cpu'][2]:.2f} s)")
+    return dict(reads=dreads, m4=out[("test_dist", "cuda")])
+
+
+def phase_fused_cli(reads: str, n_reads: int, work: str,
+                    staged: dict) -> dict:
+    """Phase 13b: the fused route of the pw CLI on the bench reads, beside
+    phase 5's staged run."""
+    out = os.path.join(work, "bench_fused.m4")
+    wall, summary = run_cli(
+        "mecat2pw", ["-j", "1", "-d", reads, "-o", out, "-w",
+                     os.path.join(work, "wrk_fused"), "-n", "16", "-a",
+                     "1000", "--route", "fused", "--device", "cuda"], "pw")
+    n_rec = count_lines(out)
+    keys = ("seconds", "index_build_seconds", "fused_prep_s", "fused_scan_s",
+            "fused_extend_s", "candidates", "overlaps", "dp_gcells_issued",
+            "dp_gcells_useful", "dp_launches", "dp_launches_moves")
+    say(f"phase 13: CLI mecat2pw -j 1 -n 16 -a 1000 --route fused on "
+        f"{n_reads} reads: exit 0, {n_rec} M4 records, wall {wall:.2f} s, "
+        f"run_pw {summary.get('seconds', 0.0):.2f} s; the staged route "
+        f"(phase 5): {staged['records']} records, wall "
+        f"{staged['wall']:.2f} s, run_pw "
+        f"{staged['summary'].get('seconds', 0.0):.2f} s, "
+        f"{staged['summary'].get('dp_launches')} launches, Gcells issued "
+        f"{staged['summary'].get('dp_gcells_issued')} / useful "
+        f"{staged['summary'].get('dp_gcells_useful')}")
+    say("phase 13: fused CLI summary " + json.dumps(
+        {k: summary[k] for k in keys if k in summary}))
+    if summary.get("route") != "fused" or n_rec <= 0:
+        raise AssertionError(f"the fused CLI ran route "
+                             f"{summary.get('route')!r}, {n_rec} records")
+    if summary.get("dp_launches", 0) <= 0 or summary["dp_launches_moves"]:
+        raise AssertionError("the fused CLI's DP did not go through the "
+                             "counts kernel alone")
+    return dict(m4=out, launches=dict(
+        counts=summary["dp_launches"], moves=summary["dp_launches_moves"]))
+
+
+def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
+                        work: str) -> dict:
+    """Phase 13c: one rank on NCCL.  run_pw_dist on the bench reads equals
+    the fused CLI's records; run_cns_dist with one and two rounds on the
+    28-read pile equals run_cns on the card.  Both launch counters are
+    zeroed just before and read just after.  Returns the launches and the
+    pile's paths and run_cns outputs."""
+    import torch.distributed as dist
+
+    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.parallel.cns_dist import run_cns_dist
+    from mecat_tpu_torch.parallel.dist import init_distributed, run_pw_dist
+    from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
+    from mecat_tpu_torch.pipeline.pw import PwOptions
+    from mecat_tpu_torch.testing import (PILE_CNS, cns_pile, fasta_records,
+                                         m4_records)
+
+    d = os.path.join(work, "dist1")
+    os.makedirs(d)
+    _, preads, cand = cns_pile(d, device="cuda")
+    single = {}
+    for rounds in (1, 2):
+        path = os.path.join(d, f"run_cns_r{rounds}.fasta")
+        run_cns(cand, preads, path, CnsOptions(rounds=rounds, **PILE_CNS),
+                device="cuda")
+        single[rounds] = path
+    init_distributed("cuda", rank=0, world_size=1,
+                     init_method="file://" + os.path.join(d, "pg_store"))
+    backend = dist.get_backend()
+    try:
+        dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+        t0 = time.time()
+        out = os.path.join(d, "bench_dist.m4")
+        stats = run_pw_dist(bench_reads_path, out, os.path.join(d, "wpw"),
+                            PwOptions(task=1, num_candidates=16,
+                                      min_align_size=1000),
+                            n_data=1, n_hash=1, device="cuda")
+        pw_s = time.time() - t0
+        got, want = m4_records(out), m4_records(fused_cli["m4"])
+        if got != want or stats.overlaps != len(got):
+            raise AssertionError(f"run_pw_dist on one rank: {len(got)} "
+                                 f"records ({stats.overlaps} counted), the "
+                                 f"fused CLI {len(want)}, equal "
+                                 f"{got == want}")
+        cns_s = {}
+        for rounds in (1, 2):
+            t0 = time.time()
+            out = os.path.join(d, f"dist_r{rounds}.fasta")
+            run_cns_dist(cand, preads, out, os.path.join(d, f"w{rounds}"),
+                         CnsOptions(rounds=rounds, **PILE_CNS),
+                         device="cuda")
+            cns_s[rounds] = time.time() - t0
+            got, want = fasta_records(out), fasta_records(single[rounds])
+            if got != want or not got:
+                raise AssertionError(f"run_cns_dist rounds={rounds} on one "
+                                     f"rank: {len(got)} records, run_cns "
+                                     f"{len(want)}, equal {got == want}")
+        launches = dict(counts=dp_kernel.LAUNCHES,
+                        moves=dp_kernel.LAUNCHES_MOVES)
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl" or min(launches.values()) <= 0:
+        raise AssertionError(f"one rank ran over {backend}, launches "
+                             f"{launches}")
+    say(f"phase 13: one rank over {backend}: run_pw_dist on the bench reads "
+        f"{stats.overlaps} records equal to the fused CLI's ({pw_s:.2f} s); "
+        f"run_cns_dist rounds=1 / 2 on the 28-read pile equal to run_cns "
+        f"({cns_s[1]:.2f} / {cns_s[2]:.2f} s); launches {launches}")
+    return dict(launches=launches, pile=(preads, cand),
+                run_cns_r2=single[2])
+
+
+def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
+    """Phase 13d: four ranks sharing the card over gloo (the collectives on
+    CUDA tensors, the sharded overlap step, run_pw_dist on two grids,
+    run_cns_dist with two rounds), then the production dry run on eight.
+    Returns the dry run's launches summed over its ranks."""
+    import torch
+
+    from mecat_tpu_torch.index.kmer_index import build_index
+    from mecat_tpu_torch.pipeline.device_step import overlap_step
+    from mecat_tpu_torch.testing import (SHARDED_CFG, fasta_records,
+                                         m4_records, rank_reports, run_ranks,
+                                         sharded_case, valid_set)
+
+    d = os.path.join(work, "ranks")
+    os.makedirs(d)
+    preads, cand = dist1["pile"]
+    with open(os.path.join(d, "inputs.json"), "w") as fh:
+        json.dump({"pw_reads": fused["reads"], "cns_reads": preads,
+                   "cns_cand": cand}, fh)
+    tasks = ["collectives", "overlap-2x2", "pw-2x2", "pw-1x4", "cns-r2"]
+    t0 = time.time()
+    run_ranks(4, d, tasks, device="cuda:0", timeout=600)
+    wall = time.time() - t0
+    rec = rank_reports(d, tasks, 4)
+    backends = {r["backend"] for r in rec["collectives"]}
+    if backends != {"gloo"}:
+        raise AssertionError(f"four ranks on one card ran over {backends}")
+    say("phase 13: 4 ranks on cuda:0 over gloo: all_to_all_single (int8, "
+        "int32, int64), all_gather and all_reduce(MAX) on CUDA tensors "
+        "give the expected values")
+
+    db, bases, lens, self_id = sharded_case()
+    idx = build_index(db.codes, db.starts, db.lengths, k=SHARDED_CFG["k"],
+                      device="cuda")
+    single = valid_set(overlap_step(
+        *(torch.as_tensor(a, device="cuda") for a in (bases, lens, self_id)),
+        torch.as_tensor(db.codes, device="cuda"), idx.offsets, idx.pos_rid,
+        idx.pos_loc, idx.read_starts, idx.read_lengths, idx.max_occ_cutoff,
+        **SHARDED_CFG))
+    sharded = {tuple(o) for r in rec["overlap-2x2"] for o in r["overlaps"]}
+    if sharded != single or not single:
+        raise AssertionError(f"sharded_overlap_step (2, 2): {len(sharded)} "
+                             f"overlaps, overlap_step {len(single)}")
+    want = m4_records(fused["m4"])
+    for grid in ("2x2", "1x4"):
+        got = m4_records(os.path.join(d, "out", f"pw-{grid}.m4"))
+        n_ov = sum(r["overlaps"] for r in rec[f"pw-{grid}"])
+        if got != want or n_ov != len(got):
+            raise AssertionError(f"run_pw_dist {grid}: {len(got)} records "
+                                 f"({n_ov} counted), fused {len(want)}")
+    got = fasta_records(os.path.join(d, "out", "cns-r2.fasta"))
+    if got != fasta_records(dist1["run_cns_r2"]) or not got:
+        raise AssertionError("run_cns_dist rounds=2 on four ranks differs "
+                             "from run_cns")
+    for t in tasks[1:]:
+        say(f"phase 13: 4 ranks, {t}: equal to the single device; seconds "
+            f"{[round(r['seconds'], 2) for r in rec[t]]}, exchange bytes "
+            f"{[r['exchange_bytes'] for r in rec[t]]}, launches (counts, "
+            f"moves) {[(r['launches'], r['launches_moves']) for r in rec[t]]}")
+    say(f"phase 13: the four ranks took {wall:.2f} s with process start")
+
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mecat_tpu_torch.parallel.dryrun", "8",
+         "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+        timeout=900)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the dry run on 8 ranks exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}"
+                           f"{proc.stdout[-2000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("DRYRUN ")]
+    found = json.loads(line[-1][len("DRYRUN "):])
+    say(f"phase 13: python -m mecat_tpu_torch.parallel.dryrun 8 --device "
+        f"cuda (production shapes, content check) passed, wall {wall:.2f} "
+        f"s: " + json.dumps(found))
+    launches = dict(counts=found["launches"], moves=found["launches_moves"])
+    if min(launches.values()) <= 0 or not found.get("identity_checked"):
+        raise AssertionError(f"the dry run launched {launches}, checked "
+                             f"{found.get('identity_checked')} segments")
+    return dict(launches=launches)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--passes", type=int, default=3,
@@ -1490,7 +1750,7 @@ def main(argv=None) -> int:
         reads = os.path.join(work, "bench_reads.fasta")
         write_fasta(reads, [(db.name(i), db.read(i))
                             for i in range(db.n_reads)])
-        phase_cli(reads, db.n_reads, work)
+        staged_cli = phase_cli(reads, db.n_reads, work)
         cns = phase_cns(db, bench["supports"], args.profile)
         # phase 7's depth cut: the reads of the genome's first quarter
         cut = [i for i, t in enumerate(truths) if t.start < GENOME // 4]
@@ -1505,6 +1765,10 @@ def main(argv=None) -> int:
         phase_polish_small(work)
         assembly = phase_assembly(pipeline["corrected"], genome, work,
                                   bool(args.profile))
+        fused = phase_fused_exact(work)
+        fused_cli = phase_fused_cli(reads, db.n_reads, work, staged_cli)
+        dist1 = phase_dist_one_rank(reads, fused_cli, work)
+        ranks = phase_dist_ranks(fused, dist1, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
@@ -1529,6 +1793,11 @@ def main(argv=None) -> int:
             "launches_rounds": rounds["launches"][key],
             "launches_pipeline_cli": pipeline["launches"][key],
             "launches_assembly_cli": assembly["launches"][key],
+            # phase 13: the fused pw CLI's own count, the one-rank NCCL
+            # drivers in this process, the 8-rank dry run summed over ranks
+            "launches_fused_cli": fused_cli["launches"][key],
+            "launches_dist": dist1["launches"][key],
+            "launches_dryrun": ranks["launches"][key],
             "max_abs_err": max(s[with_moves]["max_abs_err"]
                                for s in stats.values()),
             **{k: main_shape[with_moves][k]

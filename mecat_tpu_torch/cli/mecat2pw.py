@@ -2,11 +2,15 @@
 
 Usage:
     python -m mecat_tpu_torch.cli.mecat2pw -j 0 -d reads.fasta -o cand.txt \
-        -w wrk [-n 100] [-a 2000] [-k 32] [-g 0] [--device cuda]
+        -w wrk [-n 100] [-a 2000] [-k 32] [-g 0] [--device cuda] \
+        [--route staged|fused]
 
 ``-t`` (threads) is accepted for compatibility; parallelism is device
 batching.  ``--device`` names the torch device (default ``cuda``); the tool
-refuses to start if that device does not exist.
+refuses to start if that device does not exist.  ``--route`` picks the
+``-j 1`` route of ``pipeline.pw.run_pw`` (default ``staged``; ``fused``
+probes every candidate on the device and extends the survivors, top n per
+strand).
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import sys
 import torch
 
 from .. import constants as C
-from ..pipeline.pw import PwOptions, run_pw
+from ..pipeline.pw import ROUTES, PwOptions, run_pw
 from ..utils.log import get_logger
 
 log = get_logger("cli.pw")
@@ -52,6 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--align-band", type=int, default=C.ALIGN_BAND)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
+    p.add_argument("--route", default="staged", choices=ROUTES,
+                   help="-j 1 route: staged (host-built extension batches) "
+                        "or fused (device probe, survivors extended)")
     return p
 
 
@@ -74,6 +81,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if not device_exists(args.device):
         parser.error(f"device {args.device!r} does not exist on this machine")
+    if args.route == "fused" and args.task != 1:
+        parser.error("--route fused computes -j 1 only")
     opts = PwOptions(
         task=args.task, num_candidates=args.num_candidates,
         min_align_size=args.min_align_size, min_identity=args.min_identity,
@@ -83,7 +92,7 @@ def main(argv=None) -> int:
         align_segment=args.align_segment, align_band=args.align_band,
         print_ext=args.print_ext)
     stats = run_pw(args.reads, args.output, args.wrk_dir, opts,
-                   device=args.device)
+                   device=args.device, route=args.route)
     log.info("done: %d reads, %d candidates, %d overlaps in %.1fs",
              stats.reads, stats.candidates, stats.overlaps, stats.seconds)
     return 0

@@ -43,23 +43,28 @@ def probe_hits(bases, lengths, offsets, pos_rid, pos_loc, cutoff: int,
                stride: int = C.KMER_SCAN_STRIDE,
                max_occ: int = C.MAX_OCC_PER_KMER,
                diag_bin: int = C.DDF_DIAG_BIN,
-               diag_shift: int = _DIAG_SHIFT):
+               diag_shift: int = _DIAG_SHIFT,
+               code_lo: int = 0, code_hi: int = 1 << 30):
     """Sampled k-mer probe -> flat (rid, dbin, qpos, toff, valid) hits [B, H].
 
     bases uint8 [B, L] (oriented), lengths and self_id int32 [B] (self_id -1:
     no self read).  H = ceil(L / stride) * max_occ.  ``diag_shift`` is added
     to the diagonal before binning; the sum stays int32 and the bin is a
     floor division, so target offsets past the shift (negative sums) keep
-    distinct, ordered bins.
+    distinct, ordered bins.  ``code_lo`` / ``code_hi`` restrict the probe to
+    the k-mer codes in [code_lo, code_hi): a hash shard's CSR slice holds
+    that range, indexed from ``code_lo``.
     """
     B, L = bases.shape
     Q = (L + stride - 1) // stride
     H = Q * max_occ
     codes = kmer_codes(bases, k)[:, ::stride][:, :Q]
     qpos = torch.arange(Q, dtype=torch.int32, device=bases.device) * stride
-    qvalid = qpos[None, :] + k <= lengths[:, None]
+    qvalid = ((qpos[None, :] + k <= lengths[:, None])
+              & (codes >= code_lo) & (codes < code_hi))
     hit_rid, hit_loc, hit_valid = probe_index(
-        offsets, pos_rid, pos_loc, codes, qvalid, cutoff, max_occ=max_occ)
+        offsets, pos_rid, pos_loc, codes - code_lo, qvalid, cutoff,
+        max_occ=max_occ)
     rid = hit_rid.reshape(B, H)
     toff = hit_loc.reshape(B, H)
     hqpos = qpos[None, :, None].expand(B, Q, max_occ).reshape(B, H)
@@ -128,9 +133,11 @@ def scan_candidates(bases, lengths, offsets, pos_rid, pos_loc, cutoff: int,
                     max_occ: int = C.MAX_OCC_PER_KMER,
                     num_candidates: int = C.DEFAULT_NUM_CANDIDATES,
                     diag_bin: int = C.DDF_DIAG_BIN,
-                    diag_shift: int = _DIAG_SHIFT) -> Candidates:
+                    diag_shift: int = _DIAG_SHIFT, code_lo: int = 0,
+                    code_hi: int = 1 << 30) -> Candidates:
     """Single-device candidate scan: probe_hits -> score_hits."""
     hits = probe_hits(bases, lengths, offsets, pos_rid, pos_loc, cutoff,
                       self_id, k=k, stride=stride, max_occ=max_occ,
-                      diag_bin=diag_bin, diag_shift=diag_shift)
+                      diag_bin=diag_bin, diag_shift=diag_shift,
+                      code_lo=code_lo, code_hi=code_hi)
     return score_hits(*hits, num_candidates=num_candidates)

@@ -13,7 +13,16 @@ against the plain version;
 candidates (``PILE_PW`` / ``PILE_CNS`` are its options); ``tiled_reads``,
 ``noisy_tiled_reads``, ``perfect_overlaps`` and ``db_from`` make the tiled
 layouts of the assembly tests, and ``polish_case`` a contig of such reads
-stitched and ready to polish.
+stitched and ready to polish.  The sharded drivers' cases are copies of the
+JAX package's tests: ``dist_reads`` / ``DIST_PW`` (``tests/test_dist.py``),
+``sharded_case`` / ``SHARDED_CFG`` (``tests/test_sharded.py``) and
+``cns_dist_pile`` / ``CNS_DIST_OPTS`` (``tests/test_cns_dist.py``).
+
+``python -m mecat_tpu_torch.testing --rank R --world N --init-method
+file://... --work DIR TASK...`` is one rank of the multi-rank checks: it
+joins the process group, runs each task on the cases above and writes what
+it found under DIR (see :func:`rank_main`); :func:`run_ranks` starts N of
+them and fails when any fails or outlives its timeout.
 """
 from __future__ import annotations
 
@@ -56,6 +65,59 @@ def cns_pile(work_dir: str, *, device):
     write_fasta(reads, [(db.name(i), db.read(i)) for i in range(db.n_reads)])
     cand = os.path.join(work_dir, "c.txt")
     run_pw(reads, cand, os.path.join(work_dir, "w0"),
+           PwOptions(task=0, **PILE_PW), db=db, device=device)
+    return db, reads, cand
+
+
+#: the options of tests/test_dist.py
+DIST_PW = dict(task=1, kmer_size=9, scan_stride=4, min_align_size=500,
+               num_candidates=8, scan_batch=4, extend_batch=64,
+               align_segment=128, align_band=64, min_block_score=2)
+#: the overlap step's options of tests/test_sharded.py
+SHARDED_CFG = dict(k=7, stride=4, max_occ=16, num_candidates=8, diag_bin=128,
+                   L_target=2048, S=128, W=64, max_segs=8, min_align_size=300,
+                   min_identity=65.0)
+#: the correction options of tests/test_cns_dist.py
+CNS_DIST_OPTS = dict(min_align_size=300, min_length=500,
+                     min_mapping_ratio=0.3, align_segment=128, align_band=64,
+                     extend_batch=32, min_identity=65.0)
+
+
+def dist_reads(work_dir: str):
+    """32 reads of mean 2.2 kb at 8 % error over a 15 kb genome (seeds
+    31 / 32), written to ``work_dir``/reads.fasta.  Returns (db, path)."""
+    genome = random_genome(15000, seed=31)
+    db, _ = simulate_reads(genome, 32, mean_len=2200, min_len=1200,
+                           seed=32, error_rate=0.08)
+    reads = os.path.join(work_dir, "reads.fasta")
+    write_fasta(reads, [(db.name(i), db.read(i)) for i in range(db.n_reads)])
+    return db, reads
+
+
+def sharded_case():
+    """16 reads of mean 1.5 kb over a 12 kb genome (seeds 61 / 62), padded
+    to 2048: returns (db, bases u8 [16, 2048], lens i32 [16], self_id)."""
+    genome = random_genome(12000, seed=61)
+    db, _ = simulate_reads(genome, 16, mean_len=1500, min_len=800, seed=62,
+                           error_rate=0.08)
+    bases, lens = db.padded_batch(range(16), pad_to=2048)
+    return db, bases, lens, np.arange(16, dtype=np.int32)
+
+
+def cns_dist_pile(work_dir: str, *, device):
+    """28 reads of mean 1.8 kb at 10 % error over a 9 kb genome (seeds 61 /
+    62), written to ``work_dir``/reads.fasta, and their ``-j 0`` candidates
+    in ``work_dir``/cand.txt (made on ``device``).  Returns (db, reads
+    path, candidates path)."""
+    from .pipeline.pw import PwOptions, run_pw
+
+    genome = random_genome(9000, seed=61)
+    db, _ = simulate_reads(genome, 28, mean_len=1800, min_len=1000,
+                           seed=62, error_rate=0.1)
+    reads = os.path.join(work_dir, "reads.fasta")
+    write_fasta(reads, [(db.name(i), db.read(i)) for i in range(db.n_reads)])
+    cand = os.path.join(work_dir, "cand.txt")
+    run_pw(reads, cand, os.path.join(work_dir, "wrk"),
            PwOptions(task=0, **PILE_PW), db=db, device=device)
     return db, reads, cand
 
@@ -336,3 +398,197 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
     packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
     packed = torch.where(active[:, None, None], packed, 0)
     return (packed.to(torch.int32), *best)
+
+
+def valid_set(out, row0: int = 0) -> set:
+    """The overlaps an OverlapStepOut keeps, as a set of (row, target,
+    score, qbeg, qend, tbeg, tend) with rows counted from ``row0``."""
+    f = {k: getattr(out, k).cpu().numpy()
+         for k in ("valid", "target", "score", "qbeg", "qend", "tbeg",
+                   "tend")}
+    r, c = np.nonzero(f["valid"])
+    return {(row0 + int(i), *(int(f[k][i, j]) for k in
+                              ("target", "score", "qbeg", "qend", "tbeg",
+                               "tend")))
+            for i, j in zip(r, c)}
+
+
+def m4_records(path: str) -> list:
+    """Full M4 records of a file, sorted (an order-free comparison)."""
+    from .io.m4 import read_m4
+
+    return sorted((r.qid, r.sid, r.identity, r.score, r.qstrand, r.qstart,
+                   r.qend, r.qsize, r.sstrand, r.sstart, r.send, r.ssize)
+                  for r in read_m4(path))
+
+
+def fasta_records(path: str) -> dict:
+    """{name: bases} of a FASTA file (an order-free comparison)."""
+    from .io.fasta import iter_fasta
+
+    return {r.name: r.codes.tobytes() for r in iter_fasta(path)}
+
+
+def _rank_task(task: str, rank: int, inputs: dict, out_dir: str,
+               device) -> dict:
+    """One task of :func:`rank_main`; returns what this rank reports."""
+    from .parallel.cns_dist import run_cns_dist
+    from .parallel.dist import make_grid
+    from .pipeline.cns import CnsOptions
+    from .pipeline.pw import PwOptions
+
+    kind, *args = task.split("-")
+    if kind == "collectives":       # the collectives the drivers use
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        for dt in (torch.int8, torch.int32, torch.int64):
+            x = (rank * 10 + torch.arange(2 * world, device=device)).to(dt)
+            got = torch.empty_like(x)
+            dist.all_to_all_single(got, x)
+            want = torch.cat([j * 10 + 2 * rank + torch.arange(2)
+                              for j in range(world)]).to(dt)
+            assert torch.equal(got.cpu(), want), (dt, got, want)
+            parts = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(parts, x)
+            assert all(torch.equal(p.cpu(), (j * 10 + torch.arange(
+                2 * world)).to(dt)) for j, p in enumerate(parts)), dt
+        t = torch.tensor([rank], dtype=torch.int64, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        assert int(t.item()) == world - 1
+        return {"backend": dist.get_backend(), "device": str(device)}
+    if kind == "failon":            # failon-<rank>: one rank fails while
+        import torch.distributed as dist   # the others wait on a barrier
+
+        if rank == int(args[0]):
+            raise RuntimeError(f"rank {rank} fails on purpose")
+        dist.barrier()
+        return {}
+    if kind == "overlap":           # overlap-<n_data>x<n_hash>
+        from .index.kmer_index import build_index
+        from .parallel.sharded import index_shard, sharded_overlap_step
+
+        n_data, n_hash = (int(x) for x in args[0].split("x"))
+        grid = make_grid(n_data, n_hash)
+        db, bases, lens, self_id = sharded_case()
+        idx = build_index(db.codes, db.starts, db.lengths,
+                          k=SHARDED_CFG["k"], device=device)
+        Bl = len(bases) // n_data
+        mine = slice(grid.d * Bl, (grid.d + 1) * Bl)
+        out = sharded_overlap_step(
+            *(torch.as_tensor(a[mine], device=device)
+              for a in (bases, lens, self_id)),
+            torch.as_tensor(db.codes, device=device),
+            index_shard(idx, grid, device), idx.read_starts,
+            idx.read_lengths, idx.max_occ_cutoff, grid, **SHARDED_CFG)
+        Bh = Bl // n_hash
+        return {"rows": Bh, "overlaps": sorted(valid_set(out, rank * Bh))}
+    if kind == "pw":                # pw-<n_data>x<n_hash>
+        from .parallel.dist import run_pw_dist
+
+        n_data, n_hash = (int(x) for x in args[0].split("x"))
+        stats = run_pw_dist(
+            inputs["pw_reads"], os.path.join(out_dir, task + ".m4"),
+            os.path.join(out_dir, "w" + task), PwOptions(**DIST_PW),
+            n_data=n_data, n_hash=n_hash, device=device)
+        return {k: getattr(stats, k) for k in ("candidates", "extended",
+                                               "overlaps")}
+    if kind == "cns":               # cns-r<rounds>[-c<cap bytes>]
+        rounds = int(args[0][1:])
+        cap = int(args[1][1:]) if len(args) > 1 else None
+        stats = run_cns_dist(
+            inputs["cns_cand"], inputs["cns_reads"],
+            os.path.join(out_dir, task + ".fasta"),
+            os.path.join(out_dir, "w" + task),
+            CnsOptions(rounds=rounds, **inputs.get("cns_opts", PILE_CNS)),
+            device=device, cap=cap)
+        return {k: getattr(stats, k) for k in ("templates", "corrected_reads",
+                                               "supports_aligned",
+                                               "table_slices")}
+    raise ValueError(f"unknown rank task {task!r}")
+
+
+def rank_main(argv=None) -> int:
+    """One rank of the multi-rank checks (``python -m
+    mecat_tpu_torch.testing``): join the group, run every task in order
+    and write ``<work>/out/<task>.r<rank>.json`` (what the rank reports,
+    its seconds and its DP kernel launches).
+
+    ``<work>/inputs.json`` names the inputs: ``pw_reads`` for ``pw-DxH``,
+    ``cns_reads`` / ``cns_cand`` (and ``cns_opts``, default ``PILE_CNS``)
+    for ``cns-rN[-cBYTES]``; ``overlap-DxH`` runs on :func:`sharded_case`.
+    """
+    import argparse
+    import json
+    import time
+
+    import torch.distributed as dist
+
+    from .ops import dp_kernel
+    from .parallel import sharded
+    from .parallel.dist import init_distributed
+
+    p = argparse.ArgumentParser(prog="mecat_tpu_torch.testing")
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--world", type=int, required=True)
+    p.add_argument("--init-method", required=True)
+    p.add_argument("--device", default="cpu")
+    p.add_argument("--work", required=True)
+    p.add_argument("tasks", nargs="+")
+    args = p.parse_args(argv)
+    torch.set_num_threads(1)
+    init_distributed(args.device, rank=args.rank, world_size=args.world,
+                     init_method=args.init_method)
+    device = torch.device(args.device)
+    with open(os.path.join(args.work, "inputs.json")) as fh:
+        inputs = json.load(fh)
+    out_dir = os.path.join(args.work, "out")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        for task in args.tasks:
+            l0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES,
+                  sharded.EXCHANGE_BYTES)
+            t0 = time.time()
+            rec = _rank_task(task, args.rank, inputs, out_dir, device)
+            rec.update(seconds=time.time() - t0,
+                       launches=dp_kernel.LAUNCHES - l0[0],
+                       launches_moves=dp_kernel.LAUNCHES_MOVES - l0[1],
+                       exchange_bytes=sharded.EXCHANGE_BYTES - l0[2])
+            with open(os.path.join(out_dir, f"{task}.r{args.rank}.json"),
+                      "w") as fh:
+                json.dump(rec, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(world: int, work: str, tasks, *, device: str = "cpu",
+              timeout: float = 600.0) -> list:
+    """Start ``world`` ranks of this module on ``tasks`` (all on
+    ``device``) through ``parallel.dist.launch_ranks``; returns their logs
+    or raises RuntimeError when one fails or the timeout passes."""
+    from .parallel.dist import launch_ranks
+
+    return launch_ranks("mecat_tpu_torch.testing", world, work,
+                        ["--work", work, *tasks], devices=[device] * world,
+                        timeout=timeout)
+
+
+def rank_reports(work: str, tasks, world: int) -> dict:
+    """{task: [what rank r reported, r = 0 .. world - 1]} of a
+    :func:`run_ranks` run under ``work``."""
+    import json
+
+    out = {}
+    for t in tasks:
+        out[t] = []
+        for r in range(world):
+            with open(os.path.join(work, "out", f"{t}.r{r}.json")) as fh:
+                out[t].append(json.load(fh))
+    return out
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(rank_main())

@@ -239,6 +239,25 @@ def test_run_pw_golden_bytes_on_cuda(cuda):
             assert fh.read() == gh.read()
 
 
+def test_fused_run_pw_on_cuda_matches_cpu_bytes(cuda):
+    reads = os.path.join(GOLDEN, "reads.fasta")
+    with tempfile.TemporaryDirectory() as d:
+        got = {}
+        for dev in (cuda, "cpu"):
+            out = os.path.join(d, f"{dev}.m4")
+            before = dp_kernel.LAUNCHES
+            stats = run_pw(reads, out, os.path.join(d, f"w{dev}"),
+                           PwOptions(**GOLDEN_J1), device=dev,
+                           route="fused")
+            with open(out, "rb") as fh:
+                got[str(dev)] = (fh.read(), stats.overlaps, stats.cells,
+                                 stats.cells_useful,
+                                 dp_kernel.LAUNCHES - before)
+        assert got["cuda"][:4] == got["cpu"][:4]
+        assert got["cuda"][1] > 0
+        assert got["cuda"][4] > 0 and got["cpu"][4] == 0
+
+
 @pytest.mark.parametrize("name", list(roll_micro.VARIANTS))
 @pytest.mark.parametrize("S,W", [(64, 32), (128, 64), (512, 128)])
 def test_roll_micro_kernel_matches_plain(cuda, name, S, W):

@@ -1,5 +1,6 @@
-"""The port's copies of the host layer (mecat_tpu_torch.constants, io, utils)
-against the JAX package's originals: equal values, arrays and bytes.
+"""The port's copies of the host layer (mecat_tpu_torch.constants, io, utils,
+the NumPy index sharding of parallel.sharded) against the JAX package's
+originals: equal values, arrays and bytes.
 
 The originals take their native C++ fast paths where the toolchain builds
 them, so these tests also hold the pure-NumPy copies to the native bytes.
@@ -12,19 +13,25 @@ import pytest
 pytest.importorskip("torch")
 
 from mecat_tpu import constants as ref_C
+from mecat_tpu.index.kmer_index import build_index as ref_build_index
 from mecat_tpu.io import fasta as ref_fasta
 from mecat_tpu.io import m4 as ref_m4
 from mecat_tpu.io import sam as ref_sam
 from mecat_tpu.io.packed_db import PackedDB as RefDB
 from mecat_tpu.ops import consensus as ref_consensus
+from mecat_tpu.parallel import sharded as ref_sharded
 from mecat_tpu.pipeline import common as ref_common
+from mecat_tpu.utils import accuracy as ref_accuracy
 from mecat_tpu.utils import sim as ref_sim
 from mecat_tpu_torch import constants as C
+from mecat_tpu_torch.index.kmer_index import build_index
 from mecat_tpu_torch.io import fasta, m4, sam
-from mecat_tpu_torch.io.packed_db import PackedDB
+from mecat_tpu_torch.io.packed_db import PackedDB, revcomp
 from mecat_tpu_torch.ops import consensus
+from mecat_tpu_torch.parallel.sharded import shard_index_by_hash
 from mecat_tpu_torch.pipeline import common
-from mecat_tpu_torch.utils import sim
+from mecat_tpu_torch.testing import sharded_case
+from mecat_tpu_torch.utils import accuracy, sim
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 READS = os.path.join(GOLDEN, "reads.fasta")
@@ -313,3 +320,61 @@ def test_tapes_to_columns_and_tags_match_reference():
     empty = consensus.columns_to_tags(*(np.zeros(0, np.int32),) * 3,
                                       support=q[0], tlen=5)
     assert [len(x) for x in empty] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_edit_stats_matches_reference(mode):
+    rng = np.random.default_rng(41 + mode)
+    for band in (4, 64):
+        for _ in range(30):
+            a = rng.integers(0, 4, int(rng.integers(0, 300)), dtype=np.uint8)
+            b = sim.mutate(a, rng, 0.05, 0.05, 0.05) if rng.random() < 0.7 \
+                else rng.integers(0, 4, int(rng.integers(0, 300)),
+                                  dtype=np.uint8)
+            want = ref_accuracy.edit_stats(a, b, band=band, mode=mode)
+            assert accuracy.edit_stats(a, b, band=band, mode=mode) == want
+            assert ref_accuracy._edit_stats_numpy(a, b, band, mode) == want
+            assert (accuracy.identity_pct(want, len(a))
+                    == ref_accuracy.identity_pct(want, len(a)))
+
+
+def test_corrected_accuracy_matches_reference(tmp_path):
+    genome = sim.random_genome(12000, seed=95)
+    db, truths = sim.simulate_reads(genome, 10, mean_len=1500, min_len=800,
+                                    seed=96)
+    rng = np.random.default_rng(97)
+    recs = []
+    for i in range(db.n_reads):
+        if i == 3:
+            continue                               # a missing read
+        t = truths[i]
+        seg = genome[t.start:t.end]
+        seg = sim.mutate(seg, rng, 0.01, 0.01, 0.01)
+        if t.strand:
+            seg = revcomp(seg)
+        recs.append((f"sim_{i}_0", seg))
+        if i == 5:
+            recs.append((f"sim_{i}_1", seg[:100]))  # a split read
+    path = str(tmp_path / "corrected.fasta")
+    fasta.write_fasta(path, recs)
+    got = accuracy.corrected_accuracy(path, genome, truths, band=128)
+    want = ref_accuracy.corrected_accuracy(path, genome, truths, band=128)
+    assert [vars(r) for r in got.per_read] == [vars(r) for r in want.per_read]
+    assert got.summary() == want.summary()
+    assert (got.split_reads, got.missing_reads) == (1, 1)
+    assert got.summary()["median_identity"] > 95.0
+
+
+def test_shard_index_by_hash_matches_jax():
+    db, *_ = sharded_case()
+    want_idx = ref_build_index(db.codes, db.starts, db.lengths, k=7,
+                               device=False)
+    port_idx = build_index(db.codes, db.starts, db.lengths, k=7,
+                           device="cpu")
+    for n_hash in (2, 4):
+        want = ref_sharded.shard_index_by_hash(want_idx, n_hash)
+        for got in (shard_index_by_hash(port_idx, n_hash),
+                    shard_index_by_hash(want_idx, n_hash)):
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)

@@ -8,7 +8,9 @@ golden candidates, which must correct the templates it keeps whole, once
 more with ``--rounds 2``, then the ``pipeline``, ``extract_sequences`` and
 ``mecat2canu`` CLIs on the golden reads.  It then maps the golden reads back
 onto three of them with the ``mecat2ref`` CLI and runs the ``roll_micro``
-tool.  All run on ``--device cpu``, and each new CLI must refuse to start
+tool, and runs the two-rank toy dry run of the sharded drivers (``python
+-m mecat_tpu_torch.parallel.dryrun 2 --device cpu --toy``), whose ranks
+find ``jax`` shadowed by packages that refuse to import.  All run on ``--device cpu``, and each new CLI must refuse to start
 without a device.  Neither JAX nor
 the JAX package (``mecat_tpu``, whose init configures JAX) may be loaded at
 the end, and ``chip_smoke.main()`` must refuse to run without a CUDA device.
@@ -168,6 +170,22 @@ with tempfile.TemporaryDirectory() as d:
         assert e.code == 2
     else:
         raise AssertionError("the roll_micro tool started without a card")
+    # the multi-rank dry run: its ranks are fresh interpreters, so jax and
+    # jaxlib are shadowed by packages that refuse to import
+    import subprocess
+
+    blk = os.path.join(d, "blk")
+    for name in ("jax", "jaxlib"):
+        os.makedirs(os.path.join(blk, name))
+        with open(os.path.join(blk, name, "__init__.py"), "w") as fh:
+            fh.write("raise ModuleNotFoundError('blocked: ' + __name__)\n")
+    proc = subprocess.run(
+        [sys.executable, "-m", "mecat_tpu_torch.parallel.dryrun", "2",
+         "--device", "cpu", "--toy", "--timeout", "240"], cwd=d,
+        env=dict(os.environ, PYTHONPATH=blk + os.pathsep + ROOT),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "DRYRUN " in proc.stdout, proc.stdout[-2000:]
 import chip_smoke
 
 assert chip_smoke.main([]) != 0, "chip_smoke ran without a CUDA device"
@@ -187,5 +205,5 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_mods = int(proc.stdout.split("NO_JAX_OK")[1])
-    assert n_mods >= 44
+    assert n_mods >= 51
     assert '"ok"' not in proc.stdout           # no result line from the smoke
