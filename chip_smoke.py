@@ -112,7 +112,26 @@ non-zero exit and no result line:
    bytes and launches of every rank; then ``python -m
    mecat_tpu_torch.parallel.dryrun 8 --device cuda`` at the production
    shapes with its content check (every corrected segment above its raw
-   read's identity and at least 95 %).
+   read's identity and at least 95 %);
+14. the last modules: (a) the native data layer (``mecat_tpu_torch.native``,
+   built with ``g++`` on the card's host) against its plain Python
+   versions, byte for byte, with host seconds of both: ``parse_path`` of
+   the bench reads and phase 9's mapping reads, ``format_block`` of phase
+   5's records, ``format_candidate_columns`` of phase 7's candidates,
+   ``partition_supports`` of those candidates (files of 64 templates) and
+   ``edit_stats`` of 6 bench reads against their truth loci; (b) the
+   scalar C++ engine (``native.scalar.ScalarEngine``) on the bench reads:
+   its index counts and cutoff equal ``build_index`` on the card, its scan
+   of 8 reads equals ``scan_candidates`` on the card; (c) ``python -m
+   mecat_tpu_torch.bench --device cuda --scalar`` as a subprocess, its JSON
+   line printed: its overlaps equal phase 4's per-batch overlaps summed over
+   the same 32 cyclic batches, its cns supports and corrected reads equal
+   phase 6's, and its ``vs_baseline`` divides by the scalar rate measured
+   in that run on this host; (d) ``python -m mecat_tpu_torch.bench
+   --scaling --device cuda``: the scaling report at its six default meshes,
+   1 to 8 ranks sharing the card over ``gloo``, every row with
+   ``step_seconds`` > 0, ``virtual_mesh`` true and DP launches.  Phase 3's
+   ``-j 0`` golden candidates go through the device strand merge.
 
 The sharded drivers start as ``torch.distributed`` ranks: under
 ``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``, ``--device cuda``
@@ -124,9 +143,11 @@ Each kernel's launch counter is zeroed just before the timed run of its
 path (phase 4's steady passes, phase 6's timed pass, the tool's run in
 phase 2, the CUDA SAM run of phase 8, phase 10's timed pass, phase 13c)
 and read just after, so the reported launches are those of the main paths
-only; the CLIs of phases 9, 11, 12 and 13b and the ranks of 13d are
-processes of their own and report their own counts (the dry run's summed
-over its ranks).  The line before the last is a JSON object with the kernels'
+only; the CLIs of phases 9, 11, 12 and 13b, the ranks of 13d and the
+bench and scaling processes of phase 14 are processes of their own and
+report their own counts (the dry run's and the scaling report's summed
+over their ranks; the bench's of its timed overlap window and its steady
+cns pass).  The line before the last is a JSON object with the kernels'
 numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
 without the repository beside it.
@@ -497,7 +518,8 @@ def bench_reads():
 
 def steady_pass(batches, table, overlap_step):
     """One pass of ``overlap_step`` over every batch; returns (seconds,
-    overlaps, useful lane-segments), timed on the host up to a sync."""
+    overlaps, useful lane-segments, overlaps of each batch), timed on the
+    host up to a sync."""
     import torch
 
     t0 = time.time()
@@ -506,9 +528,9 @@ def steady_pass(batches, table, overlap_step):
         o = overlap_step(*a, *table, **CFG)
         valid.append(o.valid.sum())
         segs.append(o.n_segs.sum())
-    overlaps = int(torch.stack(valid).sum())
+    per_batch = tuple(torch.stack(valid).tolist())
     useful_segs = int(torch.stack(segs).sum())
-    return time.time() - t0, overlaps, useful_segs
+    return time.time() - t0, sum(per_batch), useful_segs, per_batch
 
 
 def profile_pass(batches, table, overlap_step, path: str) -> None:
@@ -524,7 +546,7 @@ def profile_pass(batches, table, overlap_step, path: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, _, _ = steady_pass(batches, table, overlap_step)
+        wall = steady_pass(batches, table, overlap_step)[0]
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
 
@@ -581,9 +603,9 @@ def phase_bench(db, passes: int, profile_path: str | None) -> dict:
     runs = [steady_pass(batches, table, overlap_step) for _ in range(passes)]
     launches = dp_kernel.LAUNCHES        # ... and ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if len({(ov, sg) for _, ov, sg in runs}) != 1:
+    if len({r[1:] for r in runs}) != 1:
         raise AssertionError(f"passes disagree: {runs}")
-    _, overlaps, useful_segs = runs[0]
+    _, overlaps, useful_segs, per_batch = runs[0]
     if overlaps <= 0:
         raise AssertionError("bench workload found no overlaps")
     secs = np.array([r[0] for r in runs])
@@ -614,7 +636,7 @@ def phase_bench(db, passes: int, profile_path: str | None) -> dict:
         raise AssertionError("non-finite identity in overlap_step output")
     say("phase 4: batch 0 OverlapStepOut equal to the plain-version "
         "overlap_step on the card (every field)")
-    return dict(launches=launches,
+    return dict(launches=launches, per_batch=per_batch,
                 supports=bench_supports(batches[:4], table, overlap_step))
 
 
@@ -1691,6 +1713,213 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
     return dict(launches=launches)
 
 
+def timed(fn, *args, **kwargs):
+    """(fn's result, host seconds it took)."""
+    t0 = time.time()
+    out = fn(*args, **kwargs)
+    return out, time.time() - t0
+
+
+def phase_native(work: str, db, truths, genome) -> None:
+    """Phase 14a: the native data layer built on the card's host, each
+    function against its plain version on the files of earlier phases,
+    byte for byte; host seconds of both."""
+    from mecat_tpu_torch import native
+    from mecat_tpu_torch.io import fasta, m4
+    from mecat_tpu_torch.io.packed_db import PackedDB, revcomp
+    from mecat_tpu_torch.pipeline import cns
+    from mecat_tpu_torch.utils import accuracy
+
+    build_s = native.api.build()
+    say(f"phase 14: native data layer (g++ -O3 -march=native) built on the "
+        f"card's host in {build_s:.2f} s")
+    rows = []
+
+    def check(what: str, same: bool, t_native: float, t_plain: float):
+        if not same:
+            raise AssertionError(f"native {what} differs from its plain "
+                                 f"version")
+        rows.append((what, t_native, t_plain))
+
+    for name in ("bench_reads.fasta", "ref_reads.fasta"):
+        path = os.path.join(work, name)
+        nat, t_n = timed(PackedDB.from_fasta, path)
+        plain, t_p = timed(lambda: PackedDB.from_records(
+            fasta.iter_fasta_plain(path)))
+        check(f"parse_path of {name} ({nat.n_reads} reads, "
+              f"{nat.total_bases} bases)", nat.names == plain.names and all(
+                  np.array_equal(a, b) for a, b in (
+                      (nat.codes, plain.codes), (nat.starts, plain.starts),
+                      (nat.lengths, plain.lengths))), t_n, t_p)
+    path = os.path.join(work, "bench.m4")
+    recs = list(m4.read_m4(path))
+    text, t_n = timed(m4.format_block, recs)
+    plain, t_p = timed(m4.format_block_plain, recs)
+    with open(path) as fh:
+        check(f"format_block of phase 5's {len(recs)} M4 records",
+              text == plain == fh.read(), t_n, t_p)
+    path = os.path.join(work, "bench_cand.txt")
+    cands = list(m4.read_candidates(path))
+    cols = {f: np.array([getattr(c, f) for c in cands])
+            for f in ("qid", "sid", "score", "qdir", "qext", "qsize", "sdir",
+                      "sext", "ssize")}
+    text, t_n = timed(m4.format_candidate_columns, cols)
+    plain, t_p = timed(m4.format_candidate_columns_plain, cols)
+    with open(path) as fh:
+        check(f"format_candidate_columns of phase 7's {len(cands)} "
+              f"candidates", text == plain == fh.read(), t_n, t_p)
+    cut = PackedDB.from_fasta(os.path.join(work, "bench_reads_cut.fasta"))
+    parts = {}
+    for kind, fn in (("native", cns.partition_supports),
+                     ("plain", cns.partition_supports_plain)):
+        got, sec = timed(fn, path, cut, 0, os.path.join(work, "parts_" + kind),
+                         64)
+        blobs = []
+        for lo, hi, part in got:
+            with open(part, "rb") as fh:
+                blobs.append((lo, hi, fh.read()))
+        parts[kind] = (blobs, sec)
+    check(f"partition_supports of those candidates into "
+          f"{len(parts['native'][0])} files of 64 templates",
+          parts["native"][0] == parts["plain"][0] and parts["native"][0],
+          parts["native"][1], parts["plain"][1])
+    picked = [i for i in range(db.n_reads) if db.lengths[i] < 8000][:6]
+    pairs = []
+    for i in picked:
+        tr = truths[i]
+        truth = genome[tr.start:tr.end]
+        pairs.append((db.read(i), revcomp(truth) if tr.strand else truth))
+    got, t_n = timed(lambda: [accuracy.edit_stats(a, b, mode=1)
+                              for a, b in pairs])
+    want, t_p = timed(lambda: [accuracy.edit_stats_plain(a, b, mode=1)
+                               for a, b in pairs])
+    check(f"edit_stats of {len(pairs)} bench reads against their truth "
+          f"loci", got == want, t_n, t_p)
+    for what, t_n, t_p in rows:
+        say(f"phase 14: {what}: equal; host s native {t_n:.4f}, Python "
+            f"{t_p:.4f} ({t_p / max(t_n, 1e-9):.1f}x)")
+
+
+def phase_scalar(db) -> None:
+    """Phase 14b: the scalar C++ engine on the bench reads: its index
+    counts equal the port's build_index on the card, its scan of 8 reads
+    the port's scan_candidates on the card."""
+    import torch
+
+    from mecat_tpu_torch import constants as C
+    from mecat_tpu_torch.index.kmer_index import build_index
+    from mecat_tpu_torch.native.scalar import ScalarEngine
+    from mecat_tpu_torch.ops.ddf import scan_candidates
+
+    eng, build_s = timed(ScalarEngine, db.codes, db.starts, db.lengths,
+                         k=CFG["k"])
+    idx = build_index(db.codes, db.starts, db.lengths, k=CFG["k"],
+                      device="cuda")
+    n_distinct = int(torch.count_nonzero(torch.diff(idx.offsets)))
+    if (eng.n_valid, eng.n_distinct, eng.cutoff()) != (
+            idx.pos_rid.numel(), n_distinct, idx.max_occ_cutoff):
+        raise AssertionError(
+            f"scalar index {eng.n_valid} / {eng.n_distinct} / cutoff "
+            f"{eng.cutoff()}, build_index {idx.pos_rid.numel()} / "
+            f"{n_distinct} / {idx.max_occ_cutoff}")
+    scan = dict(stride=CFG["stride"], max_occ=CFG["max_occ"],
+                diag_bin=CFG["diag_bin"])
+    n = CFG["num_candidates"]
+    ids = list(range(8))
+    bases, lens = db.padded_batch(ids)     # whole reads, as the engine scans
+    cand = scan_candidates(
+        torch.as_tensor(bases, device="cuda"),
+        torch.as_tensor(lens, device="cuda"), idx.offsets, idx.pos_rid,
+        idx.pos_loc, idx.max_occ_cutoff,
+        torch.arange(len(ids), dtype=torch.int32, device="cuda"),
+        k=CFG["k"], num_candidates=n, **scan)
+    tgt, score, qseed, tseed, valid = (
+        x.cpu().numpy() for x in (cand.target, cand.score, cand.qseed,
+                                  cand.tseed, cand.valid))
+    n_cand = 0
+    for r in ids:
+        s_out = eng.scan_read(db.read(r), r, cutoff=eng.cutoff(), n_cand=n,
+                              **scan)
+        k = int(valid[r].sum())
+        n_cand += k
+        if k > len(s_out[0]) or any(
+                not np.array_equal(s[:k], d[r, :k])
+                for s, d in zip(s_out, (tgt, score, qseed, tseed))) or any(
+                x >= C.MIN_BLOCK_SCORE for x in s_out[1][k:]):
+            raise AssertionError(f"scalar scan of read {r} differs from "
+                                 f"scan_candidates on the card")
+    say(f"phase 14: ScalarEngine on the bench reads (built in {build_s:.2f} "
+        f"s): {eng.n_valid} occurrences, {eng.n_distinct} distinct k-mers, "
+        f"cutoff {eng.cutoff()}, equal to build_index on the card; its "
+        f"scan of 8 reads equals scan_candidates on the card ({n_cand} "
+        f"candidates)")
+
+
+def phase_bench_module(bench: dict, cns: dict) -> dict:
+    """Phase 14c: ``python -m mecat_tpu_torch.bench --device cuda
+    --scalar`` as a subprocess.  Its counts must be phase 4's and phase
+    6's; returns its line."""
+    cmd = [sys.executable, "-m", "mecat_tpu_torch.bench", "--device", "cuda",
+           "--scalar"]
+    proc, wall = timed(subprocess.run, cmd, cwd=ROOT, capture_output=True,
+                       text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the bench exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(f"phase 14: python -m mecat_tpu_torch.bench --device cuda --scalar: "
+        f"exit 0, wall {wall:.2f} s; its line:")
+    say(json.dumps(line))
+    per_batch = bench["per_batch"]
+    want = sum(per_batch[bi % len(per_batch)]
+               for bi in range(line["batches"]))
+    stats = cns["round1"]["stats"]
+    got = (line["overlaps"], line["cns_supports"], line["cns_corrected_reads"])
+    want = (want, stats.supports_aligned, stats.corrected_reads)
+    if got != want:
+        raise AssertionError(f"bench overlaps / cns supports / corrected "
+                             f"reads {got}; phases 4 and 6: {want}")
+    if not (line["baseline_scalar_core_ovl_s"] or 0) > 0 or (
+            line["vs_baseline"] is None):
+        raise AssertionError("the bench measured no scalar denominator")
+    if min(line["dp_launches"], line["cns_dp_launches_moves"]) <= 0:
+        raise AssertionError("the bench's legs did not go through both DP "
+                             "kernels")
+    say(f"phase 14: the bench's {line['overlaps']} overlaps equal phase 4's "
+        f"batches over the same {line['batches']} cyclic steps; its "
+        f"{line['cns_supports']} supports and {line['cns_corrected_reads']} "
+        f"corrected reads equal phase 6's; scalar one core on this host "
+        f"{line['baseline_scalar_core_ovl_s']:.1f} overlaps/s, vs_baseline "
+        f"{line['vs_baseline']:.2f}")
+    return line
+
+
+def phase_scaling() -> dict:
+    """Phase 14d: ``python -m mecat_tpu_torch.bench --scaling --device
+    cuda`` at its default meshes, the ranks sharing the card over gloo;
+    returns the DP launches summed over every mesh's ranks."""
+    cmd = [sys.executable, "-m", "mecat_tpu_torch.bench", "--scaling",
+           "--device", "cuda"]
+    proc, wall = timed(subprocess.run, cmd, cwd=ROOT, capture_output=True,
+                       text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the scaling report exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}{proc.stdout[-2000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    meshes = [r for r in report["rows"] if "n_data" in r]
+    say(f"phase 14: python -m mecat_tpu_torch.bench --scaling --device cuda: "
+        f"exit 0, wall {wall:.2f} s, {len(meshes)} meshes")
+    for r in report["rows"]:
+        say("phase 14: scaling " + json.dumps(r))
+    bad = [r for r in meshes if not (r["step_seconds"] > 0
+                                     and r["virtual_mesh"] is True
+                                     and r["dp_launches"] > 0)]
+    if len(meshes) != 6 or bad:
+        raise AssertionError(f"scaling rows: {len(meshes)} meshes, failing "
+                             f"{bad}")
+    return dict(counts=sum(r["dp_launches"] for r in meshes), moves=0)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--passes", type=int, default=3,
@@ -1769,6 +1998,10 @@ def main(argv=None) -> int:
         fused_cli = phase_fused_cli(reads, db.n_reads, work, staged_cli)
         dist1 = phase_dist_one_rank(reads, fused_cli, work)
         ranks = phase_dist_ranks(fused, dist1, work)
+        phase_native(work, db, truths, genome)
+        phase_scalar(db)
+        bench_line = phase_bench_module(bench, cns)
+        scaling = phase_scaling()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
@@ -1798,6 +2031,12 @@ def main(argv=None) -> int:
             "launches_fused_cli": fused_cli["launches"][key],
             "launches_dist": dist1["launches"][key],
             "launches_dryrun": ranks["launches"][key],
+            # phase 14: the bench module's timed overlap window (counts)
+            # and steady cns pass (moves), and the scaling report's timed
+            # steps summed over every mesh's ranks
+            "launches_bench": bench_line[
+                "dp_launches" if key == "counts" else "cns_dp_launches_moves"],
+            "launches_scaling": scaling[key],
             "max_abs_err": max(s[with_moves]["max_abs_err"]
                                for s in stats.values()),
             **{k: main_shape[with_moves][k]

@@ -1,5 +1,6 @@
-"""Columnar overlap store (Canu ovStore role; NumPy copy of
-``mecat_tpu.assembly.ovstore`` without its native table parser).
+"""Columnar overlap store (Canu ovStore role; copy of
+``mecat_tpu.assembly.ovstore``: the M4 file is read by the native table
+parser, ``io.m4.m4_columns``).
 
 Overlaps live as columnar NumPy arrays symmetrised so every overlap is
 visible from both reads, sorted by (a-read, b-read) with CSR offsets per
@@ -20,7 +21,7 @@ from typing import Iterator
 
 import numpy as np
 
-from ..io.m4 import read_m4
+from ..io.m4 import m4_columns
 
 _COLS = ("a", "b", "flip", "abeg", "aend", "alen", "bbeg", "bend", "blen",
          "score")
@@ -52,19 +53,18 @@ class OverlapStore:
     # -- construction ---------------------------------------------------------
     @classmethod
     def from_m4(cls, m4_path: str, n_reads: int) -> "OverlapStore":
-        """Load + symmetrise an M4 overlap file."""
-        rows = list(read_m4(m4_path))
-        qid = np.array([r.qid - 1 for r in rows], dtype=np.int32)
-        sid = np.array([r.sid - 1 for r in rows], dtype=np.int32)
-        ident = np.array([r.identity for r in rows], dtype=np.float32)
-        score = np.array([r.score for r in rows], dtype=np.int32)
-        qs = np.array([r.qstart for r in rows], dtype=np.int32)
-        qe = np.array([r.qend for r in rows], dtype=np.int32)
-        qz = np.array([r.qsize for r in rows], dtype=np.int32)
-        ss = np.array([r.sstrand for r in rows], dtype=np.int32)
-        sb = np.array([r.sstart for r in rows], dtype=np.int32)
-        se = np.array([r.send for r in rows], dtype=np.int32)
-        sz = np.array([r.ssize for r in rows], dtype=np.int32)
+        """Load + symmetrise an M4 overlap file (an M4 file is a 12-column
+        numeric table)."""
+        t = m4_columns(m4_path)
+        qid = t[:, 0].astype(np.int32) - 1
+        sid = t[:, 1].astype(np.int32) - 1
+        ident = t[:, 2].astype(np.float32)
+        score = t[:, 3].astype(np.int32)
+        qs, qe, qz = (t[:, 5].astype(np.int32), t[:, 6].astype(np.int32),
+                      t[:, 7].astype(np.int32))
+        ss = t[:, 8].astype(np.int32)
+        sb, se, sz = (t[:, 9].astype(np.int32), t[:, 10].astype(np.int32),
+                      t[:, 11].astype(np.int32))
         # both symmetric views; coordinates are already forward-strand on
         # each read, and the relative-orientation flag is symmetric
         cols = dict(

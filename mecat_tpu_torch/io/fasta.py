@@ -1,7 +1,10 @@
-"""Streaming FASTA/FASTQ reader and FASTA writer (NumPy).
+"""FASTA/FASTQ reader and FASTA writer.
 
-Copy of the parts of ``mecat_tpu.io.fasta`` the overlap path uses, without
-its native C++ fast path: the bytes are the same.
+Copy of the parts of ``mecat_tpu.io.fasta`` the port uses.  A plain file is
+parsed and written by the native C++ layer (``native.get()``); ``.gz``
+input is streamed by the Python reader.  ``iter_fasta_plain`` and
+``write_fasta_plain`` are the pure-Python versions the tests hold the
+native layer to.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..constants import INVALID_BASE_CODE
 
 # char -> 2-bit code lookup (A=0 C=1 G=2 T=3, case-insensitive, else INVALID)
@@ -47,6 +51,18 @@ def _open(path: str):
 
 
 def iter_fasta(path: str) -> Iterator[FastaRecord]:
+    """Records of a FASTA or FASTQ file (auto-detected on the first byte):
+    a plain file through the native parser, ``.gz`` through
+    :func:`iter_fasta_plain`."""
+    if str(path).endswith(".gz"):
+        yield from iter_fasta_plain(path)
+        return
+    p = native.get().parse_path(str(path))
+    for name, s, n in zip(p.names, p.starts.tolist(), p.lengths.tolist()):
+        yield FastaRecord(name, p.codes[s:s + n])
+
+
+def iter_fasta_plain(path: str) -> Iterator[FastaRecord]:
     """Stream records from FASTA or FASTQ (auto-detected on the first byte)."""
     with _open(path) as fh:
         first = fh.peek(1)[:1]
@@ -103,6 +119,24 @@ def format_fasta(name: str, codes: np.ndarray, width: int = 80) -> bytes:
 
 def write_fasta(path: str, records: Sequence[Tuple[str, np.ndarray]],
                 width: int = 80) -> None:
+    """Write (name, codes) records as FASTA with a fixed line width (the
+    native writer)."""
+    records = list(records)
+    chunks = [np.asarray(c, dtype=np.uint8) for _, c in records]
+    lengths = np.array([len(c) for c in chunks], dtype=np.int32)
+    starts = np.zeros(len(chunks), dtype=np.int64)
+    if len(chunks):
+        np.cumsum(lengths[:-1].astype(np.int64), out=starts[1:])
+    codes = (np.concatenate(chunks) if chunks
+             else np.zeros(0, dtype=np.uint8))
+    blob = native.get().format_fasta(codes, starts, lengths,
+                                     [name for name, _ in records], width)
+    with open(path, "wb") as fh:
+        fh.write(blob)
+
+
+def write_fasta_plain(path: str, records: Sequence[Tuple[str, np.ndarray]],
+                      width: int = 80) -> None:
     """Write (name, codes) records as FASTA with a fixed line width."""
     with open(path, "wb") as fh:
         for name, codes in records:

@@ -1,8 +1,10 @@
 """M4 overlap records and candidate records as text.
 
-Copy of the writers and parsers of ``mecat_tpu.io.m4`` without its native
-C++ fast path: the bytes and the parsed records are the same.  M4 line
-layout::
+Copy of the writers and parsers of ``mecat_tpu.io.m4``.  Blocks of
+12-column M4 records and candidate columns are written by the native C++
+layer (``native.get()``); 14-column (``-g 1``) records take the Python
+writer, as in the original.  The ``*_plain`` writers are the Python
+versions.  M4 line layout::
 
     qid sid identity score qstrand qstart qend qsize sstrand sstart send ssize
 
@@ -19,6 +21,7 @@ from typing import Iterator, List
 
 import numpy as np
 
+from .. import native
 from ..constants import M4_IDENTITY_DECIMALS
 
 
@@ -83,19 +86,43 @@ class CandidateRecord:
                    sdir=int(f[6]), sext=int(f[7]), ssize=int(f[8]))
 
 
+_M4_FIELDS = ("qid", "sid", "identity", "score", "qstrand", "qstart", "qend",
+              "qsize", "sstrand", "sstart", "send", "ssize")
+_CANDIDATE_FIELDS = ("qid", "sid", "score", "qdir", "qext", "qsize", "sdir",
+                     "sext", "ssize")
+
+
 def format_block(records: List[M4Record]) -> str:
-    """M4 text of ``records``, one line each."""
+    """M4 text of ``records``, one line each: the native columnar writer,
+    or the Python writer for 14-column (``-g 1``) records."""
+    if not records:
+        return ""
+    if records[0].qext is not None:
+        return format_block_plain(records)
+    return native.get().format_m4(
+        {f: np.asarray([getattr(r, f) for r in records])
+         for f in _M4_FIELDS}).decode()
+
+
+def format_block_plain(records: List[M4Record]) -> str:
+    """M4 text of ``records``, one line each (Python writer)."""
     return "".join(r.format() + "\n" for r in records)
 
 
 def format_candidate_columns(cols: dict) -> str:
     """Candidate lines from int columns (qid, sid, score, qdir, qext, qsize,
-    sdir, sext, ssize), one line per row."""
+    sdir, sext, ssize), one line per row (the native writer)."""
+    if len(cols["qid"]) == 0:
+        return ""
+    return native.get().format_candidates(cols).decode()
+
+
+def format_candidate_columns_plain(cols: dict) -> str:
+    """Python version of :func:`format_candidate_columns`."""
     if len(cols["qid"]) == 0:
         return ""
     a = np.column_stack([np.asarray(cols[f], dtype=np.int64)
-                         for f in ("qid", "sid", "score", "qdir", "qext",
-                                   "qsize", "sdir", "sext", "ssize")])
+                         for f in _CANDIDATE_FIELDS])
     return "".join("\t".join(map(str, row)) + "\n" for row in a.tolist())
 
 
@@ -115,3 +142,18 @@ def read_m4(path: str) -> Iterator[M4Record]:
 def read_candidates(path: str) -> Iterator[CandidateRecord]:
     """The candidate records of a file, blank lines skipped."""
     return _read(path, CandidateRecord)
+
+
+def m4_columns(path: str) -> np.ndarray:
+    """The 12 numeric columns of an M4 file, float64 [n, 12] (the native
+    table parser; extra ``-g`` columns are ignored).  Raises ValueError on
+    a row with fewer than 12 fields."""
+    return native.get().parse_table(path, 12)
+
+
+def m4_columns_plain(path: str) -> np.ndarray:
+    """Python version of :func:`m4_columns` (the record parser)."""
+    rows = [(r.qid, r.sid, r.identity, r.score, r.qstrand, r.qstart, r.qend,
+             r.qsize, r.sstrand, r.sstart, r.send, r.ssize)
+            for r in read_m4(path)]
+    return np.asarray(rows, dtype=np.float64).reshape(-1, 12)

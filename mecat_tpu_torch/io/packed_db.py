@@ -1,6 +1,8 @@
 """PackedDB: the read database as one flat uint8 code array (NumPy).
 
-Copy of ``mecat_tpu.io.packed_db`` without its native C++ fast paths.  Reads
+Copy of ``mecat_tpu.io.packed_db``; parsing, 2-bit packing and the padded
+batch gather run in the native C++ layer (``native.get()``), and the
+``*_plain`` functions are the NumPy versions the tests hold it to.  Reads
 are concatenated in input order (read id = input index); ``starts`` and
 ``lengths`` address them, which is the layout the device index consumes.
 The disk form is 2-bit packed (4 bases a byte, A=0 C=1 G=2 T=3, base i of
@@ -18,6 +20,7 @@ from typing import Iterable, List, Sequence, Tuple
 import numpy as np
 
 from .. import constants as C
+from .. import native
 from .fasta import FastaRecord, iter_fasta
 
 _REVCOMP = np.array([3, 2, 1, 0], dtype=np.uint8)  # A<->T, C<->G in 2-bit codes
@@ -30,6 +33,11 @@ def revcomp(codes: np.ndarray) -> np.ndarray:
 
 def pack_2bit(codes: np.ndarray) -> np.ndarray:
     """uint8 codes {0..3} -> 2-bit packed bytes (4 bases a byte, LSB first)."""
+    return native.get().pack_2bit(np.asarray(codes, dtype=np.uint8))
+
+
+def pack_2bit_plain(codes: np.ndarray) -> np.ndarray:
+    """NumPy version of :func:`pack_2bit`."""
     codes = np.asarray(codes, dtype=np.uint8)
     n = len(codes)
     padded = np.zeros((n + 3) // 4 * 4, dtype=np.uint8)
@@ -41,6 +49,11 @@ def pack_2bit(codes: np.ndarray) -> np.ndarray:
 
 def unpack_2bit(packed: np.ndarray, n_bases: int) -> np.ndarray:
     """2-bit packed bytes -> uint8 codes {0..3} of length n_bases."""
+    return native.get().unpack_2bit(packed, n_bases)
+
+
+def unpack_2bit_plain(packed: np.ndarray, n_bases: int) -> np.ndarray:
+    """NumPy version of :func:`unpack_2bit`."""
     packed = np.asarray(packed, dtype=np.uint8)
     out = np.empty((len(packed), 4), dtype=np.uint8)
     for k in range(4):
@@ -74,7 +87,13 @@ class PackedDB:
 
     @classmethod
     def from_fasta(cls, path: str) -> "PackedDB":
-        return cls.from_records(iter_fasta(path))
+        """The reads of a FASTA/FASTQ file: a plain file straight from the
+        native parser's arrays, ``.gz`` through the Python reader."""
+        if str(path).endswith(".gz"):
+            return cls.from_records(iter_fasta(path))
+        p = native.get().parse_path(str(path))
+        return cls(codes=p.codes, starts=p.starts, lengths=p.lengths,
+                   names=p.names)
 
     @property
     def n_reads(self) -> int:
@@ -168,11 +187,30 @@ class PackedDB:
 
         Returns (bases[B, L], lengths[B]).  L is the longest read rounded up
         to ``multiple``, or ``pad_to`` if given; longer reads are cut to L.
+        The gather runs in the native layer.
         """
         read_ids = np.asarray(read_ids, dtype=np.int64)
-        lens = self.lengths[read_ids].astype(np.int32)
+        if len(read_ids) and (read_ids.min() < 0
+                              or read_ids.max() >= self.n_reads):
+            raise IndexError(f"read ids outside [0, {self.n_reads})")
+        return native.get().padded_batch(
+            self.codes, self.starts, self.lengths, read_ids,
+            self._batch_width(read_ids, pad_to, multiple))
+
+    def _batch_width(self, read_ids: np.ndarray, pad_to: int | None,
+                     multiple: int) -> int:
+        lens = self.lengths[read_ids]
         maxlen = int(lens.max()) if len(lens) else multiple
-        L = pad_to if pad_to is not None else -(-maxlen // multiple) * multiple
+        return (pad_to if pad_to is not None
+                else -(-maxlen // multiple) * multiple)
+
+    def padded_batch_plain(self, read_ids: Sequence[int],
+                           pad_to: int | None = None, multiple: int = 128
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """NumPy version of :meth:`padded_batch`."""
+        read_ids = np.asarray(read_ids, dtype=np.int64)
+        lens = self.lengths[read_ids].astype(np.int32)
+        L = self._batch_width(read_ids, pad_to, multiple)
         out = np.zeros((len(read_ids), L), dtype=np.uint8)
         for row, rid in enumerate(read_ids):
             r = self.read(int(rid))[:L]

@@ -1,11 +1,12 @@
-"""Build the port's CUDA sources with ``nvcc`` into shared libraries.
+"""Build the port's native sources into shared libraries.
 
-Each source under ``csrc/`` becomes one library with plain C entry points in
-``_build/`` (not committed), compiled for ``sm_90a`` at its first CUDA use
-and loaded with ``ctypes`` by the module that wraps it.  A library carries a
-stamp with the SHA-256 of its source and flags; a changed source rebuilds.
-Nothing here runs at import: machines without nvcc import this module
-freely.
+Each CUDA source under ``csrc/`` becomes one library with plain C entry
+points in ``_build/`` (not committed), compiled by ``nvcc`` for ``sm_90a``
+at its first CUDA use and loaded with ``ctypes`` by the module that wraps
+it; ``native/`` builds its C++ host libraries with ``g++`` through
+:func:`compile_library`.  A library carries a stamp with the SHA-256 of its
+source and flags; a changed source rebuilds.  Nothing here runs at import:
+machines without nvcc import this module freely.
 """
 from __future__ import annotations
 
@@ -39,38 +40,52 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str, verbose: bool = False) -> float:
-    """Compile library ``name`` unless an up-to-date one exists.
+def compile_library(compiler: str, flags: list, source: str, lib: str,
+                    report_flags: list | None = None) -> float:
+    """Compile ``source`` into ``lib`` with ``compiler flags`` unless ``lib``
+    was built from this source with these flags.  The library appears
+    under its name only once complete (a temporary name, then
+    ``os.replace``), so concurrent builders never load half a file.
 
-    Returns the seconds spent compiling (0.0 when up to date).  With
-    ``verbose`` the compiler's resource report (``-Xptxas -v``) is printed.
+    Returns the seconds spent compiling (0.0 when up to date).  A failed
+    build raises RuntimeError with the compiler's message.  With
+    ``report_flags`` (diagnostics that do not change the library, left
+    out of the stamp) the compiler's report is printed.
     """
-    source, lib = source_path(name), lib_path(name)
     with open(source, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
+        digest = hashlib.sha256(fh.read() + " ".join(flags).encode()
                                 ).hexdigest()
     stamp = lib + ".sha256"
     if os.path.exists(lib) and os.path.exists(stamp):
         with open(stamp) as fh:
             if fh.read().strip() == digest:
                 return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, source]
+    cmd = [compiler, *flags, *(report_flags or []), "-o", tmp, source]
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCES[name]} "
-                           f"({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
+        raise RuntimeError(f"{os.path.basename(compiler)} failed on "
+                           f"{os.path.basename(source)} ({proc.returncode})"
+                           f":\n{proc.stderr}")
+    if report_flags and proc.stderr:
         print(proc.stderr, flush=True)
     os.replace(tmp, lib)
     with open(stamp, "w") as fh:
         fh.write(digest)
     return time.time() - t0
+
+
+def build(name: str, verbose: bool = False) -> float:
+    """Compile library ``name`` unless an up-to-date one exists.
+
+    Returns the seconds spent compiling (0.0 when up to date).  With
+    ``verbose`` the compiler's resource report (``-Xptxas -v``) is printed.
+    """
+    return compile_library(_nvcc(), NVCC_FLAGS, source_path(name),
+                           lib_path(name),
+                           ["-Xptxas", "-v"] if verbose else None)
 
 
 def build_all(verbose: bool = False) -> dict:

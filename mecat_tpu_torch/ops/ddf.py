@@ -141,3 +141,51 @@ def scan_candidates(bases, lengths, offsets, pos_rid, pos_loc, cutoff: int,
                       diag_bin=diag_bin, diag_shift=diag_shift,
                       code_lo=code_lo, code_hi=code_hi)
     return score_hits(*hits, num_candidates=num_candidates)
+
+
+def merge_strand_candidates_device(c0: Candidates, c1: Candidates,
+                                   min_score: int,
+                                   n_valid: int | None = None, *,
+                                   n_keep: int):
+    """Merge the two strands' candidates on the device: top ``n_keep`` per
+    query row (port of ``mecat_tpu.ops.ddf.merge_strand_candidates_device``,
+    the device twin of ``pipeline.pw._merge_strand_candidates``).
+
+    Returns (merged int32 [2 * B * N, 6], count): the kept candidates
+    (row, strand, target, score, qseed, tseed) in the first ``count`` rows
+    of ``merged``, rows ascending, score descending; ``count`` is a 0-d
+    tensor.  Rows at or past ``n_valid`` (pad rows) are dropped.  The
+    order equals the host merge's: strand 0 then strand 1, each row-major,
+    stably sorted by (row, -score) packed into one int64 key; invalid
+    candidates carry row B and sort last.  Each row's rank comes from a
+    ``cummax`` of its first index; the kept rows move to the front with a
+    stable sort on a keep flag.
+    """
+    parts = []
+    for strand, c in ((0, c0), (1, c1)):
+        B, N = c.target.shape
+        dev = c.target.device
+        row = torch.arange(B, dtype=torch.int32,
+                           device=dev).repeat_interleave(N)
+        ok = (c.valid & (c.score >= min_score)).reshape(-1)
+        parts.append((torch.where(ok, row, B),
+                      torch.full((B * N,), strand, dtype=torch.int32,
+                                 device=dev),
+                      *(x.reshape(-1).to(torch.int32)
+                        for x in (c.target, c.score, c.qseed, c.tseed))))
+    cols = torch.stack([torch.cat([p[i] for p in parts]) for i in range(6)],
+                       dim=1)
+    order = torch.sort(_pair_key(cols[:, 0], -cols[:, 3]),
+                       stable=True).indices
+    cols = cols[order]
+    row = cols[:, 0]
+    M = row.shape[0]
+    idx = torch.arange(M, dtype=torch.int64, device=row.device)
+    is_new = torch.ones(M, dtype=torch.bool, device=row.device)
+    is_new[1:] = row[1:] != row[:-1]
+    seg_start = torch.cummax(torch.where(is_new, idx, 0), dim=0).values
+    B = c0.target.shape[0]
+    row_cap = B if n_valid is None else min(B, int(n_valid))
+    keep = ((idx - seg_start) < n_keep) & (row < row_cap)
+    sink = torch.sort((~keep).to(torch.int32), stable=True).indices
+    return cols[sink], keep.sum()

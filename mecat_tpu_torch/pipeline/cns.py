@@ -38,8 +38,9 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import native
 from ..io.fasta import FastaRecord, format_fasta
-from ..io.m4 import read_candidates, read_m4
+from ..io.m4 import m4_columns_plain, read_candidates
 from ..io.packed_db import PackedDB, revcomp
 from ..ops import dp_kernel
 from ..ops.align import (dp_segment_best, dynamic_slice_start,
@@ -172,16 +173,21 @@ def _n_columns(input_type: int) -> int:
 
 def _support_columns(path: str, input_type: int) -> np.ndarray:
     """Raw numeric columns of a candidate/M4 file, float64 [n, 9] or
-    [n, 12] (the -g seed columns are ignored)."""
-    if input_type == 0:
-        rows = [(r.qid, r.sid, r.score, r.qdir, r.qext, r.qsize, r.sdir,
-                 r.sext, r.ssize) for r in read_candidates(path)]
-    else:
-        rows = [(r.qid, r.sid, r.identity, r.score, r.qstrand, r.qstart,
-                 r.qend, r.qsize, r.sstrand, r.sstart, r.send, r.ssize)
-                for r in read_m4(path)]
-    return np.asarray(rows, dtype=np.float64).reshape(
-        -1, _n_columns(input_type))
+    [n, 12] (the -g seed columns are ignored): the native table parser; a
+    file it refuses (a short row) takes :func:`_support_columns_plain`."""
+    try:
+        return native.get().parse_table(path, _n_columns(input_type))
+    except ValueError:
+        return _support_columns_plain(path, input_type)
+
+
+def _support_columns_plain(path: str, input_type: int) -> np.ndarray:
+    """Python version of :func:`_support_columns` (record parsers)."""
+    if input_type != 0:
+        return m4_columns_plain(path)
+    rows = [(r.qid, r.sid, r.score, r.qdir, r.qext, r.qsize, r.sdir,
+             r.sext, r.ssize) for r in read_candidates(path)]
+    return np.asarray(rows, dtype=np.float64).reshape(-1, 9)
 
 
 def _sides_from_columns(a: np.ndarray, input_type: int):
@@ -237,23 +243,43 @@ def partition_supports(input_path: str, db: PackedDB, input_type: int,
                        part_dir: str, part_size: int):
     """Spill the support records to per-template-range partition files.
 
-    Each file holds the raw rows (plus their input row index) whose template
-    sides fall in its id range, so consensus memory is bounded by one
-    partition.  Returns [(t_lo, t_hi, path)] for every non-empty partition.
+    Each file ``part_<p>.bin`` holds the raw rows (plus their input row
+    index) whose template sides fall in its id range, so consensus memory
+    is bounded by one partition.  The native writer streams the input
+    (peak memory: its IO buffers).  Returns [(t_lo, t_hi, path)] for every
+    partition file in ``part_dir``.
     """
     n_parts = max(1, -(-db.n_reads // part_size))
     os.makedirs(part_dir, exist_ok=True)
-    a = _support_columns(input_path, input_type)
+    native.get().partition_table(input_path, _n_columns(input_type),
+                                 part_size, n_parts, part_dir)
+    return _partition_files(part_dir, db, part_size, n_parts)
+
+
+def partition_supports_plain(input_path: str, db: PackedDB, input_type: int,
+                             part_dir: str, part_size: int):
+    """NumPy version of :func:`partition_supports`: the same files, byte
+    for byte, from the whole table in memory."""
+    n_parts = max(1, -(-db.n_reads // part_size))
+    os.makedirs(part_dir, exist_ok=True)
+    a = _support_columns_plain(input_path, input_type)
     rows = np.concatenate([a, np.arange(len(a), dtype=np.float64)[:, None]],
                           axis=1)
     pid_q = ((a[:, 0].astype(np.int64) - 1) // part_size).clip(0, n_parts - 1)
     pid_s = ((a[:, 1].astype(np.int64) - 1) // part_size).clip(0, n_parts - 1)
-    out = []
     for p in range(n_parts):
         sel = rows[(pid_s == p) | (pid_q == p)]
         if len(sel):
-            path = os.path.join(part_dir, f"part_{p}.bin")
-            sel.tofile(path)
+            sel.tofile(os.path.join(part_dir, f"part_{p}.bin"))
+    return _partition_files(part_dir, db, part_size, n_parts)
+
+
+def _partition_files(part_dir: str, db: PackedDB, part_size: int,
+                     n_parts: int):
+    out = []
+    for p in range(n_parts):
+        path = os.path.join(part_dir, f"part_{p}.bin")
+        if os.path.exists(path):
             out.append((p * part_size, min((p + 1) * part_size, db.n_reads),
                         path))
     return out

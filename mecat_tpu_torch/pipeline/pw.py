@@ -4,10 +4,13 @@ Port of ``mecat_tpu.pipeline.pw.run_pw``.  Volume i's k-mer table is built
 on the device; query reads of every volume j >= i are scanned in
 length-sorted batches through the DDF filter.  Two routes:
 
-* ``staged`` (the default): candidates are merged across strands on the
-  host (top n a read), and with ``-j 1`` the surviving pairs are extended
-  in fixed-size batches built on the host.  ``-j 0`` emits the candidates
-  with their seed points instead.
+* ``staged`` (the default): candidates are merged across strands (top n a
+  read), and with ``-j 1`` the surviving pairs are extended in fixed-size
+  batches built on the host.  ``-j 0`` merges on the device
+  (``ops.ddf.merge_strand_candidates_device``), pulls the kept prefix and
+  emits the candidates with their seed points; ``-j 1`` merges on the
+  host (``_merge_strand_candidates``), as the original's staged route
+  does.
 * ``fused`` (``-j 1`` only): each batch is scanned and every candidate
   probed by one DP segment on the device (``device_step.probe_step``); the
   survivors (top n per strand) are extended against seed-centred target
@@ -32,12 +35,14 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import native
 from ..index.kmer_index import TorchKmerIndex, build_index
-from ..io.m4 import M4Record, format_block, format_candidate_columns
+from ..io.m4 import (M4Record, format_block, format_block_plain,
+                     format_candidate_columns)
 from ..io.packed_db import PackedDB
 from ..ops import dp_kernel
 from ..ops.align import extend_pair_batch
-from ..ops.ddf import scan_candidates
+from ..ops.ddf import merge_strand_candidates_device, scan_candidates
 from ..utils.log import get_logger
 from ..utils.metrics import Metrics
 from .common import (bucket_length, gather_rows, max_segs_for,
@@ -82,13 +87,15 @@ class PwStats:
     cells_useful: int = 0  # DP cells computed by live lanes (n_segs x S x W)
     prep_s: float = 0.0    # host batch preparation
     scan_s: float = 0.0    # candidate scan dispatch
-    pull_s: float = 0.0    # device sync + pull + host strand merge
+    pull_s: float = 0.0    # strand merge (device for -j 0), sync, pull
     emit_s: float = 0.0    # candidate text emit
     extend_s: float = 0.0  # extension: gather, DP, pull, M4 records
 
 
 def _merge_strand_candidates(cands_by_strand, n_keep: int, min_score: int):
-    """Host merge of per-strand candidates -> top n_keep per query row.
+    """Host merge of per-strand candidates -> top n_keep per query row
+    (the staged ``-j 1`` route's, and the plain version of
+    ``ops.ddf.merge_strand_candidates_device``).
 
     Returns int [n_pairs, 6]: (row, strand, target, score, qseed, tseed),
     rows ascending, score descending, ties in (strand, row-major) order.
@@ -149,9 +156,18 @@ def process_query_batch(db: PackedDB, vol_base: int, index: TorchKmerIndex,
     stats.scan_s += time.time() - t_ph
 
     t_ph = time.time()
-    pairs = _merge_strand_candidates(cands_by_strand, opts.num_candidates,
-                                     opts.min_block_score)
-    pairs = pairs[pairs[:, 0] < len(query_ids)]
+    if opts.task == 0:
+        # merge and top n on the device; pull the count and the kept prefix
+        merged, count = merge_strand_candidates_device(
+            cands_by_strand[0][1], cands_by_strand[1][1],
+            opts.min_block_score, len(query_ids),
+            n_keep=opts.num_candidates)
+        pairs = merged[:int(count)].cpu().numpy()
+    else:
+        pairs = _merge_strand_candidates(cands_by_strand,
+                                         opts.num_candidates,
+                                         opts.min_block_score)
+        pairs = pairs[pairs[:, 0] < len(query_ids)]
     stats.pull_s += time.time() - t_ph
     stats.candidates += len(pairs)
 
@@ -372,9 +388,10 @@ def append_m4_columns(cols: dict, opts: PwOptions, *, strand: int,
 
 def finalize_m4_text(cols: dict, opts: PwOptions, stats: PwStats) -> str:
     """Keep the longest span for each (qid, sid, strand), sort by (qid,
-    sid, sstrand) and write M4 text; adds the records to
-    ``stats.overlaps``.  This canonical tie-break makes the fused and the
-    sharded runs record-identical."""
+    sid, sstrand) and write M4 text (the native columnar writer; ``-g 1``
+    takes :func:`m4_text_plain`); adds the records to ``stats.overlaps``.
+    This canonical tie-break makes the fused and the sharded runs
+    record-identical."""
     if not cols["qid"]:
         return ""
     a = {k: np.concatenate(v) for k, v in cols.items()}
@@ -385,7 +402,14 @@ def finalize_m4_text(cols: dict, opts: PwOptions, stats: PwStats) -> str:
     first[1:] = (key[1:] != key[:-1]).any(axis=1)
     a = {k: v[first] for k, v in a.items()}
     stats.overlaps += int(first.sum())
-    return format_block([M4Record(
+    if opts.print_ext:
+        return m4_text_plain(a, opts)
+    return native.get().format_m4(a).decode()
+
+
+def m4_text_plain(a: dict, opts: PwOptions) -> str:
+    """M4 text of the deduplicated columns ``a`` through ``M4Record``."""
+    return format_block_plain([M4Record(
         qid=int(a["qid"][i]), sid=int(a["sid"][i]),
         identity=float(a["identity"][i]), score=int(a["score"][i]),
         qstrand=0, qstart=int(a["qstart"][i]), qend=int(a["qend"][i]),

@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..io.fasta import format_fasta
-from ..io.m4 import read_m4
+from ..io.m4 import m4_columns, m4_columns_plain
 from ..io.packed_db import PackedDB
 from ..utils.log import get_logger
 from .pw import PwOptions, run_pw
@@ -72,11 +72,12 @@ def coverage_intervals(L: int, spans, min_evidence: int, min_len: int
 
 
 def _m4_span_columns(path: str) -> np.ndarray:
-    """M4 file -> float64 [n, 12] numeric columns."""
-    rows = [(r.qid, r.sid, r.identity, r.score, r.qstrand, r.qstart, r.qend,
-             r.qsize, r.sstrand, r.sstart, r.send, r.ssize)
-            for r in read_m4(path)]
-    return np.asarray(rows, dtype=np.float64).reshape(-1, 12)
+    """M4 file -> float64 [n, 12] numeric columns: the native table
+    parser; a file it refuses (a short row) takes the record parser."""
+    try:
+        return m4_columns(path)
+    except ValueError:
+        return m4_columns_plain(path)
 
 
 def run_trim(corrected_path: str, out_path: str, wrk_dir: str,

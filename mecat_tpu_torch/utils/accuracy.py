@@ -1,8 +1,9 @@
 """Truth-based accuracy of corrected reads (simulated data).
 
-Copy of ``mecat_tpu.utils.accuracy`` without its native C++ fast path: with
-simulated reads the truth locus of every read is known
-(``utils.sim.ReadTruth``), so identity comes from a banded alignment to it.
+Copy of ``mecat_tpu.utils.accuracy``: with simulated reads the truth locus
+of every read is known (``utils.sim.ReadTruth``), so identity comes from a
+banded alignment to it, computed by the native C++ layer
+(``native.get().edit_stats``; ``edit_stats_plain`` is the NumPy version).
 
 identity% = 100 * matches / alignment_columns (columns = matches + subs +
 ins + dels).
@@ -15,6 +16,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
+
 
 def edit_stats(a: np.ndarray, b: np.ndarray, band: int = 256,
                mode: int = 0) -> Tuple[int, int, int, int]:
@@ -26,11 +29,13 @@ def edit_stats(a: np.ndarray, b: np.ndarray, band: int = 256,
     (aligned span only in mode 1).  The band doubles until the distance
     proves exact.
     """
-    return _edit_stats_numpy(a, b, band, mode)
+    return native.get().edit_stats(a, b, band, mode)
 
 
-def _edit_stats_numpy(a: np.ndarray, b: np.ndarray, band: int, mode: int):
-    """Banded DP with stored cost rows, traceback from costs."""
+def edit_stats_plain(a: np.ndarray, b: np.ndarray, band: int = 256,
+                     mode: int = 0) -> Tuple[int, int, int, int]:
+    """NumPy version of :func:`edit_stats`: banded DP with stored cost
+    rows, traceback from costs, on the same band-widening schedule."""
     a = np.asarray(a, dtype=np.uint8)
     b = np.asarray(b, dtype=np.uint8)
     la, lb = len(a), len(b)

@@ -258,6 +258,32 @@ def test_fused_run_pw_on_cuda_matches_cpu_bytes(cuda):
         assert got["cuda"][4] > 0 and got["cpu"][4] == 0
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_strand_merge_on_cuda_matches_cpu(cuda, seed):
+    """The -j 0 device merge: the same buffer and count on the card as on
+    the CPU, on candidates heavy with ties and invalid rows."""
+    from mecat_tpu_torch.ops.ddf import (Candidates,
+                                         merge_strand_candidates_device)
+
+    rng = np.random.default_rng(seed)
+    B, N = 128, 16
+    strands = [[rng.integers(0, 300, (B, N)), rng.integers(0, 6, (B, N)),
+                rng.integers(0, 8000, (B, N)), rng.integers(0, 8000, (B, N))]
+               for _ in range(2)]
+    valid = [rng.random((B, N)) < 0.7 for _ in range(2)]
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        cands = [Candidates(*(torch.as_tensor(a, dtype=torch.int32,
+                                              device=dev) for a in s),
+                            torch.as_tensor(v, device=dev))
+                 for s, v in zip(strands, valid)]
+        merged, count = merge_strand_candidates_device(
+            *cands, 2, B - 5, n_keep=N)
+        got[dev.type] = (merged.cpu(), int(count))
+    assert got["cuda"][1] == got["cpu"][1] > 0
+    assert torch.equal(got["cuda"][0], got["cpu"][0])
+
+
 @pytest.mark.parametrize("name", list(roll_micro.VARIANTS))
 @pytest.mark.parametrize("S,W", [(64, 32), (128, 64), (512, 128)])
 def test_roll_micro_kernel_matches_plain(cuda, name, S, W):

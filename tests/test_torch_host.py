@@ -2,8 +2,9 @@
 the NumPy index sharding of parallel.sharded) against the JAX package's
 originals: equal values, arrays and bytes.
 
-The originals take their native C++ fast paths where the toolchain builds
-them, so these tests also hold the pure-NumPy copies to the native bytes.
+Both packages take their native C++ layers here (the port's by default,
+the original's where its toolchain builds it); ``tests/test_torch_native.py``
+holds the port's native functions to their plain versions.
 """
 import os
 

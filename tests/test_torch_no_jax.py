@@ -1,7 +1,8 @@
 """The port runs where JAX is missing, as on the machine with the GPU.
 
 A subprocess blocks ``jax`` and ``jaxlib`` on ``sys.meta_path``, imports
-every module of ``mecat_tpu_torch`` and ``chip_smoke``, runs
+every module of ``mecat_tpu_torch`` (``native``, ``native.scalar``,
+``utils.scaling`` and ``bench`` among them) and ``chip_smoke``, runs
 ``run_pw(device="cpu")`` on the golden reads, which must reproduce
 ``tests/golden/overlaps.m4``, and runs the ``mecat2cns`` CLI on a cut of the
 golden candidates, which must correct the templates it keeps whole, once
@@ -10,10 +11,13 @@ more with ``--rounds 2``, then the ``pipeline``, ``extract_sequences`` and
 onto three of them with the ``mecat2ref`` CLI and runs the ``roll_micro``
 tool, and runs the two-rank toy dry run of the sharded drivers (``python
 -m mecat_tpu_torch.parallel.dryrun 2 --device cpu --toy``), whose ranks
-find ``jax`` shadowed by packages that refuse to import.  All run on ``--device cpu``, and each new CLI must refuse to start
-without a device.  Neither JAX nor
-the JAX package (``mecat_tpu``, whose init configures JAX) may be loaded at
-the end, and ``chip_smoke.main()`` must refuse to run without a CUDA device.
+find ``jax`` shadowed by packages that refuse to import; then the native
+scalar engine, the bench at a tiny size with its scalar leg, and a
+one-rank scaling report, whose rank finds ``jax`` shadowed too.  All run
+on ``--device cpu``, and each new entry point must refuse to start
+without a device.  Neither JAX nor the JAX package (``mecat_tpu``, whose
+init configures JAX) may be loaded at the end, and ``chip_smoke.main()``
+must refuse to run without a CUDA device.
 """
 import os
 import subprocess
@@ -44,6 +48,8 @@ mods = [m.name for m in pkgutil.walk_packages(mecat_tpu_torch.__path__,
                                               "mecat_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+for m in ("native", "native.api", "native.scalar", "utils.scaling", "bench"):
+    assert "mecat_tpu_torch." + m in mods, m
 from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
 
 golden = os.path.join(ROOT, "tests", "golden")
@@ -186,6 +192,25 @@ with tempfile.TemporaryDirectory() as d:
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "DRYRUN " in proc.stdout, proc.stdout[-2000:]
+    # the scalar engine, the bench (its scalar leg included) and the
+    # scaling report's ranks, which also find jax shadowed
+    from mecat_tpu_torch import bench
+    from mecat_tpu_torch.native.scalar import ScalarEngine
+    from mecat_tpu_torch.utils import scaling
+
+    eng = ScalarEngine(recs[0].codes, [0], [len(recs[0].codes)], k=9)
+    assert eng.n_valid == len(recs[0].codes) - 8
+    assert bench.main(["--device", "cpu", "--genome", "6000", "--coverage",
+                       "8", "--mean-len", "3000", "--B", "8", "--L", "4096",
+                       "--ncand", "4", "--batches", "1", "--no-cns",
+                       "--scalar"]) == 0
+    assert bench.main(["--device", "cuda"]) == 2
+    assert scaling.main(["--device", "cuda"]) == 2
+    os.environ["PYTHONPATH"] = blk + os.pathsep + ROOT
+    rows = scaling.scaling_report([(1, 1)], batch=2, n_batches=1, n_reads=4,
+                                  genome_n=6000, emit=None, device="cpu",
+                                  timeout=240)
+    assert rows[0]["step_seconds"] > 0 and rows[0]["virtual_mesh"]
 import chip_smoke
 
 assert chip_smoke.main([]) != 0, "chip_smoke ran without a CUDA device"
@@ -205,5 +230,5 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_mods = int(proc.stdout.split("NO_JAX_OK")[1])
-    assert n_mods >= 51
+    assert n_mods >= 56
     assert '"ok"' not in proc.stdout           # no result line from the smoke
