@@ -20,8 +20,16 @@ non-zero exit and no result line:
    launch: (512, 128), full-length segments, 64 / 256 / 1,024 / 4,096 live
    lanes scattered over 4,096 and 64 of 128, every lane held against the
    plain version; ms a launch replayed from a CUDA graph, ms of one launch
-   from the host, ns a row, and the bound on the same inputs
-   (``--kernels-only`` stops here).  The ``roll_micro`` family, 2048
+   from the host, ns a row, and the bound on the same inputs.  The three
+   walk kernels of ``csrc/cns_walk.cu`` (row walk, deposit scan, column
+   walk at mapping's MAXC) against their plain versions, every element of
+   every lane, at both shapes on 4096 lanes: the move-writing DP kernel's
+   words and endpoints, and random words with the edge lanes of
+   ``testing.walk_inputs``; the deposit on the rows of each walk and on
+   random rows.  Each wrapper alone on the first set: ms of one launch from
+   the host and from a CUDA graph, the plain version's ms, the bound, ns a
+   dependent step of the longest lane (``--kernels-only`` stops here).
+   The ``roll_micro`` family, 2048
    lanes (the tool's own lanes plus lanes with varied tmax and segq): all 8
    output rows of each of the five variants equal on every lane; then the
    tool itself, ``mecat_tpu_torch.tools.roll_micro`` at its defaults, whose
@@ -143,11 +151,13 @@ Each kernel's launch counter is zeroed just before the timed run of its
 path (phase 4's steady passes, phase 6's timed pass, the tool's run in
 phase 2, the CUDA SAM run of phase 8, phase 10's timed pass, phase 13c)
 and read just after, so the reported launches are those of the main paths
-only; the CLIs of phases 9, 11, 12 and 13b, the ranks of 13d and the
+only; the CLIs of phases 7, 9, 11, 12 and 13b, the ranks of 13d and the
 bench and scaling processes of phase 14 are processes of their own and
 report their own counts (the dry run's and the scaling report's summed
 over their ranks; the bench's of its timed overlap window and its steady
-cns pass).  The line before the last is a JSON object with the kernels'
+cns pass).  The row walk and the deposit scan must launch on every
+correction path (phases 6, 7, 10, 11, 12, 13c, 13d, 14c), the column walk
+on both mapping runs (8, 9).  The line before the last is a JSON object with the kernels'
 numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
 without the repository beside it.
@@ -171,6 +181,13 @@ KERNEL_REPLACES = "mecat_tpu/ops/pallas_dp.py:56"          # _dp_kernel
 KERNEL_REPLACES_MOVES = "mecat_tpu/ops/pallas_dp.py:115"   # its move stream
 ROLL_SOURCE = "mecat_tpu_torch/csrc/roll_micro.cu"
 ROLL_REPLACES = "tools/roll_micro.py:155"                  # build_call
+WALK_SOURCE = "mecat_tpu_torch/csrc/cns_walk.cu"
+#: each walk kernel -> the reference's scan it replaces
+WALK_REPLACES = {
+    "traceback_rows": "mecat_tpu/ops/align.py:300",           # scan :354
+    "deposit_scan": "mecat_tpu/ops/consensus_banded.py:87",   # scan :128
+    "traceback_ops": "mecat_tpu/ops/align.py:234",            # scan :283
+}
 
 # The card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet):
 # 3.35 TB/s of HBM, and for int32 a quarter of the 67 TFLOP/s float32
@@ -192,6 +209,12 @@ DP_LANES = 4096   # the bench's 2 * B * N extension lanes
 ROLL_OPS_PER_CELL = {"full": 28, "noroll": 25, "nobest": 14, "elembest": 26,
                      "baremin": 11}
 ROLL_LANES = 2048   # the tool's default
+#: int32 operations of the walk kernels, as the header of csrc/cns_walk.cu
+#: counts them: the row walk a 32-cell chunk of a walked row and a row
+#: besides; the deposit a row, a gap cell and an output char; the column
+#: walk a tape column
+WALK_OPS = dict(row_chunk=20, row=12, deposit_row=24, gap_cell=3,
+                deposit_char=6, col_step=16)
 
 # mapping at a real reference size (tools/ref_bench.py:39-44)
 REF_GENOME, REF_READS, REF_MEAN_LEN = 46_000_000, 2000, 10_000
@@ -203,6 +226,27 @@ REF_SMALL = dict(num_candidates=8, num_extend=3, min_align_size=400,
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def zero_walk_counts() -> None:
+    """Set the three walk kernels' launch counters to 0."""
+    from mecat_tpu_torch.ops import walk_kernel as wk
+
+    wk.LAUNCHES_ROWS = wk.LAUNCHES_DEPOSIT = wk.LAUNCHES_COLS = 0
+
+
+def need_walks(where: str, counts: dict,
+               kernels=("rows", "deposit")) -> dict:
+    """The walk launches of ``counts`` (a metrics summary, a bench line or
+    ``walk_kernel.launches()``); raises unless each of ``kernels`` was
+    launched."""
+    walks = {k: counts.get(f"walk_launches_{k}", 0)
+             for k in ("rows", "deposit", "cols")}
+    missing = [k for k in kernels if walks[k] <= 0]
+    if missing:
+        raise AssertionError(f"{where} did not go through the walk kernels "
+                             f"{missing}: {walks}")
+    return walks
 
 
 def card_line() -> str:
@@ -246,6 +290,14 @@ def cuda_graph_ms(fn, launches: int = 20, reps: int = 7) -> float:
     return ms
 
 
+def card_bound(n_bytes: float, ops: float) -> dict:
+    """The least time the card could take: the bytes over the memory rate
+    or the int32 operations over their peak rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
 def dp_bound(tmax, seg_q, active, S: int, W: int, with_moves: bool) -> dict:
     """The least time the card could take for one DP launch on these lanes.
 
@@ -264,10 +316,7 @@ def dp_bound(tmax, seg_q, active, S: int, W: int, with_moves: bool) -> dict:
     n_bytes = lanes * (S + S + W + 4 + 4 + 1 + 12)
     if with_moves:
         n_bytes += rows * (W // 16) * 4
-    ops = rows * W * OPS_PER_CELL[with_moves]
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes > t_ops else "operations")
+    return card_bound(n_bytes, rows * W * OPS_PER_CELL[with_moves])
 
 
 def phase_kernel(S: int, W: int) -> dict:
@@ -405,6 +454,142 @@ def phase_kernel_path_shapes(S: int, W: int) -> dict:
     return out
 
 
+def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
+    """The bound of each walk kernel on these inputs, with the lane chain
+    it walks: {kernel: (bound numbers, dependent steps of the longest
+    lane)}.  Bytes: each input read once and each output written once,
+    where the row walk reads the moves of the rows it walks (those it
+    visits, and one more where its path broke) and the column walk one
+    word a row it visits; operations as the source's header counts them
+    (``WALK_OPS``), over the rows, gap cells and tape columns this data
+    needs."""
+    import torch
+
+    N = int(seg_qlen.shape[0])
+    mv = rows[0]
+    visited = (mv >= 0).sum(dim=1)
+    broke = visited < seg_qlen.clamp(0, S)
+    rows_read = visited + broke.to(visited.dtype)
+    n_rows = int(rows_read.sum())
+    out = {"traceback_rows": (card_bound(
+        n_rows * W // 4 + N * (8 + 12 * S + 4),
+        n_rows * (WALK_OPS["row_chunk"] * W // 32 + WALK_OPS["row"])),
+        int(rows_read.max()))}
+    wo, _, h, dmv = dep_args[:4]
+    lo = (wo + 1).clamp(min=0)
+    hi = torch.minimum(wo + h, torch.full_like(wo, W - 1))
+    gap_cells = int(torch.where(dmv >= 0, (hi - lo + 1).clamp(min=0),
+                                0).sum())
+    LP = S + W // 2 - 1
+    out["deposit_scan"] = (card_bound(
+        N * S * 25 + N * LP * 9,
+        N * S * WALK_OPS["deposit_row"] + gap_cells * WALK_OPS["gap_cell"]
+        + N * LP * WALK_OPS["deposit_char"]), S)
+    tape, n_cols = ops[0], ops[3]
+    col_rows = int(((tape >= 0) & (tape != 3)).sum())
+    out["traceback_ops"] = (card_bound(
+        col_rows * 4 + N * (maxc + 4 + 8),
+        int(n_cols.sum()) * WALK_OPS["col_step"]), int(n_cols.max()))
+    return out
+
+
+def phase_walks(S: int, W: int) -> dict:
+    """The three walk kernels against their plain versions at one shape on
+    every lane and every output element: the row walk and the column walk
+    (at mapping's MAXC) on the move-writing DP kernel's words and endpoints
+    for the dp_inputs lanes, and on random words with the edge lanes of
+    ``testing.walk_inputs``; the deposit scan on the rows of each of those
+    walks and on random rows.  Then, on the DP kernel's words and the rows
+    of their walk, each wrapper alone: ms of one launch from the host
+    between two events (``ms``) and a launch replayed from a CUDA graph
+    (``graph_ms``), the plain version's ms, the bound, and ns a dependent
+    step of the longest lane.  Returns {kernel: numbers}."""
+    import torch
+
+    from mecat_tpu_torch import constants as C
+    from mecat_tpu_torch.ops import align, consensus_banded
+    from mecat_tpu_torch.ops import walk_kernel as wk
+    from mecat_tpu_torch.testing import (deposit_inputs, dp_inputs,
+                                         walk_inputs)
+
+    dev = torch.device("cuda")
+    maxc = align.max_tape_cols(S, W, C.MIN_SEGMENT_IDENTITY)
+    args = [torch.as_tensor(a, device=dev)
+            for a in dp_inputs(S, W, DP_LANES, seed=151 + S + W)]
+    cases = [("the DP kernel's moves on the dp_inputs lanes",
+              align.dp_segment_best(*args, S, W, want_moves=True)[:3]),
+             ("random words with the edge lanes",
+              [torch.as_tensor(a, device=dev)
+               for a in walk_inputs(S, W, DP_LANES, seed=161 + S + W)])]
+    err = dict.fromkeys(WALK_REPLACES, 0)
+
+    def check(name, got, want, what):
+        for g, w in zip(got, want):
+            err[name] = max(err[name], int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"{name} kernel != plain at S={S} W={W} on {what}: "
+                    f"{int((g != w).sum())} elements differ")
+
+    timed = None
+    for k, (what, (moves, seg_qlen, w_end)) in enumerate(cases):
+        rows = align.traceback_rows(moves, seg_qlen, w_end, W)
+        rows_plain = align.traceback_rows_plain(moves, seg_qlen, w_end, W)
+        ops = align.traceback_ops(moves, seg_qlen, w_end, W, maxc)
+        ops_plain = align.traceback_ops_plain(moves, seg_qlen, w_end, W,
+                                              maxc)
+        torch.cuda.synchronize()
+        check("traceback_rows", rows, rows_plain, what)
+        check("traceback_ops", ops, ops_plain, what)
+        walk = [a.cpu().numpy() for a in rows[:3]]
+        deps = [[torch.as_tensor(a, device=dev) for a in deposit_inputs(
+            S, W, DP_LANES, seed=171 + S + W + 2 * k + r,
+            walk=walk if r == 0 else None)] for r in (0, 1)]
+        for dep, rows_what in zip(deps, ("the rows of that walk",
+                                         "random rows")):
+            got = consensus_banded._deposit_scan(*dep, W)
+            want = consensus_banded.deposit_scan_plain(*dep, W)
+            torch.cuda.synchronize()
+            check("deposit_scan", got, want, f"{what}, {rows_what}")
+        say(f"phase 2: walk kernels == plain at S={S} W={W}, {DP_LANES} "
+            f"lanes of {what}: row walk (mv, h, w_out, w0; "
+            f"{int((rows[0] >= 0).sum())} rows visited), column walk at "
+            f"MAXC {maxc} (ops, qi, tj, n_cols; {int(ops[3].sum())} "
+            f"columns), deposit scan on the rows of that walk and on random "
+            f"rows (val0, ipack, icnt): every element equal")
+        if timed is None:
+            timed = (moves, seg_qlen, w_end, rows_plain, ops_plain, deps[0])
+    moves, seg_qlen, w_end, rows_plain, ops_plain, dep = timed
+    runs = {
+        "traceback_rows": (
+            lambda: wk.traceback_rows_cuda(moves, seg_qlen, w_end, W),
+            lambda: align.traceback_rows_plain(moves, seg_qlen, w_end, W)),
+        "deposit_scan": (
+            lambda: wk.deposit_scan_cuda(*dep, W),
+            lambda: consensus_banded.deposit_scan_plain(*dep, W)),
+        "traceback_ops": (
+            lambda: wk.traceback_ops_cuda(moves, seg_qlen, w_end, W, maxc),
+            lambda: align.traceback_ops_plain(moves, seg_qlen, w_end, W,
+                                              maxc)),
+    }
+    bounds = walk_bounds(S, W, maxc, seg_qlen, rows_plain, ops_plain, dep)
+    out = {}
+    for name, (fn, plain) in runs.items():
+        ms = cuda_median_ms(fn, 21)
+        graph_ms = cuda_graph_ms(fn)
+        plain_ms = cuda_median_ms(plain, 3)
+        b, steps = bounds[name]
+        say(f"phase 2: {name} kernel alone at S={S} W={W}, {DP_LANES} "
+            f"lanes: one launch from the host {ms:.4f} ms, replayed from a "
+            f"CUDA graph {graph_ms:.4f} ms ({1e6 * graph_ms / steps:.1f} ns "
+            f"a step of the longest lane's {steps}); plain {plain_ms:.2f} "
+            f"ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+        out[name] = dict(max_abs_err=err[name], ms=ms, graph_ms=graph_ms,
+                         plain_ms=plain_ms, chain_steps=steps,
+                         ns_step=1e6 * graph_ms / steps, **b)
+    return out
+
+
 def phase_roll_micro(S: int, W: int) -> dict:
     """The five roll_micro variants against the plain version at one shape;
     returns {variant: numbers}."""
@@ -419,7 +604,7 @@ def phase_roll_micro(S: int, W: int) -> dict:
     cells = S * W * ROLL_LANES
     # every row of every lane runs whatever the data holds: each input read
     # once, the 8 results written once
-    t_bytes = ROLL_LANES * (S + S + W + 4 + 4 + 32) / HBM_BYTES_PER_S
+    n_bytes = ROLL_LANES * (S + S + W + 4 + 4 + 32)
     out = {}
     for name, (rolls, best) in rm.VARIANTS.items():
         got = rm.roll_micro(*args, S, W, rolls, best)
@@ -434,16 +619,13 @@ def phase_roll_micro(S: int, W: int) -> dict:
             lambda: rm.roll_micro(*args, S, W, rolls, best), 21)
         plain_ms = cuda_median_ms(
             lambda: rm.roll_micro_plain(*args, S, W, rolls, best), 2)
-        t_ops = cells * ROLL_OPS_PER_CELL[name] / INT32_OPS_PER_S
-        bound = dict(bound_ms=1e3 * max(t_bytes, t_ops),
-                     bound_by="bytes" if t_bytes > t_ops else "operations")
+        b = card_bound(n_bytes, cells * ROLL_OPS_PER_CELL[name])
         say(f"phase 2: roll_micro {name} == plain at S={S} W={W} "
             f"lanes={ROLL_LANES} (all 8 rows): kernel {ms:.4f} ms = "
             f"{cells / ms / 1e6:.2f} Gcells/s, plain {plain_ms:.4f} ms "
-            f"(median), bound {bound['bound_ms']:.4f} ms by "
-            f"{bound['bound_by']}")
+            f"(median), bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         gcells_s=cells / ms / 1e6, **bound)
+                         gcells_s=cells / ms / 1e6, **b)
     return out
 
 
@@ -720,7 +902,7 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
     import torch
 
     from mecat_tpu_torch import constants as C
-    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
     from mecat_tpu_torch.ops.align import dp_segment_best_plain
     from mecat_tpu_torch.pipeline.cns import (CnsOptions, CnsStats,
                                               correct_batch_device,
@@ -747,8 +929,10 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
     _, _, warm_s = one_pass(templates)
     torch.cuda.reset_peak_memory_stats()
     dp_kernel.LAUNCHES_MOVES = 0         # the main path's run starts here
+    zero_walk_counts()
     out, stats, dt = one_pass(templates)
     launches = dp_kernel.LAUNCHES_MOVES  # ... and ends here
+    walks = need_walks("the cns pass", walk_kernel.launches())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if launches <= 0:
         raise AssertionError("the cns pass launched no move-writing kernel")
@@ -764,7 +948,7 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
         f"{warm_s:.4f} s): {stats.supports_aligned / dt:.1f} supports/s, "
         f"{stats.corrected_reads} corrected reads, {stats.corrected_bases} "
         f"bases, {stats.table_slices} table slices, {launches} DP launches, "
-        f"peak device memory {peak_gb:.3f} GB")
+        f"walk launches {walks}, peak device memory {peak_gb:.3f} GB")
     say(f"phase 6: DP lane-segments issued {stats.dp_lane_segs_issued}, "
         f"useful {stats.dp_lane_segs_useful}: "
         f"{stats.dp_lane_segs_issued * cells / 1e9:.3f} Gcells issued, "
@@ -784,7 +968,8 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
                              "differ between the kernel and the plain DP")
     say(f"phase 6: the 8 most-supported templates through the plain DP "
         f"({plain_s:.2f} s): the same {len(want)} corrected reads")
-    return dict(launches=launches, templates=templates, opts=opts,
+    return dict(launches=launches, walks=walks, templates=templates,
+                opts=opts,
                 round1=dict(seconds=dt, stats=stats, peak_gb=peak_gb))
 
 
@@ -887,8 +1072,9 @@ def phase_cli(reads: str, n_reads: int, work: str) -> dict:
     return dict(records=n_rec, wall=wall, summary=summary)
 
 
-def phase_cli_cns(reads: str, n_reads: int, work: str) -> None:
-    """``reads``: the depth cut of the bench reads (see the module text)."""
+def phase_cli_cns(reads: str, n_reads: int, work: str) -> dict:
+    """``reads``: the depth cut of the bench reads (see the module text).
+    Returns the CLI's walk launches."""
     cand = os.path.join(work, "bench_cand.txt")
     pw_wall, pw = run_cli(
         "mecat2pw", ["-j", "0", "-d", reads, "-o", cand, "-w",
@@ -917,6 +1103,7 @@ def phase_cli_cns(reads: str, n_reads: int, work: str) -> None:
     if summary.get("dp_launches", 0) <= 0:
         raise AssertionError("the cns CLI's DP did not go through the "
                              "move-writing kernel")
+    return need_walks("the cns CLI", summary)
 
 
 def phase_ref_small(work: str) -> dict:
@@ -924,7 +1111,7 @@ def phase_ref_small(work: str) -> dict:
     bytes.  Returns the launches of the two DP kernels on the CUDA SAM
     run."""
     from mecat_tpu_torch.io.fasta import write_fasta
-    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
     from mecat_tpu_torch.pipeline.ref import RefOptions, run_ref
     from mecat_tpu_torch.utils.sim import random_genome, simulate_reads
 
@@ -949,6 +1136,7 @@ def phase_ref_small(work: str) -> dict:
             out = os.path.join(work, f"small_{dev}.{fmt}")
             if (fmt, dev) == ("sam", "cuda"):
                 dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+                zero_walk_counts()
             t0 = time.time()
             stats = run_ref(reads, ref, out,
                             os.path.join(work, f"small_w_{dev}_{fmt}"),
@@ -957,7 +1145,10 @@ def phase_ref_small(work: str) -> dict:
             dt = time.time() - t0
             if (fmt, dev) == ("sam", "cuda"):
                 launches = dict(counts=dp_kernel.LAUNCHES,
-                                moves=dp_kernel.LAUNCHES_MOVES)
+                                moves=dp_kernel.LAUNCHES_MOVES,
+                                walks=need_walks("the CUDA SAM run",
+                                                 walk_kernel.launches(),
+                                                 ("cols",)))
             with open(out, "rb") as fh:
                 outs[dev] = fh.read()
             if stats.mapped != len(seqs) - 1:
@@ -974,7 +1165,7 @@ def phase_ref_small(work: str) -> dict:
                     if ln.startswith("junk\t")]
             if junk != ["4"]:
                 raise AssertionError(f"the junk read's FLAGs: {junk}")
-    if min(launches.values()) <= 0:
+    if min(launches["counts"], launches["moves"]) <= 0:
         raise AssertionError(f"the CUDA SAM run launched {launches}")
     say(f"phase 8: SAM and M4 output byte-equal between cuda and cpu, junk "
         f"read FLAG 4, DP launches on the CUDA SAM run: {launches}")
@@ -1106,6 +1297,7 @@ def phase_ref_genome(work: str, profile_path: str | None) -> dict:
            summary.get("dp_launches_moves", 0)) <= 0:
         raise AssertionError("the mapping CLI's DP did not go through both "
                              "kernels")
+    need_walks("the mapping CLI", summary, ("cols",))
     if profile_path:
         profile_ref(reads, ref, work, profile_path)
     return summary
@@ -1114,22 +1306,23 @@ def phase_ref_genome(work: str, profile_path: str | None) -> dict:
 def phase_rounds_small(work: str) -> None:
     """Phase 10a: two correction rounds give the same bytes on the card and
     on the CPU."""
-    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
     from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
     from mecat_tpu_torch.testing import PILE_CNS, cns_pile
 
     d = os.path.join(work, "pile")
     os.makedirs(d)
     _, reads, cand = cns_pile(d, device="cuda")
-    got, secs, launches = {}, {}, {}
+    got, secs, launches, walks = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         out = os.path.join(d, f"rounds2_{dev}.fasta")
-        before = dp_kernel.LAUNCHES_MOVES
+        before = dp_kernel.LAUNCHES_MOVES, walk_kernel.launches()
         t0 = time.time()
         run_cns(cand, reads, out, CnsOptions(rounds=2, **PILE_CNS),
                 device=dev)
         secs[dev] = time.time() - t0
-        launches[dev] = dp_kernel.LAUNCHES_MOVES - before
+        launches[dev] = dp_kernel.LAUNCHES_MOVES - before[0]
+        walks[dev] = walk_kernel.launches_since(before[1])
         with open(out, "rb") as fh:
             got[dev] = fh.read()
     if not got["cuda"] or got["cuda"] != got["cpu"]:
@@ -1137,11 +1330,14 @@ def phase_rounds_small(work: str) -> None:
                              "and cpu (or none came out)")
     if launches["cuda"] <= 0 or launches["cpu"] != 0:
         raise AssertionError(f"rounds=2 move-kernel launches: {launches}")
+    walks["cuda"] = need_walks("rounds=2 on cuda", walks["cuda"])
+    if any(walks["cpu"].values()):
+        raise AssertionError(f"rounds=2 on cpu launched {walks['cpu']}")
     say(f"phase 10: run_cns rounds=2 on the 28-read pile: "
         f"{got['cuda'].count(b'>')} corrected reads, {len(got['cuda'])} "
         f"bytes, byte-equal on cuda ({secs['cuda']:.2f} s, "
-        f"{launches['cuda']} move-kernel launches) and cpu "
-        f"({secs['cpu']:.2f} s)")
+        f"{launches['cuda']} move-kernel launches, walk launches "
+        f"{walks['cuda']}) and cpu ({secs['cpu']:.2f} s)")
 
 
 def phase_rounds(db, by_template: dict, cns: dict) -> dict:
@@ -1150,7 +1346,7 @@ def phase_rounds(db, by_template: dict, cns: dict) -> dict:
 
     import torch
 
-    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
     from mecat_tpu_torch.pipeline.cns import (CnsStats, correct_batch_rounds,
                                               device_volume)
 
@@ -1172,9 +1368,11 @@ def phase_rounds(db, by_template: dict, cns: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     # the main path's run starts here ...
     dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+    zero_walk_counts()
     out, stats, dt = one_pass()
     # ... and ends here
     launches_counts, launches = dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES
+    walks = need_walks("two correction rounds", walk_kernel.launches())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     r1 = cns["round1"]
     s1 = r1["stats"]
@@ -1201,9 +1399,9 @@ def phase_rounds(db, by_template: dict, cns: dict) -> dict:
         f"{dt:.4f} s (warm pass {warm_s:.4f} s): "
         f"{stats.supports_aligned / dt:.1f} supports/s, "
         f"{stats.corrected_reads} corrected reads, {stats.corrected_bases} "
-        f"bases, {launches} move-kernel launches, lane-segments issued "
-        f"{stats.dp_lane_segs_issued}, useful {stats.dp_lane_segs_useful}, "
-        f"peak device memory {peak_gb:.3f} GB")
+        f"bases, {launches} move-kernel launches, walk launches {walks}, "
+        f"lane-segments issued {stats.dp_lane_segs_issued}, useful "
+        f"{stats.dp_lane_segs_useful}, peak device memory {peak_gb:.3f} GB")
     say(f"phase 10: beside it, rounds=1 (phase 6): {s1.supports_aligned} "
         f"supports in {r1['seconds']:.4f} s: "
         f"{s1.supports_aligned / r1['seconds']:.1f} supports/s, "
@@ -1212,7 +1410,8 @@ def phase_rounds(db, by_template: dict, cns: dict) -> dict:
         f"{s1.dp_lane_segs_issued}, useful {s1.dp_lane_segs_useful}, peak "
         f"{r1['peak_gb']:.3f} GB; two rounds take "
         f"{dt / r1['seconds']:.2f}x the seconds")
-    return dict(launches=dict(counts=launches_counts, moves=launches))
+    return dict(launches=dict(counts=launches_counts, moves=launches),
+                walks=walks)
 
 
 def fasta_counts(path: str):
@@ -1281,6 +1480,7 @@ def phase_pipeline(reads: str, n_reads: int, n_bases: int, work: str) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a pipeline stage's DP did not go through its "
                              f"kernel: {launches}")
+    walks = need_walks("the pipeline's cns stage", cns[0])
 
     stamps = [os.stat(p).st_mtime_ns for p in paths]
     wall2, again = run_cli_summaries("pipeline", argv)
@@ -1291,7 +1491,8 @@ def phase_pipeline(reads: str, n_reads: int, n_bases: int, work: str) -> dict:
                              f"stage: {again}")
     say(f"phase 11: a second call skipped all five stages (wall "
         f"{wall2:.2f} s, every artifact untouched)")
-    return dict(corrected=paths[1], launches=launches, wall=wall)
+    return dict(corrected=paths[1], launches=launches, walks=walks,
+                wall=wall)
 
 
 def kmer_share(seq: np.ndarray, genome: np.ndarray, k: int = 21) -> float:
@@ -1314,17 +1515,19 @@ def phase_polish_small(work: str) -> None:
     substitutions every 800 bases) through the tiled device polish on the
     card, on the CPU, and through the host route."""
     from mecat_tpu_torch.assembly import ctgcns
-    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
     from mecat_tpu_torch.testing import polish_case
 
     db, tig, backbone = polish_case(work, 6000, 7, seed=77)
     opts = ctgcns.CtgCnsOptions(extend_batch=8, align_segment=128,
                                 align_band=64)
-    before = dp_kernel.LAUNCHES_MOVES
+    before = dp_kernel.LAUNCHES_MOVES, walk_kernel.launches()
     t0 = time.time()
     got = ctgcns._polish_contig_device(db, tig, backbone, opts, device="cuda")
     cuda_s = time.time() - t0
-    launches = dp_kernel.LAUNCHES_MOVES - before
+    launches = dp_kernel.LAUNCHES_MOVES - before[0]
+    walks = need_walks("the small polish on cuda",
+                       walk_kernel.launches_since(before[1]))
     cpu = ctgcns._polish_contig_device(db, tig, backbone, opts, device="cpu")
     host = ctgcns._polish_contig_host(db, tig, backbone, opts, device="cuda")
     picked = ctgcns.polish_contig(db, tig, backbone, opts, device="cuda")
@@ -1338,8 +1541,8 @@ def phase_polish_small(work: str) -> None:
                              f"move-kernel launches")
     say(f"phase 12: polish exactness: the 7-read contig ({len(backbone)} "
         f"backbone bases -> {len(got)}) in device tiles on cuda "
-        f"({cuda_s:.2f} s, {launches} move-kernel launches) == the same on "
-        f"cpu == the host route == polish_contig")
+        f"({cuda_s:.2f} s, {launches} move-kernel launches, walk launches "
+        f"{walks}) == the same on cpu == the host route == polish_contig")
 
 
 ASM_MARKERS = ("gatekeeper", "meryl", "trim", "overlap", "ovstore", "erate",
@@ -1379,6 +1582,7 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
                              "as its summary says")
     longest = int(np.argmax(contigs.lengths))
     share = kmer_share(contigs.read(longest), genome)
+    walks = need_walks("the assembler's polish", canu)
     say(f"phase 12: {canu.get('n_reads')} reads kept, "
         f"{canu.get('n_overlaps')} overlaps, {canu.get('n_unitigs')} unitigs, "
         f"{contigs.n_reads} contigs, {contigs.total_bases} bases, N50 "
@@ -1388,7 +1592,8 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
         f"{canu.get('polish_contigs_device')} contigs in device tiles, "
         f"{canu.get('polish_contigs_host')} through the host route; launches "
         f"{canu.get('dp_launches')} counts / {canu.get('dp_launches_moves')} "
-        f"moves; peak device memory {canu.get('peak_device_gb')} GB; "
+        f"moves, walk launches {walks}; "
+        f"peak device memory {canu.get('peak_device_gb')} GB; "
         f"{100 * share:.2f} % of the longest contig's 21-mers occur "
         f"in the simulated genome")
     for name in ("bench.layout.txt", "bench.contigs.gfa", "bench.report",
@@ -1419,7 +1624,8 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
     if profile:
         profile_polish(wrk)
     return dict(launches=dict(counts=canu["dp_launches"],
-                              moves=canu["dp_launches_moves"]), wall=wall)
+                              moves=canu["dp_launches_moves"]), walks=walks,
+                wall=wall)
 
 
 def profile_polish(wrk: str) -> None:
@@ -1566,7 +1772,7 @@ def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
     pile's paths and run_cns outputs."""
     import torch.distributed as dist
 
-    from mecat_tpu_torch.ops import dp_kernel
+    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
     from mecat_tpu_torch.parallel.cns_dist import run_cns_dist
     from mecat_tpu_torch.parallel.dist import init_distributed, run_pw_dist
     from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
@@ -1588,6 +1794,7 @@ def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
     backend = dist.get_backend()
     try:
         dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+        zero_walk_counts()
         t0 = time.time()
         out = os.path.join(d, "bench_dist.m4")
         stats = run_pw_dist(bench_reads_path, out, os.path.join(d, "wpw"),
@@ -1616,6 +1823,7 @@ def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
                                      f"{len(want)}, equal {got == want}")
         launches = dict(counts=dp_kernel.LAUNCHES,
                         moves=dp_kernel.LAUNCHES_MOVES)
+        walks = need_walks("run_cns_dist on one rank", walk_kernel.launches())
     finally:
         dist.destroy_process_group()
     if backend != "nccl" or min(launches.values()) <= 0:
@@ -1624,8 +1832,9 @@ def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
     say(f"phase 13: one rank over {backend}: run_pw_dist on the bench reads "
         f"{stats.overlaps} records equal to the fused CLI's ({pw_s:.2f} s); "
         f"run_cns_dist rounds=1 / 2 on the 28-read pile equal to run_cns "
-        f"({cns_s[1]:.2f} / {cns_s[2]:.2f} s); launches {launches}")
-    return dict(launches=launches, pile=(preads, cand),
+        f"({cns_s[1]:.2f} / {cns_s[2]:.2f} s); launches {launches}, walk "
+        f"launches {walks}")
+    return dict(launches=launches, walks=walks, pile=(preads, cand),
                 run_cns_r2=single[2])
 
 
@@ -1687,7 +1896,13 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
         say(f"phase 13: 4 ranks, {t}: equal to the single device; seconds "
             f"{[round(r['seconds'], 2) for r in rec[t]]}, exchange bytes "
             f"{[r['exchange_bytes'] for r in rec[t]]}, launches (counts, "
-            f"moves) {[(r['launches'], r['launches_moves']) for r in rec[t]]}")
+            f"moves) {[(r['launches'], r['launches_moves']) for r in rec[t]]}"
+            f", walk launches (rows, deposit, cols) "
+            f"{[tuple(need_walks(t, r, ()).values()) for r in rec[t]]}")
+    ranks_walks = need_walks("run_cns_dist on four ranks", {
+        k: sum(r[k] for r in rec["cns-r2"])
+        for k in ("walk_launches_rows", "walk_launches_deposit",
+                  "walk_launches_cols")})
     say(f"phase 13: the four ranks took {wall:.2f} s with process start")
 
     t0 = time.time()
@@ -1710,7 +1925,8 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
     if min(launches.values()) <= 0 or not found.get("identity_checked"):
         raise AssertionError(f"the dry run launched {launches}, checked "
                              f"{found.get('identity_checked')} segments")
-    return dict(launches=launches)
+    return dict(launches=launches, walks=need_walks("the dry run", found),
+                ranks_walks=ranks_walks)
 
 
 def timed(fn, *args, **kwargs):
@@ -1885,6 +2101,9 @@ def phase_bench_module(bench: dict, cns: dict) -> dict:
     if min(line["dp_launches"], line["cns_dp_launches_moves"]) <= 0:
         raise AssertionError("the bench's legs did not go through both DP "
                              "kernels")
+    need_walks("the bench's cns leg", {k[len("cns_"):]: v
+                                       for k, v in line.items()
+                                       if k.startswith("cns_walk_")})
     say(f"phase 14: the bench's {line['overlaps']} overlaps equal phase 4's "
         f"batches over the same {line['batches']} cyclic steps; its "
         f"{line['cns_supports']} supports and {line['cns_corrected_reads']} "
@@ -1930,8 +2149,8 @@ def main(argv=None) -> int:
                         "phase-9 mapping run (table to PATH.ref) and one "
                         "polish pass of phase 12 under stage timers")
     p.add_argument("--kernels-only", action="store_true",
-                   help="stop after phase 2's DP kernel checks and timings "
-                        "(no result line)")
+                   help="stop after phase 2's DP and walk kernel checks and "
+                        "timings (no result line)")
     args = p.parse_args(argv)
     t_start = time.time()
 
@@ -1959,9 +2178,11 @@ def main(argv=None) -> int:
     shapes = ((128, 64), (512, 128))
     stats = {(S, W): phase_kernel(S, W) for S, W in shapes}
     path_shapes = phase_kernel_path_shapes(CFG["S"], CFG["W"])
+    walks = {(S, W): phase_walks(S, W) for S, W in shapes}
     if args.kernels_only:
         say(json.dumps({"path_shapes": {
-            "moves" if m else "counts": v for m, v in path_shapes.items()}}))
+            "moves" if m else "counts": v for m, v in path_shapes.items()},
+            "walks": walks[(CFG["S"], CFG["W"])]}))
         say(f"card: {card}")
         return 0
     roll = {(S, W): phase_roll_micro(S, W) for S, W in shapes}
@@ -1985,7 +2206,7 @@ def main(argv=None) -> int:
         cut = [i for i, t in enumerate(truths) if t.start < GENOME // 4]
         reads_cut = os.path.join(work, "bench_reads_cut.fasta")
         write_fasta(reads_cut, [(db.name(i), db.read(i)) for i in cut])
-        phase_cli_cns(reads_cut, len(cut), work)
+        cli_cns_walks = phase_cli_cns(reads_cut, len(cut), work)
         ref_small = phase_ref_small(work)
         ref_cli = phase_ref_genome(work, args.profile)
         phase_rounds_small(work)
@@ -2045,6 +2266,41 @@ def main(argv=None) -> int:
             "library_ms": None,
             # the wrapper alone at the shapes the paths launch
             "path_shapes": path_shapes[with_moves]})
+    # the walks of both main paths run S 512, W 128 (mapping's MAXC 704)
+    walk_main = walks[(CFG["S"], CFG["W"])]
+    for name, short in (("traceback_rows", "rows"),
+                        ("deposit_scan", "deposit"),
+                        ("traceback_ops", "cols")):
+        if short == "cols":
+            # the mapping path: phase 8's CUDA SAM run in this process, and
+            # the CLI's own count of phase 9
+            paths = dict(launches=ref_small["walks"][short],
+                         launches_mapping_cli=ref_cli[f"walk_launches_{short}"])
+        else:
+            # the correction paths: phase 6's cns pass (the main path), the
+            # cns CLI of phase 7, phase 10's two rounds, the CLIs of phases
+            # 11 and 12, run_cns_dist on one NCCL rank (13c) and summed over
+            # four gloo ranks (13d), the 8-rank dry run, the bench's cns leg
+            paths = dict(
+                launches=cns["walks"][short],
+                launches_cns_cli=cli_cns_walks[short],
+                launches_rounds=rounds["walks"][short],
+                launches_pipeline_cli=pipeline["walks"][short],
+                launches_assembly_cli=assembly["walks"][short],
+                launches_dist=dist1["walks"][short],
+                launches_dist_ranks=ranks["ranks_walks"][short],
+                launches_dryrun=ranks["walks"][short],
+                launches_bench=bench_line[f"cns_walk_launches_{short}"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": WALK_SOURCE,
+            "replaces": WALK_REPLACES[name], **paths,
+            "max_abs_err": max(w[name]["max_abs_err"]
+                               for w in walks.values()),
+            **{k: walk_main[name][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "graph_ms", "chain_steps", "ns_step")},
+            # no single PyTorch call computes a banded walk or deposit
+            "library_ms": None})
     # the tool runs S 512, W 128; the family's headline numbers are `full`'s
     roll_main = roll[(512, 128)]
     kernels.append({

@@ -24,7 +24,7 @@ import torch
 from ..index.meryl import kmer_histogram, pick_freq_cutoff
 from ..io.fasta import write_fasta
 from ..io.packed_db import PackedDB
-from ..ops import dp_kernel
+from ..ops import dp_kernel, walk_kernel
 from ..pipeline.pw import PwOptions, run_pw
 from ..pipeline.trim import TrimOptions, run_trim
 from ..utils.log import get_logger
@@ -119,6 +119,7 @@ def run_assembly(reads_path: str, prefix: str, wrk_dir: str,
     report = AsmReport()
     met = Metrics("canu")
     launches0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES)
+    walk0 = walk_kernel.launches()
 
     def path(p):
         return os.path.join(wrk_dir, p)
@@ -272,6 +273,8 @@ def run_assembly(reads_path: str, prefix: str, wrk_dir: str,
     met.set("seconds", round(report.seconds, 3))
     met.set("dp_launches", dp_kernel.LAUNCHES - launches0[0])
     met.set("dp_launches_moves", dp_kernel.LAUNCHES_MOVES - launches0[1])
+    for name, n in walk_kernel.launches_since(walk0).items():
+        met.set(name, n)
     if torch.device(device).type == "cuda":
         met.set("peak_device_gb",
                 round(torch.cuda.max_memory_allocated(device) / 1e9, 3))

@@ -33,7 +33,8 @@ keys (``warmup_s`` in place of ``compile_s``), ``backend`` ``"torch"``,
 number of cards), the counts behind the rates (``overlaps``,
 ``useful_segments``, ``batches``, ``reads``) and the DP kernel launches of
 the timed overlap window (``dp_launches``) and of the steady cns pass
-(``cns_dp_launches_moves``): 0 on the CPU.
+(``cns_dp_launches_moves``), and the walk kernels' launches of that pass
+(``cns_walk_launches_rows`` / ``_deposit`` / ``_cols``): 0 on the CPU.
 """
 from __future__ import annotations
 
@@ -147,7 +148,7 @@ def run_cns(db, supports, device, max_templates: int):
     """The cns leg (``bench.py:160-211``): supports/s and corrected reads of
     ``correct_batch_device`` on the overlap step's own supports, or None
     when no template has 5 supports."""
-    from .ops import dp_kernel
+    from .ops import dp_kernel, walk_kernel
     from .pipeline.cns import (CnsOptions, CnsStats, correct_batch_device,
                                device_volume)
 
@@ -182,9 +183,12 @@ def run_cns(db, supports, device, max_templates: int):
 
     _, cold_dt = one_pass()
     dp_kernel.LAUNCHES_MOVES = 0
+    walk0 = walk_kernel.launches()
     stats, dt = one_pass()
     return dict(
         cns_dp_launches_moves=dp_kernel.LAUNCHES_MOVES,
+        **{"cns_" + k: n
+           for k, n in walk_kernel.launches_since(walk0).items()},
         cns_supports_per_s=stats.supports_aligned / dt if dt > 0 else None,
         cns_templates=stats.templates,
         cns_supports=stats.supports_aligned,

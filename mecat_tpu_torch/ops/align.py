@@ -9,7 +9,10 @@ segment runs in the hand-written Hopper kernels (``csrc/dp_segment.cu``
 through :mod:`.dp_kernel`) for CUDA tensors, and in their plain PyTorch
 version (:func:`banded_dp_segment` + :func:`pick_end_local`) for CPU
 tensors.  :func:`dp_segment_best` dispatches on the tensor's device only: a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises.  The two walks do the same:
+:func:`traceback_rows` and :func:`traceback_ops` launch the kernels of
+``csrc/cns_walk.cu`` (through :mod:`.walk_kernel`) for CUDA tensors and run
+:func:`traceback_rows_plain` / :func:`traceback_ops_plain` for CPU tensors.
 
 Moves are 2-bit codes, 16 per int32 word along the band, laid out
 ``[lanes, S, W/16]`` (the JAX package keeps ``[S, W/16, lanes]``): the code
@@ -190,9 +193,10 @@ def dp_segment_best(q_seg: torch.Tensor, tpad: torch.Tensor,
     return _unpack_best(r, w, v, W)
 
 
-def traceback_rows(moves: torch.Tensor, seg_qlen: torch.Tensor,
-                   w_end: torch.Tensor, W: int):
-    """Row-major traceback: walk DP rows (S steps) from (seg_qlen, w_end).
+def traceback_rows_plain(moves: torch.Tensor, seg_qlen: torch.Tensor,
+                         w_end: torch.Tensor, W: int):
+    """Row-major traceback: walk DP rows (S steps) from (seg_qlen, w_end);
+    the plain version of the row-walk kernel, on any device.
 
     Within a DP row the backward path is a maximal run of HORIZ cells ending
     at the first non-HORIZ cell at or left of the entry column, so one row
@@ -209,8 +213,9 @@ def traceback_rows(moves: torch.Tensor, seg_qlen: torch.Tensor,
         max(w0 - W/2, 0)).
 
     The reference carries the position as a one-hot row; here it is the
-    column itself.  A VERT out of the last column empties the one-hot, which
-    then reads as column 0 everywhere, so that case maps to 0.
+    column itself.  An empty one-hot reads as column 0 everywhere, so a
+    ``w_end`` outside [0, W) starts at column 0, and a VERT out of the last
+    column goes to 0.
     """
     N, S, _ = moves.shape
     dev = moves.device
@@ -218,6 +223,7 @@ def traceback_rows(moves: torch.Tensor, seg_qlen: torch.Tensor,
     shift16 = 2 * torch.arange(16, dtype=torch.int32, device=dev)
     r_end = seg_qlen.to(torch.int32)
     w = w_end.to(torch.int32)
+    w = torch.where((w >= 0) & (w < W), w, 0)
     alive = torch.ones(N, dtype=torch.bool, device=dev)
     minus1 = torch.full((N,), -1, dtype=torch.int32, device=dev)
     mv_s, h_s, wo_s = [], [], []
@@ -241,6 +247,24 @@ def traceback_rows(moves: torch.Tensor, seg_qlen: torch.Tensor,
     # steps ran from row S down: reverse into ascending row order
     stack = lambda xs: torch.stack(xs[::-1], dim=1)
     return stack(mv_s), stack(h_s), stack(wo_s), w
+
+
+def traceback_rows(moves: torch.Tensor, seg_qlen: torch.Tensor,
+                   w_end: torch.Tensor, W: int):
+    """The row walk of :func:`traceback_rows_plain`; the kernel for CUDA
+    tensors.
+
+    CPU tensors take the plain version; CUDA tensors launch the row-walk
+    kernel (``csrc/cns_walk.cu`` through :mod:`.walk_kernel`), which raises
+    on what it does not take.  Returns (mv, h, w_out, w0).
+    """
+    if moves.device.type == "cpu":
+        return traceback_rows_plain(moves, seg_qlen, w_end, W)
+    from .walk_kernel import traceback_rows_cuda
+
+    return traceback_rows_cuda(moves.contiguous(),
+                               seg_qlen.to(torch.int32).contiguous(),
+                               w_end.to(torch.int32).contiguous(), W)
 
 
 def _read_move(flat: torch.Tensor, i: torch.Tensor, w: torch.Tensor,
@@ -289,9 +313,10 @@ def _tape_indices(ops: torch.Tensor):
     return qi, tj
 
 
-def traceback_ops(moves: torch.Tensor, seg_qlen: torch.Tensor,
-                  w_end: torch.Tensor, W: int, max_cols: int = 0):
-    """Column traceback from (seg_qlen, w_end) emitting the full op tape.
+def traceback_ops_plain(moves: torch.Tensor, seg_qlen: torch.Tensor,
+                        w_end: torch.Tensor, W: int, max_cols: int = 0):
+    """Column traceback from (seg_qlen, w_end) emitting the full op tape;
+    the plain version of the column-walk kernel, on any device.
 
     moves packed int32 [N, S, W/16].  Returns (ops, qi, tj, n_cols):
       ops int8 [N, MAXC]: move codes in forward order, right-aligned (the
@@ -328,6 +353,28 @@ def traceback_ops(moves: torch.Tensor, seg_qlen: torch.Tensor,
         n = n + active.to(torch.int32)
         mv_s.append(mv.to(torch.int8))
     ops = torch.flip(torch.stack(mv_s, dim=1), dims=[1])
+    qi, tj = _tape_indices(ops)
+    return ops, qi, tj, n
+
+
+def traceback_ops(moves: torch.Tensor, seg_qlen: torch.Tensor,
+                  w_end: torch.Tensor, W: int, max_cols: int = 0):
+    """The column walk of :func:`traceback_ops_plain`; the kernel for CUDA
+    tensors.
+
+    CPU tensors take the plain version; CUDA tensors launch the
+    column-walk kernel (``csrc/cns_walk.cu`` through :mod:`.walk_kernel`),
+    which raises on what it does not take, and take qi, tj from its tape.
+    Returns (ops, qi, tj, n_cols).
+    """
+    if moves.device.type == "cpu":
+        return traceback_ops_plain(moves, seg_qlen, w_end, W, max_cols)
+    from .walk_kernel import traceback_ops_cuda
+
+    maxc = max_cols if max_cols else 2 * moves.shape[1] + W
+    ops, n = traceback_ops_cuda(moves.contiguous(),
+                                seg_qlen.to(torch.int32).contiguous(),
+                                w_end.to(torch.int32).contiguous(), W, maxc)
     qi, tj = _tape_indices(ops)
     return ops, qi, tj, n
 

@@ -21,8 +21,9 @@ deltas reverse, and runs with j == j_end anchor in the next local segment.
 Every tensor that the reference keeps in int32 is int32 here, so its shifts
 wrap the same way; ``torch.arange`` and Python scalars are never allowed to
 promote a plane to int64.  Computed slice starts go through
-:func:`..ops.align.dynamic_slice_start`.  The S-step scans are Python loops
-of small torch ops (launch-bound on a GPU).
+:func:`..ops.align.dynamic_slice_start`.  The S-step deposit scan runs as
+one kernel launch for CUDA tensors (``csrc/cns_walk.cu``) and as a Python
+loop of small torch ops, :func:`deposit_scan_plain`, for CPU tensors.
 """
 from __future__ import annotations
 
@@ -73,8 +74,9 @@ def run_deltas(mv: torch.Tensor, h: torch.Tensor, left: bool):
     return torch.where(isv, run_len - d_fwd + 1, 0)
 
 
-def _deposit_scan(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
-    """Sliding-band deposit: per-row tags -> per-segment local planes.
+def deposit_scan_plain(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
+    """Sliding-band deposit: per-row tags -> per-segment local planes; the
+    plain version of the deposit kernel, on any device.
 
     All row arrays are [N, S] (ascending rows).  Scans rows descending (the
     direction the band slides); at row r the accumulator column w holds
@@ -125,6 +127,21 @@ def _deposit_scan(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
     out = lambda f, ys: torch.cat(
         [f[:, half + 1:], torch.stack(ys[::-1], dim=1)], dim=1)
     return out(a0, y0), out(ap, yp), out(ac, yc)
+
+
+def _deposit_scan(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
+    """The deposit of :func:`deposit_scan_plain`; the kernel for CUDA
+    tensors.
+
+    CPU tensors take the plain version; CUDA tensors launch the deposit
+    kernel (``csrc/cns_walk.cu`` through :mod:`.walk_kernel`), which raises
+    on what it does not take.  Returns (val0, ipack, icnt).
+    """
+    if wo.device.type == "cpu":
+        return deposit_scan_plain(wo, aw, h, mv, vbase, delta, keep_ins, W)
+    from .walk_kernel import deposit_scan_cuda
+
+    return deposit_scan_cuda(wo, aw, h, mv, vbase, delta, keep_ins, W)
 
 
 def direction_rowinfo(rows, q: torch.Tensor, qseed: torch.Tensor, S: int,

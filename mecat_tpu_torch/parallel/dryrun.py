@@ -37,7 +37,7 @@ import torch.distributed as dist
 from .. import constants as C
 from ..index.kmer_index import build_index
 from ..io.packed_db import revcomp
-from ..ops import dp_kernel
+from ..ops import dp_kernel, walk_kernel
 from ..pipeline.cns import CnsOptions, CnsStats, device_volume
 from ..pipeline.pw import _bucket_k
 from ..utils.accuracy import edit_stats, identity_pct
@@ -207,12 +207,13 @@ def main(argv=None) -> int:
         t0 = time.time()
         found = dryrun_rank(device, args.toy)
         found["seconds"] = round(time.time() - t0, 3)
+        walks = walk_kernel.launches()
         mine = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES,
-                sharded.EXCHANGE_BYTES)
+                sharded.EXCHANGE_BYTES, *walks.values())
         found["launches_by_rank"] = all_gather_rows(torch.tensor(
             [mine], dtype=torch.int64, device=device)).tolist()
         for i, key in enumerate(("launches", "launches_moves",
-                                 "exchange_bytes")):
+                                 "exchange_bytes", *walks)):
             found[key] = global_sum(mine[i], device)
         if args.rank == 0:
             print("DRYRUN " + json.dumps(found), flush=True)

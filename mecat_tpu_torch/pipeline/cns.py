@@ -42,7 +42,7 @@ from .. import native
 from ..io.fasta import FastaRecord, format_fasta
 from ..io.m4 import m4_columns_plain, read_candidates
 from ..io.packed_db import PackedDB, revcomp
-from ..ops import dp_kernel
+from ..ops import dp_kernel, walk_kernel
 from ..ops.align import (dp_segment_best, dynamic_slice_start,
                          extend_pair_batch_rows, extend_pair_batch_with_ops)
 from ..ops.consensus import (CnsTable, VoteParams, columns_to_tags,
@@ -963,6 +963,7 @@ def run_cns(input_path: str, reads_path: str, out_path: str,
     device = torch.device(device)
     t0 = time.time()
     launches0 = dp_kernel.LAUNCHES_MOVES
+    walk0 = walk_kernel.launches()
     if db is None:
         db = PackedDB.from_fasta(reads_path)
     stats = CnsStats()
@@ -1015,6 +1016,8 @@ def run_cns(input_path: str, reads_path: str, out_path: str,
     met.set("dp_gcells_useful", round(stats.dp_lane_segs_useful * S * W / 1e9,
                                       3))
     met.set("dp_launches", dp_kernel.LAUNCHES_MOVES - launches0)
+    for name, n in walk_kernel.launches_since(walk0).items():
+        met.set(name, n)
     if device.type == "cuda":
         met.set("peak_device_gb",
                 round(torch.cuda.max_memory_allocated(device) / 1e9, 3))

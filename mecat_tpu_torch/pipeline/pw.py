@@ -40,7 +40,7 @@ from ..index.kmer_index import TorchKmerIndex, build_index
 from ..io.m4 import (M4Record, format_block, format_block_plain,
                      format_candidate_columns)
 from ..io.packed_db import PackedDB
-from ..ops import dp_kernel
+from ..ops import dp_kernel, walk_kernel
 from ..ops.align import extend_pair_batch
 from ..ops.ddf import merge_strand_candidates_device, scan_candidates
 from ..utils.log import get_logger
@@ -540,6 +540,7 @@ def run_pw(reads_path: str, out_path: str, wrk_dir: str,
     device = torch.device(device)
     os.makedirs(wrk_dir, exist_ok=True)
     launches0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES)
+    walk0 = walk_kernel.launches()
     t0 = time.time()
     if db is None:
         db = PackedDB.from_fasta(reads_path)
@@ -627,8 +628,10 @@ def run_pw(reads_path: str, out_path: str, wrk_dir: str,
     for ph in phases:
         met.set(f"{route}_{ph}", round(getattr(stats, ph), 3))
     # DP kernel launches of this run: 0 on CPU, > 0 when the DP ran on CUDA
-    # (pw runs the counts-only kernel alone)
+    # (pw runs the counts-only kernel alone, and none of the walks)
     met.set("dp_launches", dp_kernel.LAUNCHES - launches0[0])
     met.set("dp_launches_moves", dp_kernel.LAUNCHES_MOVES - launches0[1])
+    for name, n in walk_kernel.launches_since(walk0).items():
+        met.set(name, n)
     met.emit_summary()
     return stats

@@ -34,7 +34,7 @@ from ..index.kmer_index import TorchKmerIndex, build_index
 from ..io.m4 import M4Record
 from ..io.packed_db import PackedDB, revcomp
 from ..io.sam import cigar_from_ops, sam_header, sam_line, sam_unmapped
-from ..ops import dp_kernel
+from ..ops import dp_kernel, walk_kernel
 from ..ops.align import (dp_segment_best, extend_pair_batch,
                          extend_pair_batch_with_ops)
 from ..ops.consensus_device import ops_stream
@@ -409,6 +409,7 @@ def run_ref(reads_path: str, ref_path: str, out_path: str, wrk_dir: str,
             f"< 2^31-base groups of contigs and map against each.")
     stats = RefStats()
     launches0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES)
+    walk0 = walk_kernel.launches()
     met = Metrics("ref")
     t_ix = time.time()
     ref_codes = torch.as_tensor(ref_db.codes, device=device)
@@ -448,6 +449,8 @@ def run_ref(reads_path: str, ref_path: str, out_path: str, wrk_dir: str,
     met.set("reads_per_s", round(stats.reads / max(stats.seconds, 1e-9), 2))
     for ph in ("index_s", "prep_s", "scan_s", "count_s", "ops_s", "emit_s"):
         met.set(ph, round(getattr(stats, ph), 3))
+    for name, n in walk_kernel.launches_since(walk0).items():
+        met.set(name, n)
     met.set("dp_gcells_issued",
             round(stats.dp_lane_segs_issued * S * W / 1e9, 3))
     met.set("dp_gcells_useful",

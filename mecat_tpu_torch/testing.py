@@ -248,6 +248,54 @@ def dp_inputs_full(S: int, W: int, n: int, seed: int):
     return q, tpad, tmax, np.full(n, S, np.int32)
 
 
+def walk_inputs(S: int, W: int, n: int, seed: int):
+    """Random move words for the row and column walks: every 2-bit code,
+    negative words (the top slot), a third of the words all horizontal so
+    that walks run sideways and some break, and edge lanes: the first 16
+    take every pair of seg_qlen in {-1, 0, S, S + 3} and w_end in {-1, 0,
+    W - 1, W}; the rest start inside the band.
+
+    Returns numpy (moves int32 [n, S, W/16], seg_qlen, w_end int32 [n]).
+    """
+    rng = np.random.default_rng(seed)
+    moves = rng.integers(-(1 << 31), 1 << 31, (n, S, W // 16)).astype(
+        np.int32)
+    moves[rng.random(moves.shape) < 0.3] = -1         # 16 horizontal moves
+    seg_qlen = rng.integers(1, S + 1, n).astype(np.int32)
+    w_end = rng.integers(0, W, n).astype(np.int32)
+    edges = [(q, w) for q in (-1, 0, S, S + 3) for w in (-1, 0, W - 1, W)]
+    for k, (q, w) in enumerate(edges[:n]):
+        seg_qlen[k], w_end[k] = q, w
+    return moves, seg_qlen, w_end
+
+
+def deposit_inputs(S: int, W: int, n: int, seed: int, walk=None):
+    """Row arrays for the deposit scan.  From a row walk ``walk`` = (mv, h,
+    wo) numpy int32 [n, S] when given, as ``direction_rowinfo`` builds
+    them: the anchor at wo (right) or wo + 1 (left, so W after a move out
+    of the last column), deltas 0-20, keep_ins on most vertical rows.  Else
+    random: mv in [-1, 3], wo and aw in [-2, W + 1] (aw = W on every fifth
+    row), h up to W + 3 (so wo + h passes W), deltas 0-20, keep_ins false on
+    half the rows.  vbase lies in [0, 16), so vbase << 2(d-1) wraps in
+    int32.
+
+    Returns numpy (wo, aw, h, mv, vbase, delta int32 [n, S], keep_ins bool
+    [n, S]).
+    """
+    rng = np.random.default_rng(seed)
+    i32 = lambda lo, hi: rng.integers(lo, hi, (n, S)).astype(np.int32)
+    if walk is not None:
+        mv, h, wo = (np.asarray(a, np.int32) for a in walk)
+        aw = wo + rng.integers(0, 2, (n, 1)).astype(np.int32)
+        keep_ins = (mv == 2) & (rng.random((n, S)) < 0.8)
+    else:
+        mv, h = i32(-1, 4), i32(0, W + 4)
+        wo, aw = i32(-2, W + 2), i32(-2, W + 2)
+        aw[:, ::5] = W
+        keep_ins = rng.random((n, S)) < 0.5
+    return wo, aw, h, mv, i32(0, 16), i32(0, 21), keep_ins
+
+
 def pair_inputs(n, L, seed):
     """Query/target pairs around a shared source with seeds near the true
     diagonal, plus edge lanes: seed at 0 and at the end, empty query, a
@@ -524,7 +572,7 @@ def rank_main(argv=None) -> int:
 
     import torch.distributed as dist
 
-    from .ops import dp_kernel
+    from .ops import dp_kernel, walk_kernel
     from .parallel import sharded
     from .parallel.dist import init_distributed
 
@@ -548,12 +596,14 @@ def rank_main(argv=None) -> int:
         for task in args.tasks:
             l0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES,
                   sharded.EXCHANGE_BYTES)
+            walk0 = walk_kernel.launches()
             t0 = time.time()
             rec = _rank_task(task, args.rank, inputs, out_dir, device)
             rec.update(seconds=time.time() - t0,
                        launches=dp_kernel.LAUNCHES - l0[0],
                        launches_moves=dp_kernel.LAUNCHES_MOVES - l0[1],
-                       exchange_bytes=sharded.EXCHANGE_BYTES - l0[2])
+                       exchange_bytes=sharded.EXCHANGE_BYTES - l0[2],
+                       **walk_kernel.launches_since(walk0))
             with open(os.path.join(out_dir, f"{task}.r{args.rank}.json"),
                       "w") as fh:
                 json.dump(rec, fh)

@@ -16,11 +16,13 @@ torch = pytest.importorskip("torch")
 
 from mecat_tpu_torch.index.kmer_index import build_index
 from mecat_tpu_torch.io.packed_db import PackedDB
-from mecat_tpu_torch.ops import align, dp_kernel, roll_micro
+from mecat_tpu_torch.ops import (align, consensus_banded, dp_kernel,
+                                 roll_micro, walk_kernel)
 from mecat_tpu_torch.pipeline.device_step import overlap_step
 from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
-from mecat_tpu_torch.testing import (GOLDEN_J1, dp_inputs, dp_inputs_full,
-                                     roll_micro_inputs)
+from mecat_tpu_torch.testing import (GOLDEN_J1, deposit_inputs, dp_inputs,
+                                     dp_inputs_full, roll_micro_inputs,
+                                     walk_inputs)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 pytestmark = pytest.mark.cuda
@@ -417,3 +419,123 @@ def test_polish_on_cuda_matches_cpu_and_the_host_route(cuda, monkeypatch,
                                          device=cuda, cap=1),
             ctgcns._polish_contig_host(db, tig, backbone, opts, device=cuda)):
         np.testing.assert_array_equal(got, other)
+
+
+def _walk_case(cuda, S, W, source, n=1024):
+    """(moves, seg_qlen, w_end) on the card: the move-writing DP kernel's
+    words and endpoints on the dp_inputs lanes, or random words with the
+    edge lanes of testing.walk_inputs."""
+    if source == "dp":
+        args = [torch.as_tensor(a, device=cuda)
+                for a in dp_inputs(S, W, n, seed=S + W)]
+        moves, r_best, w_best = align.dp_segment_best(
+            *args, S, W, want_moves=True)[:3]
+        return moves, r_best, w_best
+    return [torch.as_tensor(a, device=cuda)
+            for a in walk_inputs(S, W, n, seed=S + 2 * W)]
+
+
+@pytest.mark.parametrize("source", ["dp", "random"])
+@pytest.mark.parametrize("S,W", [(128, 64), (512, 128)])
+def test_walk_kernels_match_plain(cuda, S, W, source):
+    """The row walk, the column walk (at the mapping path's MAXC and at the
+    unconditional 2S + W) and the deposit scan on the rows of the kernel's
+    own walk and on random rows: every output element of every lane."""
+    moves, seg_qlen, w_end = _walk_case(cuda, S, W, source)
+    before = walk_kernel.launches()
+    got = align.traceback_rows(moves, seg_qlen, w_end, W)
+    want = align.traceback_rows_plain(moves, seg_qlen, w_end, W)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[0] >= 0).any())
+    for maxc in (align.max_tape_cols(S, W, 0.65), 2 * S + W):
+        got_c = align.traceback_ops(moves, seg_qlen, w_end, W, maxc)
+        want_c = align.traceback_ops_plain(moves, seg_qlen, w_end, W, maxc)
+        torch.cuda.synchronize()
+        for g, w in zip(got_c, want_c):
+            assert torch.equal(g, w)
+        assert int(got_c[3].max()) > 0
+    walk = [a.cpu().numpy() for a in got[:3]]
+    for rows in (deposit_inputs(S, W, 1024, seed=S, walk=walk),
+                 deposit_inputs(S, W, 1024, seed=S + 1)):
+        args = [torch.as_tensor(a, device=cuda) for a in rows]
+        got_d = consensus_banded._deposit_scan(*args, W)
+        want_d = consensus_banded.deposit_scan_plain(*args, W)
+        torch.cuda.synchronize()
+        for g, w in zip(got_d, want_d):
+            assert torch.equal(g, w)
+    assert walk_kernel.launches_since(before) == {
+        "walk_launches_rows": 1, "walk_launches_deposit": 2,
+        "walk_launches_cols": 2}
+
+
+def test_walk_kernels_write_every_element_of_uninitialised_buffers(
+        cuda, monkeypatch):
+    """The wrappers allocate their outputs with torch.empty; here
+    torch.empty hands out buffers full of ones, and each kernel's outputs
+    must still equal the plain version's everywhere."""
+    S, W = 512, 128
+    moves, seg_qlen, w_end = _walk_case(cuda, S, W, "random", n=256)
+    rows = [torch.as_tensor(a, device=cuda)
+            for a in deposit_inputs(S, W, 256, seed=5)]
+    maxc = align.max_tape_cols(S, W, 0.65)
+    real_empty = torch.empty
+
+    def ones_empty(*size, **kw):
+        return real_empty(*size, **kw).fill_(1)
+
+    monkeypatch.setattr(torch, "empty", ones_empty)
+    got = (walk_kernel.traceback_rows_cuda(moves, seg_qlen, w_end, W),
+           walk_kernel.traceback_ops_cuda(moves, seg_qlen, w_end, W, maxc),
+           walk_kernel.deposit_scan_cuda(*rows, W))
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    ops_plain = align.traceback_ops_plain(moves, seg_qlen, w_end, W, maxc)
+    want = (align.traceback_rows_plain(moves, seg_qlen, w_end, W),
+            (ops_plain[0], ops_plain[3]),
+            consensus_banded.deposit_scan_plain(*rows, W))
+    for g_set, w_set in zip(got, want):
+        for g, w in zip(g_set, w_set):
+            assert torch.equal(g, w)
+
+
+def test_walk_kernels_reject_what_they_do_not_take(cuda):
+    S, W = 128, 64
+    moves, seg_qlen, w_end = _walk_case(cuda, S, W, "random", n=64)
+    rows = [torch.as_tensor(a, device=cuda)
+            for a in deposit_inputs(S, W, 64, seed=3)]
+    rows_fn = walk_kernel.traceback_rows_cuda
+    cols_fn = walk_kernel.traceback_ops_cuda
+    dep_fn = walk_kernel.deposit_scan_cuda
+    with pytest.raises(TypeError):                  # dtype
+        rows_fn(moves, seg_qlen.long(), w_end, W)
+    with pytest.raises(TypeError):
+        cols_fn(moves.to(torch.int16), seg_qlen, w_end, W, 192)
+    with pytest.raises(TypeError):
+        dep_fn(*rows[:6], rows[6].to(torch.int32), W)
+    with pytest.raises(ValueError):                 # shape
+        rows_fn(moves, seg_qlen, w_end, 2 * W)
+    with pytest.raises(ValueError):
+        cols_fn(moves, seg_qlen[:-1], w_end, W, 192)
+    with pytest.raises(ValueError):
+        dep_fn(rows[0][:, :-1], *rows[1:], W)
+    with pytest.raises(ValueError):                 # a W the kernel refuses
+        rows_fn(moves.new_zeros(64, S, 3), seg_qlen, w_end, 48)
+    with pytest.raises(ValueError):                 # device
+        rows_fn(moves, seg_qlen.cpu(), w_end, W)
+    with pytest.raises(ValueError):
+        cols_fn(moves.cpu(), seg_qlen, w_end, W, 192)
+    with pytest.raises(ValueError):
+        dep_fn(*rows[:5], rows[5].cpu(), rows[6], W)
+    with pytest.raises(ValueError):                 # not contiguous
+        rows_fn(moves.transpose(0, 1).contiguous().transpose(0, 1),
+                seg_qlen, w_end, W)
+    with pytest.raises(ValueError):
+        cols_fn(moves, seg_qlen, torch.stack([w_end, w_end], 1)[:, 0], W,
+                192)
+    with pytest.raises(ValueError):
+        dep_fn(rows[0], rows[1].t().contiguous().t(), *rows[2:], W)
+    with pytest.raises(ValueError):                 # misaligned moves
+        rows_fn(moves.reshape(-1)[1:1 + moves.numel() - moves[0].numel()]
+                .view(63, S, W // 16), seg_qlen[:63], w_end[:63], W)

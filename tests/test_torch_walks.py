@@ -1,0 +1,144 @@
+"""The device scans of correction and mapping on the CPU: the plain
+versions of the three walk kernels against the JAX package, exact.
+
+``traceback_rows_plain`` and ``traceback_ops_plain`` are held against
+``mecat_tpu.ops.align.traceback_rows`` / ``traceback_ops`` on random move
+words (every code, negative words, walks that break) with lanes whose
+seg_qlen is -1, 0, S or S + 3 and whose w_end is -1, 0, W - 1 or W;
+``deposit_scan_plain`` against ``mecat_tpu.ops.consensus_banded.
+_deposit_scan`` on the rows of real walks and on random rows.  The public
+names take the plain versions for CPU tensors without touching
+``ops/walk_kernel``.  The kernels themselves are held against these plain
+versions in tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny tensors: one thread is as fast, and several test workers share the cores
+torch.set_num_threads(1)
+jnp = pytest.importorskip("jax.numpy")
+
+from mecat_tpu.ops import align as ref_align
+from mecat_tpu.ops import consensus_banded as ref_cb
+from mecat_tpu_torch.ops import align, walk_kernel
+from mecat_tpu_torch.ops import consensus_banded as cb
+from mecat_tpu_torch.testing import deposit_inputs, walk_inputs
+
+SHAPES = [(24, 32), (40, 64), (32, 128)]
+
+
+def _t(*arrays):
+    return [torch.as_tensor(np.asarray(a)) for a in arrays]
+
+
+def _ref_moves(moves):
+    return jnp.asarray(moves.transpose(1, 2, 0))     # [S, W/16, N] there
+
+
+def _assert_equal(got, want, names):
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+@pytest.mark.parametrize("S,W", SHAPES)
+def test_traceback_rows_plain_matches_jax_on_random_words(S, W):
+    moves, seg_qlen, w_end = walk_inputs(S, W, 48, seed=S + W)
+    want = ref_align.traceback_rows(_ref_moves(moves), jnp.asarray(seg_qlen),
+                                    jnp.asarray(w_end), W)
+    got = align.traceback_rows_plain(*_t(moves, seg_qlen, w_end), W)
+    _assert_equal(got, want, ("mv", "h", "w_out", "w0"))
+    mv = got[0].numpy()
+    # the edge lanes: nothing visited at seg_qlen -1 or 0, row S at S, S + 3
+    assert (mv[:8] == -1).all() and (mv[8:16, -1] >= 0).any()
+    # some walk broke below its start, some left a row vertically
+    visited = mv >= 0
+    assert (visited[:, 1:] & ~visited[:, :-1]).any()
+    assert (mv == align.MOVE_VERT).any()
+
+
+@pytest.mark.parametrize("S,W", SHAPES)
+@pytest.mark.parametrize("max_cols", [0, 64, 30])
+def test_traceback_ops_plain_matches_jax_on_random_words(S, W, max_cols):
+    moves, seg_qlen, w_end = walk_inputs(S, W, 48, seed=2 * S + W)
+    want = ref_align.traceback_ops(_ref_moves(moves), jnp.asarray(seg_qlen),
+                                   jnp.asarray(w_end), W, max_cols=max_cols)
+    got = align.traceback_ops_plain(*_t(moves, seg_qlen, w_end), W,
+                                    max_cols=max_cols)
+    _assert_equal(got, want, ("ops", "qi", "tj", "n_cols"))
+    n_cols = got[3].numpy()
+    maxc = max_cols or 2 * S + W
+    assert got[0].shape == (48, maxc)
+    assert n_cols[0] == 0 and (n_cols == maxc).any() and (n_cols < maxc).any()
+
+
+@pytest.mark.parametrize("S,W", [(40, 64), (32, 128)])
+@pytest.mark.parametrize("rows_from", ["walk", "random"])
+def test_deposit_scan_plain_matches_jax(S, W, rows_from):
+    walk = None
+    if rows_from == "walk":
+        moves, seg_qlen, w_end = walk_inputs(S, W, 40, seed=3 * S + W)
+        walk = [a.numpy() for a in align.traceback_rows_plain(
+            *_t(moves, seg_qlen, w_end), W)[:3]]
+    args = deposit_inputs(S, W, 40, seed=S + 7 * W, walk=walk)
+    want = ref_cb._deposit_scan(*(jnp.asarray(a) for a in args), W)
+    got = cb.deposit_scan_plain(*_t(*args), W)
+    assert got[0].shape == (40, S + W // 2 - 1)
+    _assert_equal(got, want, ("val0", "ipack", "icnt"))
+    val0, ipack, icnt = (g.numpy() for g in got)
+    assert (val0 == cb.GAP).any() and (val0 >= 0).any() and (val0 == -1).any()
+    assert icnt.max() > cb.MAXD                # a run too long to pack
+    if rows_from == "random":
+        assert (ipack < 0).any()               # vbase << 28 wrapped
+        wo, aw, h, mv = args[:4]
+        assert ((wo + h >= W) & (mv >= 0)).any() and (aw == W).any()
+
+
+SCANS = {
+    "traceback_rows": lambda a: align.traceback_rows(
+        *_t(*walk_inputs(24, 64, 20, seed=1)), 64),
+    "traceback_ops": lambda a: align.traceback_ops(
+        *_t(*walk_inputs(24, 64, 20, seed=1)), 64, max_cols=64),
+    "_deposit_scan": lambda a: cb._deposit_scan(
+        *_t(*deposit_inputs(24, 64, 20, seed=1)), 64),
+}
+PLAIN = {
+    "traceback_rows": lambda a: align.traceback_rows_plain(
+        *_t(*walk_inputs(24, 64, 20, seed=1)), 64),
+    "traceback_ops": lambda a: align.traceback_ops_plain(
+        *_t(*walk_inputs(24, 64, 20, seed=1)), 64, max_cols=64),
+    "_deposit_scan": lambda a: cb.deposit_scan_plain(
+        *_t(*deposit_inputs(24, 64, 20, seed=1)), 64),
+}
+
+
+@pytest.mark.parametrize("name", list(SCANS))
+def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
+    """The public name on CPU tensors: the plain version's result, no
+    kernel wrapper called, no counter moved."""
+    def refuse(*a, **kw):
+        raise AssertionError("a walk kernel was reached from CPU tensors")
+
+    for fn in ("_load", "traceback_rows_cuda", "deposit_scan_cuda",
+               "traceback_ops_cuda"):
+        monkeypatch.setattr(walk_kernel, fn, refuse)
+    before = walk_kernel.launches()
+    got = SCANS[name](None)
+    assert walk_kernel.launches() == before
+    for g, w in zip(got, PLAIN[name](None)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["rows", "ops", "deposit"])
+def test_kernel_wrappers_refuse_cpu_tensors(name):
+    moves, seg_qlen, w_end = _t(*walk_inputs(24, 64, 20, seed=1))
+    with pytest.raises(ValueError, match="CUDA"):
+        if name == "rows":
+            walk_kernel.traceback_rows_cuda(moves, seg_qlen, w_end, 64)
+        elif name == "ops":
+            walk_kernel.traceback_ops_cuda(moves, seg_qlen, w_end, 64, 64)
+        else:
+            walk_kernel.deposit_scan_cuda(
+                *_t(*deposit_inputs(24, 64, 20, seed=1)), 64)
