@@ -15,7 +15,16 @@ non-zero exit and no result line:
    lanes included).  Counts-only kernel: r, w, j, d, ind equal on every
    lane.  Move-writing kernel: the same, the packed move words equal on
    every row up to the lane's best row, and the row tracebacks of the two
-   move matrices equal on every lane.  Then both DP wrappers alone
+   move matrices equal on every lane.  The segment-loop kernel (the
+   counts-only segment loop of ``ops/align._extend_direction_impl``, one
+   launch for every lane's whole extension) against the plain host loop at
+   both shapes, 4096 direction lanes of ``testing.extend_inputs`` pairs
+   (8,192-base rows, 12 % noise, edge lanes) and of the ``dp_inputs`` lanes
+   as pairs, at 30 segments and at 1: all six outputs equal on every lane,
+   one launch a call and none of the per-segment kernel; at (512, 128) the
+   wrapper alone, ms of one launch from the host and from a CUDA graph, the
+   plain loop's ms, the bound on this data and ns a dependent step of the
+   longest lane's chain of segments.  Then both DP wrappers alone
    (``ops/dp_kernel``, nothing around them) at the shapes the paths
    launch: (512, 128), full-length segments, 64 / 256 / 1,024 / 4,096 live
    lanes scattered over 4,096 and 64 of 128, every lane held against the
@@ -47,8 +56,8 @@ non-zero exit and no result line:
    one pass under ``torch.profiler`` and prints the device-time breakdown;
 5. the CLI ``python -m mecat_tpu_torch.cli.mecat2pw -j 1`` on the bench
    reads as a subprocess: exit 0, record count, wall seconds, and its own
-   metrics summary (phase split, useful DP Gcells/s, DP kernel launches,
-   which must be > 0);
+   metrics summary (phase split, useful DP Gcells/s, segment-loop kernel
+   launches, which must be > 0);
 6. correction at full width: supports from the first 4 bench batches'
    ``overlap_step`` output (forward strand, self hits dropped), the up to
    128 templates with >= 5 supports, pacbio preset with ``min_length`` 2000
@@ -106,8 +115,9 @@ non-zero exit and no result line:
    the reads of ``tests/test_dist.py`` and on ``tests/golden/reads.fasta``
    at ``-j 1``; (b) the CLI ``mecat2pw -j 1 -n 16 -a 1000 --route fused
    --device cuda`` on the bench reads beside phase 5's staged run: wall and
-   ``run_pw`` seconds, records, launches (counts kernel > 0, move kernel
-   0), issued and useful Gcells, the route's phase split; (c) one rank on
+   ``run_pw`` seconds, records, launches (segment-loop kernel > 0, move
+   kernel 0), issued and useful Gcells, the route's phase split; (c) one
+   rank on
    NCCL in this process (``init_distributed`` with a ``file://`` store):
    ``run_pw_dist`` on the bench reads gives 13b's records, ``run_cns_dist``
    with one and two rounds on the 28-read pile of ``testing.cns_pile``
@@ -150,15 +160,18 @@ card of its own, ``gloo`` on the CPU or where ranks share a card.
 Each kernel's launch counter is zeroed just before the timed run of its
 path (phase 4's steady passes, phase 6's timed pass, the tool's run in
 phase 2, the CUDA SAM run of phase 8, phase 10's timed pass, phase 13c)
-and read just after, so the reported launches are those of the main paths
-only; the CLIs of phases 7, 9, 11, 12 and 13b, the ranks of 13d and the
+and read just after (the DP counters all together), so the reported
+launches are those of the main paths only; the CLIs of phases 7, 9, 11, 12
+and 13b, the ranks of 13d and the
 bench and scaling processes of phase 14 are processes of their own and
 report their own counts (the dry run's and the scaling report's summed
 over their ranks; the bench's of its timed overlap window and its steady
 cns pass).  The row walk and the deposit scan must launch on every
 correction path (phases 6, 7, 10, 11, 12, 13c, 13d, 14c), the column walk
-on both mapping runs (8, 9).  The line before the last is a JSON object with the kernels'
-numbers; the last line is
+on both mapping runs (8, 9); every counts path (phases 4, 5, 8, 9, 11, 12,
+13b-13d, 14c, 14d) must launch the segment-loop kernel and never the
+per-segment counts kernel, whose body runs inside it.  The line before the
+last is a JSON object with the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
 without the repository beside it.
 """
@@ -181,6 +194,9 @@ KERNEL_REPLACES = "mecat_tpu/ops/pallas_dp.py:56"          # _dp_kernel
 KERNEL_REPLACES_MOVES = "mecat_tpu/ops/pallas_dp.py:115"   # its move stream
 ROLL_SOURCE = "mecat_tpu_torch/csrc/roll_micro.cu"
 ROLL_REPLACES = "tools/roll_micro.py:155"                  # build_call
+#: the reference's counts-only segment loop (while_loop; body seg_step
+#: at :468) that the segment-loop kernel of KERNEL_SOURCE replaces
+EXTEND_REPLACES = "mecat_tpu/ops/align.py:531"
 WALK_SOURCE = "mecat_tpu_torch/csrc/cns_walk.cu"
 #: each walk kernel -> the reference's scan it replaces
 WALK_REPLACES = {
@@ -247,6 +263,25 @@ def need_walks(where: str, counts: dict,
         raise AssertionError(f"{where} did not go through the walk kernels "
                              f"{missing}: {walks}")
     return walks
+
+
+def zero_dp_counts() -> None:
+    """Set the three DP kernels' launch counters to 0."""
+    from mecat_tpu_torch.ops import dp_kernel
+
+    dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+    dp_kernel.LAUNCHES_EXTEND = 0
+
+
+def need_loop(where: str, extend: int, per_segment: int) -> None:
+    """Raises unless a counts path ran its DP through the segment-loop
+    kernel (``extend`` launches > 0) and never through the per-segment
+    counts kernel."""
+    if extend <= 0 or per_segment != 0:
+        raise AssertionError(
+            f"{where} did not run its counts DP through the segment-loop "
+            f"kernel alone: {extend} loop-kernel launches, {per_segment} "
+            f"per-segment counts-kernel launches")
 
 
 def card_line() -> str:
@@ -452,6 +487,138 @@ def phase_kernel_path_shapes(S: int, W: int) -> dict:
             out[with_moves][f"{live} of {lanes}"] = dict(
                 ms=ms, ns_row=1e6 * ms / rows, one_launch_ms=one_ms, **bound)
     return out
+
+
+def extend_cases(S: int, W: int):
+    """The pairs the segment-loop kernel is held on: DP_LANES / 2 pairs of
+    ``testing.extend_inputs`` (rows of 8,192 bases at 12 % noise as the
+    bench's, with its edge lanes), and the ``dp_inputs`` lanes as pairs
+    seeded at 0 (the query row up to seg_q, the framed window's target up to
+    tmax, so lanes with nothing to extend among them)."""
+    import torch
+
+    from mecat_tpu_torch.testing import dp_inputs, extend_inputs
+
+    dev = torch.device("cuda")
+    n = DP_LANES // 2
+    q, tpad, tmax, seg_q, _ = dp_inputs(S, W, n, seed=181 + S + W)
+    zeros = np.zeros(n, np.int32)
+    return [("extend_inputs pairs",
+             [torch.as_tensor(a, device=dev)
+              for a in extend_inputs(n, L, S, seed=191 + S + W)]),
+            ("the dp_inputs lanes as pairs",
+             [torch.as_tensor(a, device=dev)
+              for a in (q, np.ascontiguousarray(tpad[:, W // 2:]), seg_q,
+                        tmax, zeros, zeros)])]
+
+
+def extend_bound(lanes, S: int, W: int, max_segs: int):
+    """The plain loop on these direction lanes, timed between two events,
+    and the work it did: (result, its ms, bound numbers, dependent steps of
+    the longest lane, lane-segments run).  A lane-segment computes rows 1..min(seg_q, S, tmax + W/2) (one more row
+    finds the band gone, as in ``dp_bound``) of W cells at the
+    source's 12 operations a cell; it reads its S + S + W window bytes, and
+    each lane its four int32 inputs and six outputs once.  The longest
+    lane's chain: 2 rows + W steps a segment, over its segments."""
+    import torch
+
+    from mecat_tpu_torch import constants as C
+    from mecat_tpu_torch.ops import align
+
+    rows_of = []
+
+    def recording(q_seg, tpad, tmax, seg_q, active, S, W, **kw):
+        rows = torch.minimum(seg_q.clamp(0, S),
+                             (tmax + W // 2 + 1).clamp(min=1))
+        rows_of.append(torch.where(active, rows, 0).long())
+        return align.dp_segment_best_plain(q_seg, tpad, tmax, seg_q, active,
+                                           S, W, **kw)
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res, _ = align._extend_direction_impl(
+        *lanes, S=S, W=W, max_segs=max_segs,
+        min_seg_identity=C.MIN_SEGMENT_IDENTITY, dp=recording)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    rows = torch.stack(rows_of) if rows_of else torch.zeros(
+        (0, lanes[0].shape[0]), dtype=torch.long, device=lanes[0].device)
+    n_rows = int(rows.sum())
+    lane_segs = int((rows > 0).sum())
+    chain = int(torch.where(rows > 0, 2 * rows + W, 0).sum(0).max()) \
+        if rows.numel() else 0
+    bound = card_bound(lane_segs * (S + S + W) + lanes[0].shape[0] * 40,
+                       n_rows * W * OPS_PER_CELL[False])
+    return res, plain_ms, bound, chain, lane_segs
+
+
+def phase_extend(S: int, W: int, time_it: bool) -> dict:
+    """The segment-loop kernel against the plain loop at one shape, on
+    every lane of both cases of ``extend_cases``, at the bench's 30
+    segments and at 1: the six outputs equal, one launch a call and no
+    per-segment launch.  With ``time_it``, on the first case at 30 segments
+    the plain loop is timed (one run, the one the kernel is held against)
+    and the wrapper alone: ms of one launch from the host and replayed from
+    a CUDA graph, the bound, and ns a dependent step of the longest lane.
+    Returns those numbers."""
+    import torch
+
+    from mecat_tpu_torch import constants as C
+    from mecat_tpu_torch.ops import align, dp_kernel
+
+    err = 0
+    timed = None
+    for what, pairs in extend_cases(S, W):
+        lanes = [x.contiguous() for x in align.direction_lanes(*pairs, S, W)]
+        for max_segs in (CFG["max_segs"], 1):
+            kw = dict(S=S, W=W, max_segs=max_segs,
+                      min_seg_identity=C.MIN_SEGMENT_IDENTITY)
+            before = dp_kernel.launches()
+            got, _ = align._extend_direction_impl(*lanes, **kw)
+            launched = dp_kernel.launches_since(before)
+            if time_it and timed is None:
+                want, plain_ms, b, chain, lane_segs = extend_bound(
+                    lanes, S, W, max_segs)
+                timed = (lanes, max_segs)
+            else:
+                want, _ = align._extend_direction_impl(
+                    *lanes, **kw, dp=align.dp_segment_best_plain)
+            torch.cuda.synchronize()
+            if launched != {"dp_launches": 0, "dp_launches_moves": 0,
+                            "dp_launches_extend": 1}:
+                raise AssertionError(f"the counts loop on cuda launched "
+                                     f"{launched}")
+            for name, g, w in zip(align.ExtensionResult._fields, got, want):
+                err = max(err, int((g.long() - w.long()).abs().max()))
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"segment-loop kernel != plain at S={S} W={W}, "
+                        f"max_segs {max_segs}, {what}: {name} differs on "
+                        f"{int((g != w).sum())} of {g.numel()} lanes")
+            say(f"phase 2: segment-loop kernel == plain at S={S} W={W}, "
+                f"{lanes[0].shape[0]} lanes of {what}, max_segs {max_segs}: "
+                f"all six outputs equal on every lane "
+                f"({int(want.n_segs.sum())} lane-segments, the longest lane "
+                f"{int(want.n_segs.max())})")
+    if not time_it:
+        return dict(max_abs_err=err)
+    lanes, max_segs = timed
+    kw = dict(S=S, W=W, max_segs=max_segs,
+              min_seg_identity=C.MIN_SEGMENT_IDENTITY)
+    fn = lambda: dp_kernel.extend_counts_cuda(*lanes, **kw)
+    ms = cuda_median_ms(fn, 21)
+    graph_ms = cuda_graph_ms(fn, launches=5, reps=5)
+    say(f"phase 2: segment-loop kernel alone at S={S} W={W}, "
+        f"{lanes[0].shape[0]} lanes, max_segs {max_segs}: one launch from "
+        f"the host {ms:.4f} ms, replayed from a CUDA graph {graph_ms:.4f} ms "
+        f"({1e6 * graph_ms / max(chain, 1):.1f} ns a step of the longest "
+        f"lane's {chain}); plain loop {plain_ms:.2f} ms; {lane_segs} "
+        f"lane-segments; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return dict(max_abs_err=err, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                chain_steps=chain, ns_step=1e6 * graph_ms / max(chain, 1),
+                lane_segments=lane_segs, **b)
 
 
 def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
@@ -781,9 +948,11 @@ def phase_bench(db, passes: int, profile_path: str | None) -> dict:
     torch.cuda.synchronize()
     first_s = time.time() - t0
 
-    dp_kernel.LAUNCHES = 0               # the main path's run starts here
+    zero_dp_counts()                     # the main path's run starts here
     runs = [steady_pass(batches, table, overlap_step) for _ in range(passes)]
-    launches = dp_kernel.LAUNCHES        # ... and ends here
+    launches = dp_kernel.launches()      # ... and ends here
+    need_loop("the bench passes", launches["dp_launches_extend"],
+              launches["dp_launches"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if len({r[1:] for r in runs}) != 1:
         raise AssertionError(f"passes disagree: {runs}")
@@ -802,7 +971,9 @@ def phase_bench(db, passes: int, profile_path: str | None) -> dict:
         f"{q1:.4f} / {med:.4f} / {q3:.4f}, range {secs.min():.4f}-"
         f"{secs.max():.4f}; all: {' '.join(f'{x:.4f}' for x in secs)}")
     say(f"phase 4: per pass {overlaps} overlaps, {useful_segs} useful "
-        f"lane-segments, {launches // passes} DP launches; median pass "
+        f"lane-segments, {launches['dp_launches_extend'] // passes} "
+        f"segment-loop kernel launches (per-segment counts kernel "
+        f"{launches['dp_launches'] // passes}); median pass "
         f"{overlaps / med:.1f} overlaps/s (range {overlaps / secs.max():.1f}-"
         f"{overlaps / secs.min():.1f}), {cells_issued / med / 1e9:.2f} "
         f"Gcells/s issued, {cells_useful / med / 1e9:.2f} Gcells/s useful")
@@ -816,8 +987,9 @@ def phase_bench(db, passes: int, profile_path: str | None) -> dict:
                                  f"between kernel and plain version")
     if not bool(torch.isfinite(out0.identity).all()):
         raise AssertionError("non-finite identity in overlap_step output")
-    say("phase 4: batch 0 OverlapStepOut equal to the plain-version "
-        "overlap_step on the card (every field)")
+    say("phase 4: batch 0 OverlapStepOut of the segment-loop kernel equal "
+        "to the plain-version overlap_step (host loop, plain DP) on the card "
+        "(every field)")
     return dict(launches=launches, per_batch=per_batch,
                 supports=bench_supports(batches[:4], table, overlap_step))
 
@@ -1062,13 +1234,13 @@ def phase_cli(reads: str, n_reads: int, work: str) -> dict:
     keys = ("seconds", "index_build_seconds", "volume_pair_seconds",
             "staged_prep_s", "staged_scan_s", "staged_pull_s",
             "staged_extend_s", "candidates", "overlaps", "dp_gcells_per_s",
-            "dp_gcells_per_s_useful", "dp_launches")
+            "dp_gcells_per_s_useful", "dp_launches", "dp_launches_extend")
     say("phase 5: CLI summary " + json.dumps(
         {k: summary[k] for k in keys if k in summary}))
     if n_rec <= 0:
         raise AssertionError("CLI wrote no overlaps")
-    if summary.get("dp_launches", 0) <= 0:
-        raise AssertionError("the CLI's DP did not go through the kernel")
+    need_loop("the pw CLI", summary.get("dp_launches_extend", 0),
+              summary.get("dp_launches", 0))
     return dict(records=n_rec, wall=wall, summary=summary)
 
 
@@ -1135,7 +1307,7 @@ def phase_ref_small(work: str) -> dict:
         for dev in ("cuda", "cpu"):
             out = os.path.join(work, f"small_{dev}.{fmt}")
             if (fmt, dev) == ("sam", "cuda"):
-                dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+                zero_dp_counts()
                 zero_walk_counts()
             t0 = time.time()
             stats = run_ref(reads, ref, out,
@@ -1146,6 +1318,7 @@ def phase_ref_small(work: str) -> dict:
             if (fmt, dev) == ("sam", "cuda"):
                 launches = dict(counts=dp_kernel.LAUNCHES,
                                 moves=dp_kernel.LAUNCHES_MOVES,
+                                extend=dp_kernel.LAUNCHES_EXTEND,
                                 walks=need_walks("the CUDA SAM run",
                                                  walk_kernel.launches(),
                                                  ("cols",)))
@@ -1165,7 +1338,8 @@ def phase_ref_small(work: str) -> dict:
                     if ln.startswith("junk\t")]
             if junk != ["4"]:
                 raise AssertionError(f"the junk read's FLAGs: {junk}")
-    if min(launches["counts"], launches["moves"]) <= 0:
+    need_loop("the CUDA SAM run", launches["extend"], launches["counts"])
+    if launches["moves"] <= 0:
         raise AssertionError(f"the CUDA SAM run launched {launches}")
     say(f"phase 8: SAM and M4 output byte-equal between cuda and cpu, junk "
         f"read FLAG 4, DP launches on the CUDA SAM run: {launches}")
@@ -1293,10 +1467,11 @@ def phase_ref_genome(work: str, profile_path: str | None) -> dict:
     if pos_agree < 0.95 or mapped != summary.get("mapped"):
         raise AssertionError(f"pos_agree {pos_agree:.4f} ({agree}/{mapped}); "
                              f"the summary says {summary.get('mapped')}")
-    if min(summary.get("dp_launches", 0),
-           summary.get("dp_launches_moves", 0)) <= 0:
-        raise AssertionError("the mapping CLI's DP did not go through both "
-                             "kernels")
+    need_loop("the mapping CLI", summary.get("dp_launches_extend", 0),
+              summary.get("dp_launches", 0))
+    if summary.get("dp_launches_moves", 0) <= 0:
+        raise AssertionError("the mapping CLI's phase B did not go through "
+                             "the move-writing kernel")
     need_walks("the mapping CLI", summary, ("cols",))
     if profile_path:
         profile_ref(reads, ref, work, profile_path)
@@ -1367,19 +1542,21 @@ def phase_rounds(db, by_template: dict, cns: dict) -> dict:
     _, _, warm_s = one_pass()
     torch.cuda.reset_peak_memory_stats()
     # the main path's run starts here ...
-    dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+    zero_dp_counts()
     zero_walk_counts()
     out, stats, dt = one_pass()
     # ... and ends here
     launches_counts, launches = dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES
+    launches_extend = dp_kernel.LAUNCHES_EXTEND
     walks = need_walks("two correction rounds", walk_kernel.launches())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     r1 = cns["round1"]
     s1 = r1["stats"]
-    if launches_counts != 0:
+    if launches_counts or launches_extend:
         raise AssertionError(f"the correction rounds launched the counts-only "
-                             f"kernel {launches_counts} times; they align "
-                             f"through the move-writing kernel alone")
+                             f"kernels {launches_counts} / {launches_extend} "
+                             f"times; they align through the move-writing "
+                             f"kernel alone")
     if launches <= cns["launches"]:
         raise AssertionError(f"two rounds launched {launches} move kernels, "
                              f"one round {cns['launches']}")
@@ -1410,8 +1587,8 @@ def phase_rounds(db, by_template: dict, cns: dict) -> dict:
         f"{s1.dp_lane_segs_issued}, useful {s1.dp_lane_segs_useful}, peak "
         f"{r1['peak_gb']:.3f} GB; two rounds take "
         f"{dt / r1['seconds']:.2f}x the seconds")
-    return dict(launches=dict(counts=launches_counts, moves=launches),
-                walks=walks)
+    return dict(launches=dict(counts=launches_counts, moves=launches,
+                              extend=launches_extend), walks=walks)
 
 
 def fasta_counts(path: str):
@@ -1476,10 +1653,18 @@ def phase_pipeline(reads: str, n_reads: int, n_bases: int, work: str) -> dict:
     if trimmed[0] <= 0:
         raise AssertionError("the pipeline trimmed every read away")
     launches = dict(counts=sum(r.get("dp_launches", 0) for r in pws),
+                    extend=sum(r.get("dp_launches_extend", 0) for r in pws),
                     moves=cns[0].get("dp_launches", 0))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a pipeline stage's DP did not go through its "
-                             f"kernel: {launches}")
+    # pw-candidates (-j 0) extends nothing; asm-overlaps (-j 1) does
+    if pws[0].get("dp_launches_extend", 0) or pws[0].get("dp_launches", 0):
+        raise AssertionError(f"the pipeline's pw-candidates stage launched a "
+                             f"counts kernel: {summary_fields(pws[0])}")
+    need_loop("the pipeline's asm-overlaps stage",
+              pws[1].get("dp_launches_extend", 0),
+              pws[1].get("dp_launches", 0))
+    if launches["moves"] <= 0:
+        raise AssertionError(f"the pipeline's cns stage did not go through "
+                             f"the move-writing kernel: {launches}")
     walks = need_walks("the pipeline's cns stage", cns[0])
 
     stamps = [os.stat(p).st_mtime_ns for p in paths]
@@ -1591,8 +1776,9 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
         f"{canu.get('polish_alignments')} (read, tile) alignments, "
         f"{canu.get('polish_contigs_device')} contigs in device tiles, "
         f"{canu.get('polish_contigs_host')} through the host route; launches "
-        f"{canu.get('dp_launches')} counts / {canu.get('dp_launches_moves')} "
-        f"moves, walk launches {walks}; "
+        f"{canu.get('dp_launches_extend')} segment-loop / "
+        f"{canu.get('dp_launches')} per-segment counts / "
+        f"{canu.get('dp_launches_moves')} moves, walk launches {walks}; "
         f"peak device memory {canu.get('peak_device_gb')} GB; "
         f"{100 * share:.2f} % of the longest contig's 21-mers occur "
         f"in the simulated genome")
@@ -1600,9 +1786,11 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
                  "bench.trimmedReads.fasta", "bench.asm.m4"):
         if not os.path.exists(os.path.join(wrk, name)):
             raise AssertionError(f"assembler artifact {name} is missing")
-    if min(canu.get("dp_launches", 0), canu.get("dp_launches_moves", 0)) <= 0:
-        raise AssertionError("the assembler's DP did not go through both "
-                             "kernels")
+    need_loop("the assembler", canu.get("dp_launches_extend", 0),
+              canu.get("dp_launches", 0))
+    if canu.get("dp_launches_moves", 0) <= 0:
+        raise AssertionError("the assembler's polish did not go through the "
+                             "move-writing kernel")
     if canu.get("polish_tiles", 0) <= 0:
         raise AssertionError("no contig was polished in device tiles")
     if share < 0.9:
@@ -1616,6 +1804,7 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
     wall2, again = run_cli_summaries("mecat2canu", argv)
     if (len(again) != 1 or again[0].get("stages_run") != 0
             or again[0].get("dp_launches_moves") != 0
+            or again[0].get("dp_launches_extend") != 0
             or again[0].get("n50") != canu.get("n50")):
         raise AssertionError(f"the second assembler call re-ran something: "
                              f"{again}")
@@ -1624,8 +1813,9 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
     if profile:
         profile_polish(wrk)
     return dict(launches=dict(counts=canu["dp_launches"],
-                              moves=canu["dp_launches_moves"]), walks=walks,
-                wall=wall)
+                              moves=canu["dp_launches_moves"],
+                              extend=canu["dp_launches_extend"]),
+                walks=walks, wall=wall)
 
 
 def profile_polish(wrk: str) -> None:
@@ -1741,14 +1931,16 @@ def phase_fused_cli(reads: str, n_reads: int, work: str,
     n_rec = count_lines(out)
     keys = ("seconds", "index_build_seconds", "fused_prep_s", "fused_scan_s",
             "fused_extend_s", "candidates", "overlaps", "dp_gcells_issued",
-            "dp_gcells_useful", "dp_launches", "dp_launches_moves")
+            "dp_gcells_useful", "dp_launches", "dp_launches_moves",
+            "dp_launches_extend")
     say(f"phase 13: CLI mecat2pw -j 1 -n 16 -a 1000 --route fused on "
         f"{n_reads} reads: exit 0, {n_rec} M4 records, wall {wall:.2f} s, "
         f"run_pw {summary.get('seconds', 0.0):.2f} s; the staged route "
         f"(phase 5): {staged['records']} records, wall "
         f"{staged['wall']:.2f} s, run_pw "
         f"{staged['summary'].get('seconds', 0.0):.2f} s, "
-        f"{staged['summary'].get('dp_launches')} launches, Gcells issued "
+        f"{staged['summary'].get('dp_launches_extend')} segment-loop "
+        f"launches, Gcells issued "
         f"{staged['summary'].get('dp_gcells_issued')} / useful "
         f"{staged['summary'].get('dp_gcells_useful')}")
     say("phase 13: fused CLI summary " + json.dumps(
@@ -1756,11 +1948,13 @@ def phase_fused_cli(reads: str, n_reads: int, work: str,
     if summary.get("route") != "fused" or n_rec <= 0:
         raise AssertionError(f"the fused CLI ran route "
                              f"{summary.get('route')!r}, {n_rec} records")
-    if summary.get("dp_launches", 0) <= 0 or summary["dp_launches_moves"]:
-        raise AssertionError("the fused CLI's DP did not go through the "
-                             "counts kernel alone")
+    need_loop("the fused CLI", summary.get("dp_launches_extend", 0),
+              summary.get("dp_launches", 0))
+    if summary["dp_launches_moves"]:
+        raise AssertionError("the fused CLI launched the move-writing kernel")
     return dict(m4=out, launches=dict(
-        counts=summary["dp_launches"], moves=summary["dp_launches_moves"]))
+        counts=summary["dp_launches"], moves=summary["dp_launches_moves"],
+        extend=summary["dp_launches_extend"]))
 
 
 def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
@@ -1793,7 +1987,7 @@ def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
                      init_method="file://" + os.path.join(d, "pg_store"))
     backend = dist.get_backend()
     try:
-        dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
+        zero_dp_counts()
         zero_walk_counts()
         t0 = time.time()
         out = os.path.join(d, "bench_dist.m4")
@@ -1822,11 +2016,14 @@ def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
                                      f"rank: {len(got)} records, run_cns "
                                      f"{len(want)}, equal {got == want}")
         launches = dict(counts=dp_kernel.LAUNCHES,
-                        moves=dp_kernel.LAUNCHES_MOVES)
+                        moves=dp_kernel.LAUNCHES_MOVES,
+                        extend=dp_kernel.LAUNCHES_EXTEND)
         walks = need_walks("run_cns_dist on one rank", walk_kernel.launches())
     finally:
         dist.destroy_process_group()
-    if backend != "nccl" or min(launches.values()) <= 0:
+    need_loop("run_pw_dist on one rank", launches["extend"],
+              launches["counts"])
+    if backend != "nccl" or launches["moves"] <= 0:
         raise AssertionError(f"one rank ran over {backend}, launches "
                              f"{launches}")
     say(f"phase 13: one rank over {backend}: run_pw_dist on the bench reads "
@@ -1893,12 +2090,18 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
         raise AssertionError("run_cns_dist rounds=2 on four ranks differs "
                              "from run_cns")
     for t in tasks[1:]:
+        dp_counts = [(r["launches_extend"], r["launches"], r["launches_moves"])
+                     for r in rec[t]]
         say(f"phase 13: 4 ranks, {t}: equal to the single device; seconds "
             f"{[round(r['seconds'], 2) for r in rec[t]]}, exchange bytes "
-            f"{[r['exchange_bytes'] for r in rec[t]]}, launches (counts, "
-            f"moves) {[(r['launches'], r['launches_moves']) for r in rec[t]]}"
+            f"{[r['exchange_bytes'] for r in rec[t]]}, launches (segment "
+            f"loop, per-segment counts, moves) {dp_counts}"
             f", walk launches (rows, deposit, cols) "
             f"{[tuple(need_walks(t, r, ()).values()) for r in rec[t]]}")
+    for t in ("overlap-2x2", "pw-2x2", "pw-1x4"):
+        need_loop(f"{t} on four ranks",
+                  sum(r["launches_extend"] for r in rec[t]),
+                  sum(r["launches"] for r in rec[t]))
     ranks_walks = need_walks("run_cns_dist on four ranks", {
         k: sum(r[k] for r in rec["cns-r2"])
         for k in ("walk_launches_rows", "walk_launches_deposit",
@@ -1921,8 +2124,10 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
     say(f"phase 13: python -m mecat_tpu_torch.parallel.dryrun 8 --device "
         f"cuda (production shapes, content check) passed, wall {wall:.2f} "
         f"s: " + json.dumps(found))
-    launches = dict(counts=found["launches"], moves=found["launches_moves"])
-    if min(launches.values()) <= 0 or not found.get("identity_checked"):
+    launches = dict(counts=found["launches"], moves=found["launches_moves"],
+                    extend=found["launches_extend"])
+    need_loop("the dry run", launches["extend"], launches["counts"])
+    if launches["moves"] <= 0 or not found.get("identity_checked"):
         raise AssertionError(f"the dry run launched {launches}, checked "
                              f"{found.get('identity_checked')} segments")
     return dict(launches=launches, walks=need_walks("the dry run", found),
@@ -2098,9 +2303,11 @@ def phase_bench_module(bench: dict, cns: dict) -> dict:
     if not (line["baseline_scalar_core_ovl_s"] or 0) > 0 or (
             line["vs_baseline"] is None):
         raise AssertionError("the bench measured no scalar denominator")
-    if min(line["dp_launches"], line["cns_dp_launches_moves"]) <= 0:
-        raise AssertionError("the bench's legs did not go through both DP "
-                             "kernels")
+    need_loop("the bench's overlap leg", line["dp_launches_extend"],
+              line["dp_launches"])
+    if line["cns_dp_launches_moves"] <= 0:
+        raise AssertionError("the bench's cns leg did not go through the "
+                             "move-writing kernel")
     need_walks("the bench's cns leg", {k[len("cns_"):]: v
                                        for k, v in line.items()
                                        if k.startswith("cns_walk_")})
@@ -2132,11 +2339,13 @@ def phase_scaling() -> dict:
         say("phase 14: scaling " + json.dumps(r))
     bad = [r for r in meshes if not (r["step_seconds"] > 0
                                      and r["virtual_mesh"] is True
-                                     and r["dp_launches"] > 0)]
+                                     and r["dp_launches_extend"] > 0
+                                     and r["dp_launches"] == 0)]
     if len(meshes) != 6 or bad:
         raise AssertionError(f"scaling rows: {len(meshes)} meshes, failing "
                              f"{bad}")
-    return dict(counts=sum(r["dp_launches"] for r in meshes), moves=0)
+    return dict(counts=sum(r["dp_launches"] for r in meshes), moves=0,
+                extend=sum(r["dp_launches_extend"] for r in meshes))
 
 
 def main(argv=None) -> int:
@@ -2149,8 +2358,8 @@ def main(argv=None) -> int:
                         "phase-9 mapping run (table to PATH.ref) and one "
                         "polish pass of phase 12 under stage timers")
     p.add_argument("--kernels-only", action="store_true",
-                   help="stop after phase 2's DP and walk kernel checks and "
-                        "timings (no result line)")
+                   help="stop after phase 2's DP, segment-loop and walk "
+                        "kernel checks and timings (no result line)")
     args = p.parse_args(argv)
     t_start = time.time()
 
@@ -2176,13 +2385,16 @@ def main(argv=None) -> int:
             f"{cuda_build.SOURCES[n]} {sec:.2f} s" for n, sec in built.items()))
 
     shapes = ((128, 64), (512, 128))
+    main_sw = (CFG["S"], CFG["W"])
     stats = {(S, W): phase_kernel(S, W) for S, W in shapes}
-    path_shapes = phase_kernel_path_shapes(CFG["S"], CFG["W"])
+    extend = {(S, W): phase_extend(S, W, (S, W) == main_sw)
+              for S, W in shapes}
+    path_shapes = phase_kernel_path_shapes(*main_sw)
     walks = {(S, W): phase_walks(S, W) for S, W in shapes}
     if args.kernels_only:
-        say(json.dumps({"path_shapes": {
+        say(json.dumps({"extend": extend[main_sw], "path_shapes": {
             "moves" if m else "counts": v for m, v in path_shapes.items()},
-            "walks": walks[(CFG["S"], CFG["W"])]}))
+            "walks": walks[main_sw]}))
         say(f"card: {card}")
         return 0
     roll = {(S, W): phase_roll_micro(S, W) for S, W in shapes}
@@ -2228,36 +2440,44 @@ def main(argv=None) -> int:
     say(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
 
     # both main paths run S 512, W 128: that shape's times and bound
-    main_shape = stats[(CFG["S"], CFG["W"])]
+    main_shape = stats[main_sw]
+    # each DP kernel's launches on every path: phase 4's bench passes
+    # (counts, the main path) or phase 6's cns pass (moves); the pw CLI of
+    # phase 5; the mapping pass (phase 8's CUDA SAM run in this process, and
+    # the CLI's own count of phase 9); phase 10's timed two-round pass in
+    # this process, and the counts the CLIs of phases 11 and 12 report;
+    # phase 13: the fused pw CLI's own count, the one-rank NCCL drivers in
+    # this process, the 8-rank dry run summed over ranks; phase 14: the
+    # bench module's timed overlap window (counts) and steady cns pass
+    # (moves), and the scaling report's timed steps summed over every
+    # mesh's ranks
+    bench_launches = bench["launches"]
+    paths = {
+        key: dict(
+            launches=(bench_launches[cli_key] if key != "moves"
+                      else cns["launches"]),
+            launches_pw_cli=staged_cli["summary"].get(cli_key, 0),
+            launches_mapping=ref_small[key],
+            launches_mapping_cli=ref_cli[cli_key],
+            launches_rounds=rounds["launches"][key],
+            launches_pipeline_cli=pipeline["launches"][key],
+            launches_assembly_cli=assembly["launches"][key],
+            launches_fused_cli=fused_cli["launches"][key],
+            launches_dist=dist1["launches"][key],
+            launches_dryrun=ranks["launches"][key],
+            launches_bench=bench_line[
+                "cns_dp_launches_moves" if key == "moves" else cli_key],
+            launches_scaling=scaling[key])
+        for key, cli_key in (("counts", "dp_launches"),
+                             ("moves", "dp_launches_moves"),
+                             ("extend", "dp_launches_extend"))}
     kernels = []
-    for name, with_moves, replaces, launches, key, cli_key in (
-            ("dp_segment_best", False, KERNEL_REPLACES, bench["launches"],
-             "counts", "dp_launches"),
-            ("dp_segment_best_moves", True, KERNEL_REPLACES_MOVES,
-             cns["launches"], "moves", "dp_launches_moves")):
+    for name, with_moves, replaces, key in (
+            ("dp_segment_best", False, KERNEL_REPLACES, "counts"),
+            ("dp_segment_best_moves", True, KERNEL_REPLACES_MOVES, "moves")):
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": replaces, "launches": launches,
-            # the mapping pass: phase 8's CUDA SAM run in this process, and
-            # the CLI's own count of phase 9
-            "launches_mapping": ref_small[key],
-            "launches_mapping_cli": ref_cli[cli_key],
-            # phase 10's timed two-round pass in this process, and the
-            # counts the CLIs of phases 11 and 12 report
-            "launches_rounds": rounds["launches"][key],
-            "launches_pipeline_cli": pipeline["launches"][key],
-            "launches_assembly_cli": assembly["launches"][key],
-            # phase 13: the fused pw CLI's own count, the one-rank NCCL
-            # drivers in this process, the 8-rank dry run summed over ranks
-            "launches_fused_cli": fused_cli["launches"][key],
-            "launches_dist": dist1["launches"][key],
-            "launches_dryrun": ranks["launches"][key],
-            # phase 14: the bench module's timed overlap window (counts)
-            # and steady cns pass (moves), and the scaling report's timed
-            # steps summed over every mesh's ranks
-            "launches_bench": bench_line[
-                "dp_launches" if key == "counts" else "cns_dp_launches_moves"],
-            "launches_scaling": scaling[key],
+            "replaces": replaces, **paths[key],
             "max_abs_err": max(s[with_moves]["max_abs_err"]
                                for s in stats.values()),
             **{k: main_shape[with_moves][k]
@@ -2266,6 +2486,17 @@ def main(argv=None) -> int:
             "library_ms": None,
             # the wrapper alone at the shapes the paths launch
             "path_shapes": path_shapes[with_moves]})
+    # the counts paths run the per-segment body inside the segment loop
+    kernels[0]["body_runs_in"] = "extend_counts"
+    kernels.append({
+        "name": "extend_counts", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": EXTEND_REPLACES, **paths["extend"],
+        "max_abs_err": max(e["max_abs_err"] for e in extend.values()),
+        **{k: extend[main_sw][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "graph_ms",
+                     "chain_steps", "ns_step", "lane_segments")},
+        # no PyTorch call computes a segmented banded extension
+        "library_ms": None})
     # the walks of both main paths run S 512, W 128 (mapping's MAXC 704)
     walk_main = walks[(CFG["S"], CFG["W"])]
     for name, short in (("traceback_rows", "rows"),

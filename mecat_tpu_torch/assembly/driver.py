@@ -118,7 +118,7 @@ def run_assembly(reads_path: str, prefix: str, wrk_dir: str,
     t0 = time.time()
     report = AsmReport()
     met = Metrics("canu")
-    launches0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES)
+    dp0 = dp_kernel.launches()
     walk0 = walk_kernel.launches()
 
     def path(p):
@@ -271,8 +271,8 @@ def run_assembly(reads_path: str, prefix: str, wrk_dir: str,
         met.set(name, getattr(report, name))
     met.set("stages_run", len(report.stages))
     met.set("seconds", round(report.seconds, 3))
-    met.set("dp_launches", dp_kernel.LAUNCHES - launches0[0])
-    met.set("dp_launches_moves", dp_kernel.LAUNCHES_MOVES - launches0[1])
+    for name, n in dp_kernel.launches_since(dp0).items():
+        met.set(name, n)
     for name, n in walk_kernel.launches_since(walk0).items():
         met.set(name, n)
     if torch.device(device).type == "cuda":

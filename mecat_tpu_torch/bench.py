@@ -32,9 +32,11 @@ keys (``warmup_s`` in place of ``compile_s``), ``backend`` ``"torch"``,
 ``device`` (name and power limit from ``nvidia-smi`` on ``cuda``, and the
 number of cards), the counts behind the rates (``overlaps``,
 ``useful_segments``, ``batches``, ``reads``) and the DP kernel launches of
-the timed overlap window (``dp_launches``) and of the steady cns pass
-(``cns_dp_launches_moves``), and the walk kernels' launches of that pass
-(``cns_walk_launches_rows`` / ``_deposit`` / ``_cols``): 0 on the CPU.
+the timed overlap window (``dp_launches_extend`` of the segment-loop kernel,
+one a batch, beside ``dp_launches`` of the per-segment counts kernel, 0 on
+that path) and of the steady cns pass (``cns_dp_launches_moves``), and the
+walk kernels' launches of that pass (``cns_walk_launches_rows`` /
+``_deposit`` / ``_cols``): 0 on the CPU.
 """
 from __future__ import annotations
 
@@ -93,8 +95,8 @@ def _sync(device) -> None:
 def run_on(device, db, idx, n_batches: int, B: int, L: int, cfg: dict,
            collect_supports: bool = False):
     """The overlap leg; returns (overlaps, useful lane-segments, steady
-    seconds, warm-up seconds, supports or None, DP launches of the timed
-    window)."""
+    seconds, warm-up seconds, supports or None, the DP kernels' launches
+    of the timed window as :func:`.ops.dp_kernel.launches` keys them)."""
     from .ops import dp_kernel
     from .pipeline.device_step import overlap_step
 
@@ -117,7 +119,7 @@ def run_on(device, db, idx, n_batches: int, B: int, L: int, cfg: dict,
     # pre-staged batches: host batch building stays off the timed window
     n_cycle = db.n_reads // B
     staged = [batch_args(bi) for bi in range(min(n_batches, n_cycle))]
-    dp_kernel.LAUNCHES = 0
+    dp0 = dp_kernel.launches()
     t0 = time.time()
     valid, segs = [], []
     for bi in range(n_batches):
@@ -128,7 +130,7 @@ def run_on(device, db, idx, n_batches: int, B: int, L: int, cfg: dict,
     tallies = torch.stack([torch.stack(valid).sum(),
                            torch.stack(segs).sum()]).cpu()
     dt = time.time() - t0
-    launches = dp_kernel.LAUNCHES
+    launches = dp_kernel.launches_since(dp0)
     overlaps, useful_segs = int(tallies[0]), int(tallies[1])
 
     supports = None
@@ -300,7 +302,8 @@ def main(argv=None) -> int:
         "dp_gcells_per_s_useful": cells_useful / dt / 1e9 if dt > 0 else 0.0,
         "overlaps": overlaps,
         "useful_segments": useful_segs,
-        "dp_launches": launches,
+        "dp_launches": launches["dp_launches"],
+        "dp_launches_extend": launches["dp_launches_extend"],
         "batches": args.batches,
         "reads": db.n_reads,
         "backend": "torch",

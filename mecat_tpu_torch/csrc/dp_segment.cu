@@ -82,8 +82,11 @@
 //     until none is left, so the live lanes of a launch spread over the
 //     card wherever they lie among the inactive ones (see kResident).
 //
-// The result is exact.  Left for later: several lanes per warp at W=64 and
-// the segment loop inside the kernel.
+// The result is exact.  The counts-only body also runs inside
+// extend_counts_kernel (entry mecat_extend_counts, below), which carries a
+// lane's whole segment loop, so the counts paths launch once a batch.
+// Left for later: several lanes per warp at W=64, and the move-writing
+// segment loop of the correction and mapping paths.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmecat_dp.so dp_segment.cu
@@ -127,62 +130,27 @@ __host__ __device__ constexpr size_t lane_smem(int S, int W, bool moves) {
   return 2 * (size_t)(S + W) + (moves ? (size_t)kRing * (W / 4) : 0);
 }
 
-// One lane, by one warp.  C: band cells per thread, W = 32 * C; kMoves:
-// also write the move words.  `ring` and `qs` are this warp's shares of
-// the block's shared memory (see the kernel).
+// The segment of one lane, by one warp, from its staged bytes: `qs` is
+// this warp's share of the block's shared memory (see lane_smem), holding
+// the query at qs[W/2 ..] and the framed target window at qs[S + W ..];
+// tm and sq are the lane's tmax and seg_q.  C: band cells per thread, W =
+// 32 * C; kMoves: also write the lane's move rows, [S, W/16] as 16-byte
+// vectors at mv_out, through `ring`.  Returns the endpoint (r, w, packed
+// v) on every thread of the warp.
 template <int C, bool kMoves>
-__device__ __forceinline__ void dp_lane(
-    const uint8_t* __restrict__ q, const uint8_t* __restrict__ tpad,
-    const int32_t* __restrict__ tmax, const int32_t* __restrict__ segq,
-    const uint8_t* __restrict__ active, int32_t* __restrict__ r_out,
-    int32_t* __restrict__ w_out, int32_t* __restrict__ v_out,
-    int32_t* __restrict__ moves_out, const int S, const int b,
-    const int lane, uint8_t* ring, uint8_t* qs) {
+__device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
+                                        const int sq, const int S,
+                                        const int lane, uint8_t* ring,
+                                        uint4* __restrict__ mv_out) {
   static_assert(C == 2 || C == 4, "a move byte is one or two threads");
   constexpr int W = 32 * C;
   constexpr int half = W / 2;
   constexpr int P = C / 2;              // cell pairs per thread
   constexpr int kRowBytes = W / 4;      // one row of moves
   constexpr int kRowVecs = kRowBytes / 16;
-
-  // this lane's move rows, [S, W/16], as 16-byte vectors
-  uint4* mv_out =
-      kMoves ? reinterpret_cast<uint4*>(moves_out + (size_t)b * S * (W / 16))
-             : nullptr;
   const uint4 zero4 = make_uint4(0, 0, 0, 0);
-
-  if (!active[b]) {
-    if (lane == 0) {
-      r_out[b] = 0;
-      w_out[b] = half;
-      v_out[b] = (int32_t)kVinf;
-    }
-    if (kMoves)
-      for (int u = lane; u < S * kRowVecs; u += 32) mv_out[u] = zero4;
-    return;
-  }
-
-  uint8_t* qsp = qs + half;             // qsp[x] = q[x], x in [-W/2, S + W/2)
-  uint8_t* ts = qs + S + W;             // ts[x] = tpad[x]
-  const uint8_t* qg = q + (size_t)b * S;
-  const uint8_t* tg = tpad + (size_t)b * (S + W);
-  if ((S & 15) == 0 && ((reinterpret_cast<uintptr_t>(q) |
-                         reinterpret_cast<uintptr_t>(tpad)) & 15) == 0) {
-    // rows and staging are 16-byte aligned
-    const uint4* qg4 = reinterpret_cast<const uint4*>(qg);
-    const uint4* tg4 = reinterpret_cast<const uint4*>(tg);
-    uint4* qs4 = reinterpret_cast<uint4*>(qsp);
-    uint4* ts4 = reinterpret_cast<uint4*>(ts);
-    for (int x = lane; x < S / 16; x += 32) qs4[x] = qg4[x];
-    for (int x = lane; x < (S + W) / 16; x += 32) ts4[x] = tg4[x];
-  } else {
-    for (int x = lane; x < S; x += 32) qsp[x] = qg[x];
-    for (int x = lane; x < S + W; x += 32) ts[x] = tg[x];
-  }
-  __syncwarp();
-
-  const int tm = tmax[b];
-  const int sq = segq[b];
+  const uint8_t* qsp = qs + half;       // qsp[x] = q[x], x in [-W/2, S + W/2)
+  const uint8_t* ts = qs + S + W;       // ts[x] = tpad[x]
   const int w0 = lane * C;
   const int hw0 = w0 / 2;
 
@@ -367,10 +335,67 @@ __device__ __forceinline__ void dp_lane(
       v = vo;
     }
   }
+  return make_int3(f / W, f % W, v);  // f >= 0: truncation is floor
+}
+
+// One launch lane of the per-segment kernels, by one warp: stage its q and
+// framed target rows, run the segment, write the endpoint (or the skip
+// record of an inactive lane, with zero moves).  `ring` and `qs` are this
+// warp's shares of the block's shared memory (see the kernel).
+template <int C, bool kMoves>
+__device__ __forceinline__ void dp_lane(
+    const uint8_t* __restrict__ q, const uint8_t* __restrict__ tpad,
+    const int32_t* __restrict__ tmax, const int32_t* __restrict__ segq,
+    const uint8_t* __restrict__ active, int32_t* __restrict__ r_out,
+    int32_t* __restrict__ w_out, int32_t* __restrict__ v_out,
+    int32_t* __restrict__ moves_out, const int S, const int b,
+    const int lane, uint8_t* ring, uint8_t* qs) {
+  constexpr int W = 32 * C;
+  constexpr int half = W / 2;
+  constexpr int kRowVecs = W / 64;      // 16-byte vectors in a move row
+
+  // this lane's move rows, [S, W/16], as 16-byte vectors
+  uint4* mv_out =
+      kMoves ? reinterpret_cast<uint4*>(moves_out + (size_t)b * S * (W / 16))
+             : nullptr;
+
+  if (!active[b]) {
+    if (lane == 0) {
+      r_out[b] = 0;
+      w_out[b] = half;
+      v_out[b] = (int32_t)kVinf;
+    }
+    if (kMoves)
+      for (int u = lane; u < S * kRowVecs; u += 32)
+        mv_out[u] = make_uint4(0, 0, 0, 0);
+    return;
+  }
+
+  uint8_t* qsp = qs + half;
+  uint8_t* ts = qs + S + W;
+  const uint8_t* qg = q + (size_t)b * S;
+  const uint8_t* tg = tpad + (size_t)b * (S + W);
+  if ((S & 15) == 0 && ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(tpad)) & 15) == 0) {
+    // rows and staging are 16-byte aligned
+    const uint4* qg4 = reinterpret_cast<const uint4*>(qg);
+    const uint4* tg4 = reinterpret_cast<const uint4*>(tg);
+    uint4* qs4 = reinterpret_cast<uint4*>(qsp);
+    uint4* ts4 = reinterpret_cast<uint4*>(ts);
+    for (int x = lane; x < S / 16; x += 32) qs4[x] = qg4[x];
+    for (int x = lane; x < (S + W) / 16; x += 32) ts4[x] = tg4[x];
+  } else {
+    for (int x = lane; x < S; x += 32) qsp[x] = qg[x];
+    for (int x = lane; x < S + W; x += 32) ts[x] = tg[x];
+  }
+  __syncwarp();
+
+  const int3 best = dp_body<C, kMoves>(qs, tmax[b], segq[b], S, lane, ring,
+                                       mv_out);
   if (lane == 0) {
-    r_out[b] = f / W;  // f >= 0: truncation is floor
-    w_out[b] = f % W;
-    v_out[b] = v;
+    r_out[b] = best.x;
+    w_out[b] = best.y;
+    v_out[b] = best.z;
   }
 }
 
@@ -412,7 +437,157 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
   }
 }
 
+// The counts-only segment loop of one extension direction: every lane run
+// to its end in one launch.
+//
+// Replaces the reference's device loop mecat_tpu/ops/align.py:531-541, the
+// jax.lax.while_loop of _extend_direction_impl(collect_ops=False) with body
+// seg_step at :468-514, which the port's plain version runs from the host
+// with one sync and some 40-75 small kernels a segment.  Per lane, from
+// qoff = toff = dist = matches = alen = nsegs = 0 and active = qlen > 0 &
+// tlen > 0, while active and fewer than max_segs segments have run:
+//
+//   * seg_q = clamp(qlen - qoff, 0, S), rem_t = clamp(tlen - toff, 0,
+//     S + W/2);
+//   * the windows q_pad[q0 + qoff :][:S] and t_pad[t0 + toff :][:S + W],
+//     each start taken as lax.dynamic_slice takes it: a negative start
+//     wraps by the row width, then clamps into [0, width - size];
+//   * the segment of dp_body with tmax = rem_t, unpacked as the
+//     reference's _unpack_best (v >= VINF: d = INF, ind = 0);
+//   * m = max(floor((r + j + ind) / 2) - d, 0), a = m + d, and ok = r + j
+//     > 0 & d < INF & (m / max(a, 1) >= min_seg_identity | a < 32), the
+//     quotient and the threshold in float32;
+//   * where ok, qoff, toff, dist, matches, alen advance by r, j, d, m, a;
+//     nsegs += 1; active = ok & r >= seg_q - max(1, S/4) & r >= 1 &
+//     qoff < qlen & toff < tlen.
+//
+// A lane that stops never starts again and a stopped lane changes nothing,
+// so each lane run to its own end gives the batch loop's result.
+//
+// Design: the persistent warps of the per-segment kernel, one lane a warp
+// from the counter, now run the lane's segments to its end before taking
+// the next lane.  Per segment the warp stages the two windows with byte
+// loads (a window starts anywhere in its row, so the 16-byte path of
+// dp_lane does not apply), runs dp_body (the code the per-segment kernel
+// runs), and every thread applies the rule to the endpoint it holds after
+// the body's reduction, so the state lives in registers and needs no
+// broadcast.  The quotient is __fdiv_rn (no fast math) and the threshold
+// comes from the host already rounded to float32; >> and & floor.
+//
+// What bounds it: the cells of the segments the data runs, at 12 int32
+// operations a cell, and the lane with the longest chain: each of its
+// segments is 2r + W dependent steps, and the next one's windows start
+// where this one's endpoint lies.  All lanes of a batch start together
+// and most stop within a few segments, so a launch ends with few live
+// warps, each on its own chain.
+struct ExtendArgs {
+  const uint8_t* q_pad;    // [N, Lq], query rows with S sentinel bytes
+  const uint8_t* t_pad;    // [N, Lt], framed target rows
+  const int32_t* q0;       // [N] window offsets of the direction's start
+  const int32_t* t0;
+  const int32_t* qlen;     // [N] bases available in this direction
+  const int32_t* tlen;
+  int32_t* out;            // [6, N]: qoff, toff, dist, matches, alen, nsegs
+  int32_t* next_lane;      // one int32: the lane counter
+  int N, S, Lq, Lt, max_segs;
+  float min_identity;
+};
+
+constexpr int kInf = 1 << 20;           // ops.align.INF
+
+// The start lax.dynamic_slice takes for a window of `size` in a row of
+// `width` (width >= size).
+__device__ __forceinline__ int window_start(int start, const int width,
+                                            const int size) {
+  if (start < 0) start += width;
+  return min(max(start, 0), width - size);
+}
+
+template <int C>
+__global__ void __launch_bounds__(32 * kWarps)
+extend_counts_kernel(const ExtendArgs a) {
+  constexpr int W = 32 * C;
+  constexpr int half = W / 2;
+  extern __shared__ uint4 smem_vec[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int S = a.S;
+  uint8_t* qs = reinterpret_cast<uint8_t*>(smem_vec) +
+                (size_t)warp * lane_smem(S, W, false);
+  const int slack = max(1, S / 4);
+  for (;;) {
+    int b = 0;
+    if (lane == 0) b = atomicAdd(a.next_lane, 1);
+    b = __shfl_sync(kFull, b, 0);
+    if (b >= a.N) return;
+    const int qlen = a.qlen[b], tlen = a.tlen[b];
+    const int q0 = a.q0[b], t0 = a.t0[b];
+    const uint8_t* qrow = a.q_pad + (size_t)b * a.Lq;
+    const uint8_t* trow = a.t_pad + (size_t)b * a.Lt;
+    int qoff = 0, toff = 0, dist = 0, matches = 0, alen = 0, nsegs = 0;
+    bool active = qlen > 0 && tlen > 0;
+    while (active && nsegs < a.max_segs) {
+      const int seg_q = min(max(qlen - qoff, 0), S);
+      const int rem_t = min(max(tlen - toff, 0), S + half);
+      const uint8_t* qg = qrow + window_start(q0 + qoff, a.Lq, S);
+      const uint8_t* tg = trow + window_start(t0 + toff, a.Lt, S + W);
+      __syncwarp();                     // the last segment's reads are done
+      for (int x = lane; x < S; x += 32) qs[half + x] = qg[x];
+      for (int x = lane; x < S + W; x += 32) qs[S + W + x] = tg[x];
+      __syncwarp();
+      const int3 e =
+          dp_body<C, false>(qs, rem_t, seg_q, S, lane, nullptr, nullptr);
+      const int r = e.x;
+      const int j = r - half + e.y;
+      const bool vinf = e.z >= (int)kVinf;
+      const int d = vinf ? kInf : e.z >> 12;
+      const int ind = vinf ? 0 : e.z & (kIndK - 1);
+      const int m = max(((r + j + ind) >> 1) - d, 0);
+      const int al = m + d;
+      const float ident = __fdiv_rn((float)m, (float)max(al, 1));
+      const bool ok = r + j > 0 && d < kInf &&
+                      (ident >= a.min_identity || al < 32);
+      if (ok) {
+        qoff += r;
+        toff += j;
+        dist += d;
+        matches += m;
+        alen += al;
+      }
+      ++nsegs;
+      active = ok && r >= seg_q - slack && r >= 1 && qoff < qlen &&
+               toff < tlen;
+    }
+    if (lane == 0) {
+      const size_t n = (size_t)a.N;
+      a.out[b] = qoff;
+      a.out[n + b] = toff;
+      a.out[2 * n + b] = dist;
+      a.out[3 * n + b] = matches;
+      a.out[4 * n + b] = alen;
+      a.out[5 * n + b] = nsegs;
+    }
+  }
+}
+
 constexpr size_t kSmemLimit = 48 * 1024;  // without an opt-in attribute
+
+// The grid of persistent warps for B lanes: kResident warps for every
+// scheduler of the card, or fewer when the launch has fewer lanes (a block
+// is one warp on each of the SM's four schedulers).  Zeroes the lane
+// counter on the stream first.
+cudaError_t persistent_grid(int B, void* next_lane, cudaStream_t stream,
+                            int* grid) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess) err = cudaMemsetAsync(next_lane, 0, 4, stream);
+  const int blocks = (B + kWarps - 1) / kWarps;
+  *grid = blocks < sms * kResident ? blocks : sms * kResident;
+  return err;
+}
 
 template <int C, bool kMoves>
 cudaError_t launch(const void* q, const void* tpad, const void* tmax,
@@ -423,22 +598,28 @@ cudaError_t launch(const void* q, const void* tpad, const void* tmax,
   if (S <= 0) return cudaErrorInvalidValue;
   const size_t smem = (size_t)kWarps * lane_smem(S, W, kMoves);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err == cudaSuccess) err = cudaMemsetAsync(next_lane, 0, 4, stream);
+  int grid = 0;
+  cudaError_t err = persistent_grid(B, next_lane, stream, &grid);
   if (err != cudaSuccess) return err;
-  // a block is one warp on each of the SM's four schedulers
-  const int blocks = (B + kWarps - 1) / kWarps;
-  const int grid = blocks < sms * kResident ? blocks : sms * kResident;
   dp_segment_kernel<C, kMoves><<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(tpad),
       static_cast<const int32_t*>(tmax), static_cast<const int32_t*>(segq),
       static_cast<const uint8_t*>(active), static_cast<int32_t*>(r),
       static_cast<int32_t*>(w), static_cast<int32_t*>(v),
       static_cast<int32_t*>(moves), static_cast<int32_t*>(next_lane), B, S);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_extend(const ExtendArgs& a, cudaStream_t stream) {
+  const int W = 32 * C;
+  if (a.S <= 0 || a.Lq < a.S || a.Lt < a.S + W) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)kWarps * lane_smem(a.S, W, false);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = persistent_grid(a.N, a.next_lane, stream, &grid);
+  if (err != cudaSuccess) return err;
+  extend_counts_kernel<C><<<grid, 32 * kWarps, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -491,4 +672,40 @@ extern "C" int mecat_dp_segment_best_moves(const void* q, const void* tpad,
                                            int W, void* stream) {
   return dispatch<true>(q, tpad, tmax, segq, active, r, w, v, moves,
                         next_lane, B, S, W, stream);
+}
+
+// The counts-only segment loop of one direction for N lanes (see
+// extend_counts_kernel): q_pad uint8 [N, Lq], t_pad uint8 [N, Lt] (W/2
+// leading sentinels), q0, t0, qlen, tlen int32 [N]; out int32 [6, N]
+// (qoff, toff, dist, matches, alen, nsegs), every element written;
+// next_lane one int32 of scratch.  All device pointers, row-major,
+// contiguous.  Returns cudaGetLastError() after the launch (0 on success),
+// or cudaErrorInvalidValue, without a launch, for a W other than 64 or
+// 128, rows narrower than a window, or an S whose staging does not fit the
+// block's shared memory.
+extern "C" int mecat_extend_counts(const void* q_pad, const void* t_pad,
+                                   const void* q0, const void* t0,
+                                   const void* qlen, const void* tlen,
+                                   void* out, void* next_lane, int N, int S,
+                                   int W, int Lq, int Lt, int max_segs,
+                                   float min_identity, void* stream) {
+  if (N <= 0) return 0;
+  const ExtendArgs a{static_cast<const uint8_t*>(q_pad),
+                     static_cast<const uint8_t*>(t_pad),
+                     static_cast<const int32_t*>(q0),
+                     static_cast<const int32_t*>(t0),
+                     static_cast<const int32_t*>(qlen),
+                     static_cast<const int32_t*>(tlen),
+                     static_cast<int32_t*>(out),
+                     static_cast<int32_t*>(next_lane),
+                     N, S, Lq, Lt, max_segs, min_identity};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (W) {
+    case 64:
+      return static_cast<int>(launch_extend<2>(a, st));
+    case 128:
+      return static_cast<int>(launch_extend<4>(a, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -9,7 +9,10 @@ segment runs in the hand-written Hopper kernels (``csrc/dp_segment.cu``
 through :mod:`.dp_kernel`) for CUDA tensors, and in their plain PyTorch
 version (:func:`banded_dp_segment` + :func:`pick_end_local`) for CPU
 tensors.  :func:`dp_segment_best` dispatches on the tensor's device only: a
-CUDA tensor launches the kernel or raises.  The two walks do the same:
+CUDA tensor launches the kernel or raises.  The counts form's segment loop
+does the same: on CUDA tensors :func:`_extend_direction_impl` is one launch
+of the segment-loop kernel of the same source, on CPU tensors the host
+loop over :func:`dp_segment_best_plain`.  The two walks do the same:
 :func:`traceback_rows` and :func:`traceback_ops` launch the kernels of
 ``csrc/cns_walk.cu`` (through :mod:`.walk_kernel`) for CUDA tensors and run
 :func:`traceback_rows_plain` / :func:`traceback_ops_plain` for CPU tensors.
@@ -443,9 +446,15 @@ def _extend_direction_impl(q_pad, t_pad, q0, t0, qlen, tlen, *, S, W,
     """Segmented banded extension in one direction.
 
     Mirrors mecat_tpu.ops.align._extend_direction_impl including the counts
-    branch's early exit: the loop stops once no lane is active, which costs
-    one host sync per segment.  Returns (ExtensionResult, raw); raw is None
-    unless ``collect_ops``.
+    branch's early exit.  The counts branch (``collect_ops`` False) on CUDA
+    tensors with ``dp`` left at :func:`dp_segment_best` is one launch of
+    the segment-loop kernel (``csrc/dp_segment.cu`` through
+    :func:`.dp_kernel.extend_counts_cuda`), which runs every lane to its own
+    end on the card.  Otherwise the loop runs here, one ``dp`` call a
+    segment over every lane, and stops once no lane is active, which costs
+    one host sync a segment: that is the plain version of the kernel (CPU
+    tensors, or ``dp=dp_segment_best_plain`` for a comparison on the card).
+    Returns (ExtensionResult, raw); raw is None unless ``collect_ops``.
 
     With ``collect_ops`` every segment also keeps (moves [B, S, W/16],
     r_end, w_end, qoff_before, toff_before, ok), stacked on a leading
@@ -457,6 +466,14 @@ def _extend_direction_impl(q_pad, t_pad, q0, t0, qlen, tlen, *, S, W,
     B = q_pad.shape[0]
     half = W // 2
     dev = q_pad.device
+    if not collect_ops and dp is dp_segment_best and dev.type == "cuda":
+        from .dp_kernel import extend_counts_cuda
+
+        res = extend_counts_cuda(
+            q_pad.contiguous(), t_pad.contiguous(),
+            *(x.to(torch.int32).contiguous() for x in (q0, t0, qlen, tlen)),
+            S=S, W=W, max_segs=max_segs, min_seg_identity=min_seg_identity)
+        return ExtensionResult(*res), None
     zeros = torch.zeros(B, dtype=torch.int32, device=dev)
     qoff, toff, dist, matches, alen, nsegs = (zeros.clone() for _ in range(6))
     active = (qlen > 0) & (tlen > 0)
@@ -525,6 +542,56 @@ def _masked(a: torch.Tensor, n: torch.Tensor, sentinel: int):
     return torch.where(col[None, :] < n[:, None], a, sentinel).to(a.dtype)
 
 
+def extend_both_directions(q: torch.Tensor, t: torch.Tensor,
+                           qlen: torch.Tensor, tlen: torch.Tensor,
+                           qseed: torch.Tensor, tseed: torch.Tensor,
+                           *, S: int = C.ALIGN_SEGMENT,
+                           W: int = C.ALIGN_BAND, max_segs: int = 64,
+                           min_seg_identity: float = C.MIN_SEGMENT_IDENTITY,
+                           dp: Callable = dp_segment_best) -> ExtensionResult:
+    """The counts-only extension of both directions as one 2B-lane batch:
+    the ExtensionResult of the B right lanes, then the B left lanes.
+
+    Arguments as :func:`extend_pair_batch`.  The host loop of the plain
+    version runs ``max(n_segs)`` segments over all 2B lanes, so it issues
+    ``2B * max(n_segs)`` lane-segments.
+    """
+    both, _ = _extend_direction_impl(
+        *direction_lanes(q, t, qlen, tlen, qseed, tseed, S, W), S=S, W=W,
+        max_segs=max_segs, min_seg_identity=min_seg_identity, dp=dp)
+    return both
+
+
+def direction_lanes(q, t, qlen, tlen, qseed, tseed, S: int, W: int):
+    """The 2B lanes of :func:`extend_both_directions`, as
+    :func:`_extend_direction_impl` takes them: (q_pad [2B, Lq + S], t_pad
+    [2B, W/2 + Lt + S + W], q0, t0, qlen, tlen [2B]), the B right
+    extensions, then the B left ones on the reversed rows."""
+    Lq = q.shape[1]
+    Lt = t.shape[1]
+    qm = _masked(q, qlen, Q_SENTINEL)
+    tm = _masked(t, tlen, T_SENTINEL)
+    # the reverse direction flips the WHOLE padded row of width Lq/Lt, so
+    # its offsets are Lq - qseed and Lt - tseed
+    q_both = torch.cat([_pad(qm, S, Q_SENTINEL),
+                        _pad(torch.flip(qm, dims=[1]), S, Q_SENTINEL)])
+    t_both = torch.cat([_pad(tm, S + W, T_SENTINEL, prefix=W // 2),
+                        _pad(torch.flip(tm, dims=[1]), S + W, T_SENTINEL,
+                             prefix=W // 2)])
+    return (q_both, t_both,
+            torch.cat([qseed, Lq - qseed]), torch.cat([tseed, Lt - tseed]),
+            torch.cat([qlen - qseed, qseed]), torch.cat([tlen - tseed, tseed]))
+
+
+def pair_alignment(both: ExtensionResult, qseed: torch.Tensor,
+                   tseed: torch.Tensor) -> PairAlignment:
+    """The PairAlignment of :func:`extend_both_directions`' lanes."""
+    B = qseed.shape[0]
+    right = ExtensionResult(*(x[:B] for x in both))
+    left = ExtensionResult(*(x[B:] for x in both))
+    return _pair_alignment(left, right, qseed, tseed)
+
+
 def extend_pair_batch(q: torch.Tensor, t: torch.Tensor,
                       qlen: torch.Tensor, tlen: torch.Tensor,
                       qseed: torch.Tensor, tseed: torch.Tensor,
@@ -536,31 +603,17 @@ def extend_pair_batch(q: torch.Tensor, t: torch.Tensor,
 
     q uint8 [B, Lq] queries in scanned orientation; t uint8 [B, Lt] targets;
     qlen, tlen, qseed, tseed int32 [B].  Both directions run as one 2B-lane
-    batch, so the early exit waits for max(left, right) segments.  ``dp`` is
+    batch (:func:`extend_both_directions`): on CUDA tensors one launch of
+    the segment-loop kernel, each lane to its own end; in the plain host
+    loop the early exit waits for max(left, right) segments.  ``dp`` is
     the segment function; callers leave it at :func:`dp_segment_best`, and
     only a comparison against the plain version passes
     :func:`dp_segment_best_plain`.
     """
-    B, Lq = q.shape
-    Lt = t.shape[1]
-    qm = _masked(q, qlen, Q_SENTINEL)
-    tm = _masked(t, tlen, T_SENTINEL)
-    # the reverse direction flips the WHOLE padded row of width Lq/Lt, so
-    # its offsets are Lq - qseed and Lt - tseed
-    q_both = torch.cat([_pad(qm, S, Q_SENTINEL),
-                        _pad(torch.flip(qm, dims=[1]), S, Q_SENTINEL)])
-    t_both = torch.cat([_pad(tm, S + W, T_SENTINEL, prefix=W // 2),
-                        _pad(torch.flip(tm, dims=[1]), S + W, T_SENTINEL,
-                             prefix=W // 2)])
-    both, _ = _extend_direction_impl(
-        q_both, t_both,
-        torch.cat([qseed, Lq - qseed]), torch.cat([tseed, Lt - tseed]),
-        torch.cat([qlen - qseed, qseed]), torch.cat([tlen - tseed, tseed]),
-        S=S, W=W, max_segs=max_segs, min_seg_identity=min_seg_identity,
-        dp=dp)
-    right = ExtensionResult(*(x[:B] for x in both))
-    left = ExtensionResult(*(x[B:] for x in both))
-    return _pair_alignment(left, right, qseed, tseed)
+    both = extend_both_directions(
+        q, t, qlen, tlen, qseed, tseed, S=S, W=W, max_segs=max_segs,
+        min_seg_identity=min_seg_identity, dp=dp)
+    return pair_alignment(both, qseed, tseed)
 
 
 def _pair_alignment(left: ExtensionResult, right: ExtensionResult,

@@ -2,19 +2,26 @@
 
 The source replaces ``mecat_tpu/ops/pallas_dp.py:_dp_kernel`` in both forms:
 counts only (:func:`dp_segment_best_cuda`) and move-writing
-(:func:`dp_segment_best_moves_cuda`).  :mod:`.cuda_build` compiles it with
-``nvcc`` for ``sm_90a`` into a shared library with plain C entry points at
-first CUDA use, and it is called through ``ctypes`` on PyTorch's current
-stream.  Nothing here runs at import: CPU-only machines import this module
-freely.
+(:func:`dp_segment_best_moves_cuda`), and the reference's device loop
+around the counts form, the ``while_loop`` of
+``mecat_tpu/ops/align.py:_extend_direction_impl`` (:func:`extend_counts_cuda`:
+every lane's whole segment loop in one launch; its plain version is the
+host loop of :func:`..ops.align._extend_direction_impl` on
+:func:`..ops.align.dp_segment_best_plain`).  :mod:`.cuda_build` compiles
+the source with ``nvcc`` for ``sm_90a`` into a shared library with plain C
+entry points at first CUDA use, and it is called through ``ctypes`` on
+PyTorch's current stream.  Nothing here runs at import: CPU-only machines
+import this module freely.
 
-``LAUNCHES`` and ``LAUNCHES_MOVES`` count the launches of the two kernels,
-so a run can show that its DP went through them.
+``LAUNCHES``, ``LAUNCHES_MOVES`` and ``LAUNCHES_EXTEND`` count the launches
+of the three kernels, so a run can show that its DP went through them;
+:func:`launches` reads them under the keys the metrics summaries print.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -30,6 +37,8 @@ _INVALID_VALUE = 1
 LAUNCHES = 0
 #: launches of the move-writing kernel
 LAUNCHES_MOVES = 0
+#: launches of the counts-only segment-loop kernel
+LAUNCHES_EXTEND = 0
 
 _lib = None
 
@@ -44,8 +53,23 @@ def _load():
             fn.argtypes = ([ctypes.c_void_p] * n_ptr
                            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        lib.mecat_extend_counts.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.mecat_extend_counts.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def launches() -> dict:
+    """The three launch counters, by the keys of the metrics summaries."""
+    return {"dp_launches": LAUNCHES, "dp_launches_moves": LAUNCHES_MOVES,
+            "dp_launches_extend": LAUNCHES_EXTEND}
+
+
+def launches_since(before: dict) -> dict:
+    """Launches of each kernel since ``before`` (a :func:`launches`)."""
+    return {k: v - before[k] for k, v in launches().items()}
 
 
 def _launch(q_seg, tpad, tmax, seg_q, active, S: int, W: int,
@@ -119,3 +143,56 @@ def dp_segment_best_moves_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
     if q_seg.shape[0]:
         LAUNCHES_MOVES += 1
     return moves, r, w, v
+
+
+def extend_counts_cuda(q_pad: torch.Tensor, t_pad: torch.Tensor,
+                       q0: torch.Tensor, t0: torch.Tensor,
+                       qlen: torch.Tensor, tlen: torch.Tensor, *, S: int,
+                       W: int, max_segs: int, min_seg_identity: float):
+    """Launch the counts-only segment loop of one direction; returns
+    (qoff, toff, dist, matches, alen, nsegs) int32 [N], the fields of
+    :class:`..ops.align.ExtensionResult` (views of one [6, N] buffer).
+
+    q_pad uint8 [N, Lq] query rows padded for the last window; t_pad uint8
+    [N, Lt] target rows with W/2 leading sentinels; q0, t0, qlen, tlen int32
+    [N] as :func:`..ops.align._extend_direction_impl` takes them.  The
+    identity threshold is rounded to float32 here, as the plain version's
+    comparison rounds it.  Raises ValueError on CPU tensors (before
+    anything is built) and on what the kernel does not take, RuntimeError
+    on a CUDA error.
+    """
+    global LAUNCHES_EXTEND
+    if q_pad.device.type != "cuda":
+        raise ValueError(f"the segment-loop kernel needs CUDA tensors, got "
+                         f"{q_pad.device}")
+    if q_pad.dim() != 2 or t_pad.dim() != 2:
+        raise ValueError(f"q_pad and t_pad must be [N, L], got "
+                         f"{tuple(q_pad.shape)} and {tuple(t_pad.shape)}")
+    N, Lq = q_pad.shape
+    Lt = t_pad.shape[1]
+    dev = q_pad.device
+    _check("q_pad", q_pad, torch.uint8, (N, Lq), dev)
+    _check("t_pad", t_pad, torch.uint8, (N, Lt), dev)
+    for name, t in (("q0", q0), ("t0", t0), ("qlen", qlen), ("tlen", tlen)):
+        _check(name, t, torch.int32, (N,), dev)
+    out = torch.empty((6, N), dtype=torch.int32, device=dev)
+    if N:
+        lib = _load()
+        # scratch: the kernel's warps count the lanes they have taken in it
+        next_lane = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.mecat_extend_counts(
+                *(t.data_ptr() for t in (q_pad, t_pad, q0, t0, qlen, tlen,
+                                         out, next_lane)),
+                N, S, W, Lq, Lt, max_segs,
+                float(np.float32(min_seg_identity)),
+                torch.cuda.current_stream().cuda_stream)
+        if rc == _INVALID_VALUE:
+            raise ValueError(f"the segment-loop kernel does not take S={S}, "
+                             f"W={W}, rows of {Lq} and {Lt} bytes (see "
+                             "mecat_tpu_torch/csrc/dp_segment.cu)")
+        if rc != 0:
+            raise RuntimeError(f"segment-loop kernel launch failed: CUDA "
+                               f"error {rc}")
+        LAUNCHES_EXTEND += 1
+    return tuple(out.unbind(0))

@@ -539,7 +539,7 @@ def run_pw(reads_path: str, out_path: str, wrk_dir: str,
         raise ValueError("the fused pw route computes -j 1 only")
     device = torch.device(device)
     os.makedirs(wrk_dir, exist_ok=True)
-    launches0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES)
+    dp0 = dp_kernel.launches()
     walk0 = walk_kernel.launches()
     t0 = time.time()
     if db is None:
@@ -627,10 +627,11 @@ def run_pw(reads_path: str, out_path: str, wrk_dir: str,
               ("prep_s", "scan_s", "pull_s", "emit_s", "extend_s"))
     for ph in phases:
         met.set(f"{route}_{ph}", round(getattr(stats, ph), 3))
-    # DP kernel launches of this run: 0 on CPU, > 0 when the DP ran on CUDA
-    # (pw runs the counts-only kernel alone, and none of the walks)
-    met.set("dp_launches", dp_kernel.LAUNCHES - launches0[0])
-    met.set("dp_launches_moves", dp_kernel.LAUNCHES_MOVES - launches0[1])
+    # DP kernel launches of this run: 0 on CPU; on CUDA pw runs the
+    # segment-loop kernel alone (dp_launches_extend), none of the
+    # per-segment kernels and none of the walks
+    for name, n in dp_kernel.launches_since(dp0).items():
+        met.set(name, n)
     for name, n in walk_kernel.launches_since(walk0).items():
         met.set(name, n)
     met.emit_summary()

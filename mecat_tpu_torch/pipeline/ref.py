@@ -35,8 +35,8 @@ from ..io.m4 import M4Record
 from ..io.packed_db import PackedDB, revcomp
 from ..io.sam import cigar_from_ops, sam_header, sam_line, sam_unmapped
 from ..ops import dp_kernel, walk_kernel
-from ..ops.align import (dp_segment_best, extend_pair_batch,
-                         extend_pair_batch_with_ops)
+from ..ops.align import (dp_segment_best, extend_both_directions,
+                         extend_pair_batch_with_ops, pair_alignment)
 from ..ops.consensus_device import ops_stream
 from ..ops.ddf import scan_candidates
 from ..utils.log import get_logger
@@ -92,9 +92,11 @@ class RefStats:
     count_s: float = 0.0     # phase A counts-only extension + pulls
     ops_s: float = 0.0       # phase B winner extension + op streams
     emit_s: float = 0.0      # host record formatting
-    #: launches of the counts-only and the move-writing DP kernel (0 on CPU)
+    #: launches of the per-segment counts-only, the move-writing and the
+    #: segment-loop DP kernel (0 on CPU)
     dp_launches: int = 0
     dp_launches_moves: int = 0
+    dp_launches_extend: int = 0
     #: DP lane-segments launched (lanes x segments run, both directions and
     #: both phases) and those of them a still-extending lane needed
     dp_lane_segs_issued: int = 0
@@ -125,8 +127,12 @@ def _ref_gather_qt(fwd, rev, ref_codes, rowi, strand, g0, wlen, L_win: int):
 
 
 class _DpTally:
-    """The DP segment function handed to the aligner: :func:`dp_segment_best`
-    itself, counting the lanes of every segment it is asked for."""
+    """The DP segment function handed to the move-writing aligner of phase
+    B: :func:`dp_segment_best` itself, counting the lanes of every segment
+    it is asked for.  The counts-only extension takes no such wrapper (on
+    the card it is one launch of the segment-loop kernel, which a wrapper
+    would route around); :func:`_ref_count_chunk` counts its lane-segments
+    from the result."""
 
     def __init__(self):
         self.lane_segs = 0
@@ -138,10 +144,16 @@ class _DpTally:
 
 def _ref_count_chunk(fwd, rev, ref_codes, rowi, strand, g0, wlen, qlen,
                      qs, ts, *, L_win, S, W, max_segs, dp=dp_segment_best):
-    """Phase-A device chunk: score every candidate locus, no op tapes."""
+    """Phase-A device chunk: score every candidate locus, no op tapes.
+
+    Returns (PairAlignment, issued): issued is the lane-segments the plain
+    host loop issues for the chunk, 2P lanes times the most segments a lane
+    ran (a 0-dim device tensor)."""
     q, t = _ref_gather_qt(fwd, rev, ref_codes, rowi, strand, g0, wlen, L_win)
-    return extend_pair_batch(q, t, qlen, wlen, qs, ts, S=S, W=W,
-                             max_segs=max_segs, dp=dp)
+    both = extend_both_directions(q, t, qlen, wlen, qs, ts, S=S, W=W,
+                                  max_segs=max_segs, dp=dp)
+    issued = both.n_segs.numel() * both.n_segs.max()
+    return pair_alignment(both, qs, ts), issued
 
 
 def _ref_extend_chunk(fwd, rev, ref_codes, rowi, strand, g0, wlen, qlen,
@@ -254,17 +266,17 @@ def map_batch(db: PackedDB, read_ids: List[int], ref_db: PackedDB,
         return [torch.as_tensor(a, device=device) for a in padded]
 
     t_ph = time.time()
-    dp = _DpTally()
     surv = []  # per-chunk columnar survivors: [row, m, pi, strand, contig, band]
     for ofs in range(0, len(pairs), P):
         ca = chunk_arr[ofs:ofs + P]
         n = len(ca)
-        pa = _ref_count_chunk(
+        pa, issued = _ref_count_chunk(
             bases_dev[0], bases_dev[1], ref_codes,
             *chunk_args(ca, g_start[ofs:ofs + P]),
-            L_win=L_win, S=S, W=W, max_segs=msegs, dp=dp)
+            L_win=L_win, S=S, W=W, max_segs=msegs)
         ident, matches, qbeg, qend, tbeg_a, tend, nsegs = _pull_pa(pa, n)
         stats.dp_lane_segs_useful += int(nsegs.sum())
+        stats.dp_lane_segs_issued += int(issued)
         span = np.minimum(qend - qbeg, tend - tbeg_a).astype(np.int64)
         keep = np.nonzero((span >= opts.min_align_size)
                           & (ident >= opts.min_identity))[0]
@@ -307,6 +319,7 @@ def map_batch(db: PackedDB, read_ids: List[int], ref_db: PackedDB,
     # Phase B: selected alignments only (primary + up to best_n-1
     # secondary).
     t_ph = time.time()
+    dp = _DpTally()
     payloads = {}  # row -> [payload tuple] in rank order
     sel_pis = []
     for r in sorted(best):
@@ -326,9 +339,10 @@ def map_batch(db: PackedDB, read_ids: List[int], ref_db: PackedDB,
             # pull only the columns the longest stream of the chunk fills
             ops_np = ops_dev[:n, :int(n_ops[:n].max(initial=0))].cpu().numpy()
         else:
-            pa = _ref_count_chunk(
+            pa, issued = _ref_count_chunk(
                 bases_dev[0], bases_dev[1], ref_codes, *args,
-                L_win=L_win, S=S, W=W, max_segs=msegs, dp=dp)
+                L_win=L_win, S=S, W=W, max_segs=msegs)
+            stats.dp_lane_segs_issued += int(issued)
             ops_np = None
         ident, _, qbeg, qend, tbeg, tend, nsegs = _pull_pa(pa, n)
         stats.dp_lane_segs_useful += int(nsegs.sum())
@@ -408,7 +422,7 @@ def run_ref(reads_path: str, ref_path: str, out_path: str, wrk_dir: str,
             f"{MAX_GENOME_BASES} (~2.1 Gb). Split the FASTA into "
             f"< 2^31-base groups of contigs and map against each.")
     stats = RefStats()
-    launches0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES)
+    dp0 = dp_kernel.launches()
     walk0 = walk_kernel.launches()
     met = Metrics("ref")
     t_ix = time.time()
@@ -435,15 +449,16 @@ def run_ref(reads_path: str, ref_path: str, out_path: str, wrk_dir: str,
                      stats.mapped)
     stats.seconds = time.time() - t0
     # DP kernel launches of this run: 0 on CPU, > 0 when the DP ran on CUDA
-    stats.dp_launches = dp_kernel.LAUNCHES - launches0[0]
-    stats.dp_launches_moves = dp_kernel.LAUNCHES_MOVES - launches0[1]
+    for name, n in dp_kernel.launches_since(dp0).items():
+        setattr(stats, name, n)
     log.info("ref phases: index %.1fs prep %.1fs scan %.1fs count %.1fs "
              "ops %.1fs emit %.1fs (total %.1fs)", stats.index_s,
              stats.prep_s, stats.scan_s, stats.count_s, stats.ops_s,
              stats.emit_s, stats.seconds)
     S, W = opts.align_segment, opts.align_band
     for name in ("reads", "mapped", "dp_launches", "dp_launches_moves",
-                 "dp_lane_segs_issued", "dp_lane_segs_useful"):
+                 "dp_launches_extend", "dp_lane_segs_issued",
+                 "dp_lane_segs_useful"):
         met.set(name, getattr(stats, name))
     met.set("seconds", round(stats.seconds, 3))
     met.set("reads_per_s", round(stats.reads / max(stats.seconds, 1e-9), 2))

@@ -333,6 +333,87 @@ def pair_inputs(n, L, seed):
     return q, t, qlen, tlen, qseed, tseed
 
 
+def _noisy_copy(src: np.ndarray, rng, rate: float):
+    """``src`` with substitutions, deletions and insertions at rate / 3
+    each (an inserted random base follows its source base), and the
+    position each source base took in the copy (-1 where deleted)."""
+    n = len(src)
+    r = rng.random(n)
+    sub = r < rate / 3
+    dele = (r >= rate / 3) & (r < 2 * rate / 3)
+    ins = (r >= 2 * rate / 3) & (r < rate)
+    bases = np.where(sub, (src + rng.integers(1, 4, n, dtype=np.uint8)) % 4,
+                     src).astype(np.uint8)
+    counts = 1 - dele.astype(np.int64) + ins
+    out = np.repeat(bases, counts)
+    ends = np.cumsum(counts)
+    out[ends[ins] - 1] = rng.integers(0, 4, int(ins.sum()), dtype=np.uint8)
+    return out, np.where(dele, -1, ends - counts)
+
+
+def extend_inputs(n: int, L: int, S: int, seed: int, rate: float = 0.12):
+    """Query/target pairs for the segmented extension, rows of L bases: two
+    noisy copies (``rate`` split evenly into substitutions, insertions and
+    deletions) of a shared source of L/2 to L bases, the seed on a source
+    base both copies keep, so on the true diagonal.  The first 13 lanes are
+    edge lanes: 0 an empty query, 1 an empty target, 2 seeds at 0, 3 seeds
+    at the last bases, 4 the query seed at its end, 5 reads shorter than
+    S, 6 a random target, 7 a target that is the query with 45 %
+    substitutions (the identity gate stops it), 8 a 20-base query and its
+    copy with 8 substitutions, seeds at 0 (identity under 0.65 on fewer
+    than 32 columns: the escape of the gate), 9 a target longer than its
+    row with the seed past the row (the reverse direction's window start
+    wraps), 10 a seed S/4 bases off the diagonal, 11 a target that follows
+    the query for half its length and then turns random, 12 a full-length
+    pair at 2 % noise seeded at 0 (it runs the most segments).
+
+    Returns numpy (q, t uint8 [n, L], qlen, tlen, qseed, tseed int32 [n]).
+    """
+    rng = np.random.default_rng(seed)
+    q = np.zeros((n, L), np.uint8)
+    t = np.zeros((n, L), np.uint8)
+    qlen, tlen, qseed, tseed = (np.zeros(n, np.int32) for _ in range(4))
+
+    def put(b, a, c, qs, ts):
+        a, c = a[:L], c[:L]
+        q[b, :len(a)], t[b, :len(c)] = a, c
+        qlen[b], tlen[b] = len(a), len(c)
+        qseed[b], tseed[b] = qs, ts
+
+    for b in range(n):
+        src = rng.integers(0, 4, int(rng.integers(L // 2, L)), dtype=np.uint8)
+        a, pa = _noisy_copy(src, rng, rate)
+        c, pc = _noisy_copy(src, rng, rate)
+        kept = np.nonzero((pa >= 0) & (pc >= 0) & (pa < L) & (pc < L))[0]
+        p = int(rng.choice(kept))
+        put(b, a, c, int(pa[p]), int(pc[p]))
+    qlen[0] = qseed[0] = 0
+    tlen[1] = tseed[1] = 0
+    qseed[2] = tseed[2] = 0
+    qseed[3], tseed[3] = qlen[3] - 1, tlen[3] - 1
+    qseed[4], tseed[4] = qlen[4], tlen[4] - 1
+    short = rng.integers(0, 4, S // 3, dtype=np.uint8)
+    put(5, _noisy_copy(short, rng, rate)[0], _noisy_copy(short, rng, rate)[0],
+        S // 6, S // 6)
+    put(6, q[6, :qlen[6]], rng.integers(0, 4, tlen[6], dtype=np.uint8),
+        qseed[6], tseed[6])
+    a = rng.integers(0, 4, L, dtype=np.uint8)
+    c = np.where(rng.random(L) < 0.45,
+                 (a + rng.integers(1, 4, L, dtype=np.uint8)) % 4, a)
+    put(7, a, c.astype(np.uint8), 0, 0)
+    put(8, np.array([int(x) for x in "21033102331312101020"], np.uint8),
+        np.array([int(x) for x in "21000212301312211030"], np.uint8), 0, 0)
+    tlen[9], tseed[9] = L + 300, L + 100
+    tseed[10] = min(tseed[10] + S // 4, tlen[10] - 1)
+    a = q[11, :qlen[11]]
+    put(11, a, np.concatenate([a[:len(a) // 2], rng.integers(
+        0, 4, len(a) - len(a) // 2, dtype=np.uint8)]), 0, 0)
+    src = rng.integers(0, 4, L, dtype=np.uint8)
+    put(12, _noisy_copy(src, rng, 0.02)[0], _noisy_copy(src, rng, 0.02)[0],
+        0, 0)
+    return q, t, qlen, tlen, qseed, tseed
+
+
 def roll_micro_inputs(S: int, W: int, n: int, seed: int):
     """Lanes for the row-update micro-benchmark family.
 
@@ -595,14 +676,15 @@ def rank_main(argv=None) -> int:
     try:
         for task in args.tasks:
             l0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES,
-                  sharded.EXCHANGE_BYTES)
+                  dp_kernel.LAUNCHES_EXTEND, sharded.EXCHANGE_BYTES)
             walk0 = walk_kernel.launches()
             t0 = time.time()
             rec = _rank_task(task, args.rank, inputs, out_dir, device)
             rec.update(seconds=time.time() - t0,
                        launches=dp_kernel.LAUNCHES - l0[0],
                        launches_moves=dp_kernel.LAUNCHES_MOVES - l0[1],
-                       exchange_bytes=sharded.EXCHANGE_BYTES - l0[2],
+                       launches_extend=dp_kernel.LAUNCHES_EXTEND - l0[2],
+                       exchange_bytes=sharded.EXCHANGE_BYTES - l0[3],
                        **walk_kernel.launches_since(walk0))
             with open(os.path.join(out_dir, f"{task}.r{args.rank}.json"),
                       "w") as fh:

@@ -16,8 +16,10 @@ reference's keys: ``step_seconds``, ``speedup_vs_1dev`` and
 ``scaling_efficiency`` against ``t1 = t * n_dev`` of the first mesh,
 ``platform``, ``virtual_mesh``, and a ``hash_collective_overhead`` row for
 each (d, 2) mesh measured beside (2d, 1); each mesh's row adds
-``dp_launches``, the DP kernel launches of its ranks' timed steps (0 on
-the CPU).
+``dp_launches_extend`` and ``dp_launches``, the launches of the
+segment-loop kernel (one a step's extension) and of the per-segment
+counts kernel (none on this path) in its ranks' timed steps (0 on the
+CPU).
 
 ``virtual_mesh`` is true on the CPU, and on ``cuda`` when the largest mesh
 has more ranks than there are cards: the meshes' ranks then share devices,
@@ -61,10 +63,11 @@ def _workload(batch: int, n_reads: int, genome_n: int):
 
 def rank_median_step(device, n_data: int, n_hash: int, batch: int,
                      n_batches: int, n_reads: int, genome_n: int
-                     ) -> Tuple[float, int]:
-    """Median seconds of this rank's sharded overlap step and the DP kernel
-    launches of its timed steps (the process group is up, or this is the
-    only process)."""
+                     ) -> Tuple[float, dict]:
+    """Median seconds of this rank's sharded overlap step and the DP
+    kernels' launches of its timed steps, as
+    :func:`..ops.dp_kernel.launches` keys them (the process group is up, or
+    this is the only process)."""
     from ..index.kmer_index import build_index
     from ..ops import dp_kernel
     from ..parallel.dist import barrier, make_grid
@@ -91,13 +94,13 @@ def rank_median_step(device, n_data: int, n_hash: int, batch: int,
         barrier()
 
     step()                                  # warm-up (and kernel build)
-    dp_kernel.LAUNCHES = 0
+    dp0 = dp_kernel.launches()
     times = []
     for _ in range(n_batches):
         t0 = time.time()
         step()
         times.append(time.time() - t0)
-    return float(np.median(times)), dp_kernel.LAUNCHES
+    return float(np.median(times)), dp_kernel.launches_since(dp0)
 
 
 def scaling_report(mesh_shapes: Optional[List[Tuple[int, int]]] = None,
@@ -146,6 +149,8 @@ def scaling_report(mesh_shapes: Optional[List[Tuple[int, int]]] = None,
             "platform": device.type,
             "virtual_mesh": virtual,
             "dp_launches": sum(f["dp_launches"] for f in found),
+            "dp_launches_extend": sum(f["dp_launches_extend"]
+                                      for f in found),
         }
         rows.append(row)
         if emit:
@@ -217,7 +222,9 @@ def _rank_main(args, device: torch.device) -> int:
             args.genome_n)
         print("SCALING_RANK " + json.dumps(
             {"rank": args.rank, "median_s": median,
-             "dp_launches": launches}), flush=True)
+             "dp_launches": launches["dp_launches"],
+             "dp_launches_extend": launches["dp_launches_extend"]}),
+            flush=True)
     finally:
         dist.destroy_process_group()
     return 0

@@ -21,8 +21,8 @@ from mecat_tpu_torch.ops import (align, consensus_banded, dp_kernel,
 from mecat_tpu_torch.pipeline.device_step import overlap_step
 from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
 from mecat_tpu_torch.testing import (GOLDEN_J1, deposit_inputs, dp_inputs,
-                                     dp_inputs_full, roll_micro_inputs,
-                                     walk_inputs)
+                                     dp_inputs_full, extend_inputs,
+                                     roll_micro_inputs, walk_inputs)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 pytestmark = pytest.mark.cuda
@@ -210,6 +210,83 @@ def test_dp_kernel_rejects_what_it_does_not_take(cuda):
                                        active, S, W)
 
 
+def _extend_lanes(cuda, S, W, source, n=512):
+    """Direction lanes on the card: 2n lanes of ``extend_inputs`` pairs
+    (rows of 20 S bases at 12 % noise, with its edge lanes), or the
+    ``dp_inputs`` lanes as pairs seeded at 0 (lanes with nothing to extend
+    among them)."""
+    if source == "pairs":
+        pairs = extend_inputs(n, 20 * S, S, seed=S + W)
+    else:
+        q, tpad, tmax, seg_q, _ = dp_inputs(S, W, n, seed=S + 3)
+        zeros = np.zeros(n, np.int32)
+        pairs = (q, np.ascontiguousarray(tpad[:, W // 2:]), seg_q, tmax,
+                 zeros, zeros)
+    return [x.contiguous() for x in align.direction_lanes(
+        *(torch.as_tensor(a, device=cuda) for a in pairs), S, W)]
+
+
+@pytest.mark.parametrize("max_segs", [1, 16])
+@pytest.mark.parametrize("source", ["pairs", "dp"])
+@pytest.mark.parametrize("S,W", [(128, 64), (512, 128)])
+def test_extend_loop_kernel_matches_plain(cuda, S, W, source, max_segs):
+    """The segment-loop kernel against the plain host loop: all six
+    outputs on every lane, one launch and no per-segment launch."""
+    lanes = _extend_lanes(cuda, S, W, source)
+    kw = dict(S=S, W=W, max_segs=max_segs, min_seg_identity=0.65)
+    before = dp_kernel.launches()
+    got, _ = align._extend_direction_impl(*lanes, **kw)
+    assert dp_kernel.launches_since(before) == {
+        "dp_launches": 0, "dp_launches_moves": 0, "dp_launches_extend": 1}
+    want, _ = align._extend_direction_impl(
+        *lanes, **kw, dp=align.dp_segment_best_plain)
+    torch.cuda.synchronize()
+    for name, g, w in zip(align.ExtensionResult._fields, got, want):
+        assert torch.equal(g, w), name
+    assert int(want.n_segs.max()) == max_segs or source == "dp"
+
+
+def test_extend_loop_kernel_writes_every_output_of_an_uninitialised_buffer(
+        cuda, monkeypatch):
+    S, W = 128, 64
+    lanes = _extend_lanes(cuda, S, W, "pairs", n=64)
+    kw = dict(S=S, W=W, max_segs=16, min_seg_identity=0.65)
+    real_empty = torch.empty
+
+    def ones_empty(*size, **kwargs):
+        return real_empty(*size, **kwargs).fill_(1)
+
+    monkeypatch.setattr(torch, "empty", ones_empty)
+    got = dp_kernel.extend_counts_cuda(*lanes, **kw)
+    monkeypatch.undo()
+    want, _ = align._extend_direction_impl(
+        *lanes, **kw, dp=align.dp_segment_best_plain)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_extend_loop_kernel_rejects_what_it_does_not_take(cuda):
+    S, W = 128, 64
+    lanes = _extend_lanes(cuda, S, W, "pairs", n=16)
+    kw = dict(S=S, max_segs=4, min_seg_identity=0.65)
+    fn = dp_kernel.extend_counts_cuda
+    with pytest.raises(ValueError):                 # a band it does not take
+        fn(*lanes, W=96, **kw)
+    with pytest.raises(ValueError):                 # rows narrower than S + W
+        fn(lanes[0], lanes[1][:, :S + W - 1].contiguous(), *lanes[2:], W=W,
+           **kw)
+    with pytest.raises(TypeError):                  # dtype
+        fn(*lanes[:2], lanes[2].long(), *lanes[3:], W=W, **kw)
+    with pytest.raises(ValueError):                 # shape
+        fn(*lanes[:5], lanes[5][:-1], W=W, **kw)
+    S_big = 8192              # 4 lanes of windows overflow 48 KB of smem
+    with pytest.raises(ValueError):
+        fn(lanes[0].new_zeros(32, S_big), lanes[1].new_zeros(32, 2 * S_big),
+           *(x[:32] for x in lanes[2:]), W=W, S=S_big, max_segs=4,
+           min_seg_identity=0.65)
+
+
 def test_overlap_step_kernel_matches_plain(cuda):
     db = PackedDB.from_fasta(os.path.join(GOLDEN, "reads.fasta"))
     cfg = dict(k=9, stride=4, max_occ=32, num_candidates=12, diag_bin=256,
@@ -232,10 +309,12 @@ def test_overlap_step_kernel_matches_plain(cuda):
 def test_run_pw_golden_bytes_on_cuda(cuda):
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "out.m4")
-        before = dp_kernel.LAUNCHES
+        before = dp_kernel.launches()
         run_pw(os.path.join(GOLDEN, "reads.fasta"), out, os.path.join(d, "w"),
                PwOptions(**GOLDEN_J1), device=cuda)
-        assert dp_kernel.LAUNCHES > before
+        launched = dp_kernel.launches_since(before)
+        assert launched["dp_launches_extend"] > 0
+        assert launched["dp_launches"] == 0
         with open(out, "rb") as fh, \
                 open(os.path.join(GOLDEN, "overlaps.m4"), "rb") as gh:
             assert fh.read() == gh.read()
@@ -247,14 +326,14 @@ def test_fused_run_pw_on_cuda_matches_cpu_bytes(cuda):
         got = {}
         for dev in (cuda, "cpu"):
             out = os.path.join(d, f"{dev}.m4")
-            before = dp_kernel.LAUNCHES
+            before = dp_kernel.LAUNCHES_EXTEND
             stats = run_pw(reads, out, os.path.join(d, f"w{dev}"),
                            PwOptions(**GOLDEN_J1), device=dev,
                            route="fused")
             with open(out, "rb") as fh:
                 got[str(dev)] = (fh.read(), stats.overlaps, stats.cells,
                                  stats.cells_useful,
-                                 dp_kernel.LAUNCHES - before)
+                                 dp_kernel.LAUNCHES_EXTEND - before)
         assert got["cuda"][:4] == got["cpu"][:4]
         assert got["cuda"][1] > 0
         assert got["cuda"][4] > 0 and got["cpu"][4] == 0
@@ -362,7 +441,8 @@ def test_run_ref_on_cuda_matches_cpu_bytes(cuda):
                 with open(out, "rb") as fh:
                     outs[dev] = fh.read()
                 if dev == "cuda":
-                    assert stats.dp_launches > 0
+                    assert stats.dp_launches_extend > 0
+                    assert stats.dp_launches == 0
                     assert (stats.dp_launches_moves > 0) == (fmt == "sam")
                     assert stats.mapped == db.n_reads
             assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 200

@@ -13,7 +13,7 @@ from mecat_tpu_torch.utils.scaling import scaling_report
 
 ROW_KEYS = {"n_data", "n_hash", "n_devices", "step_seconds",
             "speedup_vs_1dev", "scaling_efficiency", "platform",
-            "virtual_mesh", "dp_launches"}
+            "virtual_mesh", "dp_launches", "dp_launches_extend"}
 
 
 def test_scaling_report_shapes():
@@ -36,6 +36,7 @@ def test_scaling_report_shapes():
         assert r["platform"] == "cpu"
         assert r["virtual_mesh"] is True  # ranks share the host
         assert r["dp_launches"] == 0      # the plain DP on the CPU
+        assert r["dp_launches_extend"] == 0
     assert cfgs[0]["scaling_efficiency"] == 1.0
     # no (4, 1) beside (2, 2): no hash-overhead row
     assert len(rows) == 3
