@@ -24,7 +24,16 @@ non-zero exit and no result line:
    one launch a call and none of the per-segment kernel; at (512, 128) the
    wrapper alone, ms of one launch from the host and from a CUDA graph, the
    plain loop's ms, the bound on this data and ns a dependent step of the
-   longest lane's chain of segments.  Then both DP wrappers alone
+   longest lane's chain of segments.  The move loop (the move-writing
+   segment loop of both directions, one launch) against the host loop on
+   the ``extend_inputs`` pairs at both shapes, 30 right / 20 left
+   segments and 1 / 1: both ExtensionResults and every element of the six
+   raw arrays (moves, r_end, w_end, qoff and toff before, ok) of every
+   slot < G, one launch a call and none of the other DP kernels; at (512,
+   128) the wrapper alone as for the counts loop.  Every DP-family kernel
+   (both per-segment kernels, both loops, the row and the column walk) at
+   the band widths 32, 48, 96, 160 and 256 against its plain version.
+   Then both DP wrappers alone
    (``ops/dp_kernel``, nothing around them) at the shapes the paths
    launch: (512, 128), full-length segments, 64 / 256 / 1,024 / 4,096 live
    lanes scattered over 4,096 and 64 of 128, every lane held against the
@@ -43,10 +52,11 @@ non-zero exit and no result line:
    output rows of each of the five variants equal on every lane; then the
    tool itself, ``mecat_tpu_torch.tools.roll_micro`` at its defaults, whose
    launches are the family's main path;
-3. golden bytes: ``run_pw(device="cuda")`` on ``tests/golden/reads.fasta``
-   reproduces ``tests/golden/overlaps.m4`` (-j 1) and ``candidates.txt``
-   (-j 0), and ``run_cns(device="cuda")`` on the candidates reproduces
-   ``tests/golden/corrected.fasta``, byte for byte;
+3. golden bytes: ``run_pw(device="cuda", route="staged")`` on
+   ``tests/golden/reads.fasta`` reproduces ``tests/golden/overlaps.m4``
+   (-j 1, the staged route's bytes) and ``candidates.txt`` (-j 0), and
+   ``run_cns(device="cuda")`` on the candidates reproduces
+   ``tests/golden/corrected.fasta``, byte for byte, through the move loop;
 4. the bench workload (500 kb genome, 15x, mean 5 kb, 12 % error, seeds
    91/92; k 13, stride 10, N 16, S 512, W 128, 30 segments, B 128, L 8192)
    through ``overlap_step``: a warm-up batch, then ``--passes`` (default 3)
@@ -54,10 +64,11 @@ non-zero exit and no result line:
    of the median pass, issued and useful DP Gcells/s, peak device memory;
    batch 0 equals the plain-version ``overlap_step``.  ``--profile`` adds
    one pass under ``torch.profiler`` and prints the device-time breakdown;
-5. the CLI ``python -m mecat_tpu_torch.cli.mecat2pw -j 1`` on the bench
-   reads as a subprocess: exit 0, record count, wall seconds, and its own
-   metrics summary (phase split, useful DP Gcells/s, segment-loop kernel
-   launches, which must be > 0);
+5. the CLI ``python -m mecat_tpu_torch.cli.mecat2pw -j 1 --route staged``
+   on the bench reads as a subprocess (the staged route, which -j 1 on
+   cuda no longer takes by default): exit 0, record count, wall seconds,
+   and its own metrics summary (phase split, useful DP Gcells/s,
+   segment-loop kernel launches, which must be > 0);
 6. correction at full width: supports from the first 4 bench batches'
    ``overlap_step`` output (forward strand, self hits dropped), the up to
    128 templates with >= 5 supports, pacbio preset with ``min_length`` 2000
@@ -113,10 +124,11 @@ non-zero exit and no result line:
 13. the fused pw route and the sharded drivers: (a) ``run_pw(route=
    "fused")`` on ``cuda`` equals its ``cpu`` run, bytes and ``PwStats``, on
    the reads of ``tests/test_dist.py`` and on ``tests/golden/reads.fasta``
-   at ``-j 1``; (b) the CLI ``mecat2pw -j 1 -n 16 -a 1000 --route fused
-   --device cuda`` on the bench reads beside phase 5's staged run: wall and
-   ``run_pw`` seconds, records, launches (segment-loop kernel > 0, move
-   kernel 0), issued and useful Gcells, the route's phase split; (c) one
+   at ``-j 1``; (b) the CLI ``mecat2pw -j 1 -n 16 -a 1000 --device cuda``
+   with no ``--route`` on the bench reads, which must take the fused
+   route, beside phase 5's staged run: wall and ``run_pw`` seconds,
+   records, launches (segment-loop kernel > 0, move-writing kernels 0),
+   issued and useful Gcells, the route's phase split; (c) one
    rank on
    NCCL in this process (``init_distributed`` with a ``file://`` store):
    ``run_pw_dist`` on the bench reads gives 13b's records, ``run_cns_dist``
@@ -159,7 +171,8 @@ card of its own, ``gloo`` on the CPU or where ranks share a card.
 
 Each kernel's launch counter is zeroed just before the timed run of its
 path (phase 4's steady passes, phase 6's timed pass, the tool's run in
-phase 2, the CUDA SAM run of phase 8, phase 10's timed pass, phase 13c)
+phase 2, the CUDA SAM run of phase 8, phase 10's timed pass, phase 13c;
+around phase 3's cns run and each two-round and polish check)
 and read just after (the DP counters all together), so the reported
 launches are those of the main paths only; the CLIs of phases 7, 9, 11, 12
 and 13b, the ranks of 13d and the
@@ -170,7 +183,10 @@ cns pass).  The row walk and the deposit scan must launch on every
 correction path (phases 6, 7, 10, 11, 12, 13c, 13d, 14c), the column walk
 on both mapping runs (8, 9); every counts path (phases 4, 5, 8, 9, 11, 12,
 13b-13d, 14c, 14d) must launch the segment-loop kernel and never the
-per-segment counts kernel, whose body runs inside it.  The line before the
+per-segment counts kernel, whose body runs inside it; every correction,
+rounds, polish and mapping phase-B path (phases 3, 6, 7, 8, 9, 10, 11,
+12, 13c, 13d, 14c) must launch the move loop and never the per-segment
+move kernel, whose body runs inside it.  The line before the
 last is a JSON object with the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
 without the repository beside it.
@@ -197,6 +213,9 @@ ROLL_REPLACES = "tools/roll_micro.py:155"                  # build_call
 #: the reference's counts-only segment loop (while_loop; body seg_step
 #: at :468) that the segment-loop kernel of KERNEL_SOURCE replaces
 EXTEND_REPLACES = "mecat_tpu/ops/align.py:531"
+#: the reference's move-writing segment loop (lax.scan of seg_step) that
+#: the move loop of KERNEL_SOURCE replaces
+EXTEND_MOVES_REPLACES = "mecat_tpu/ops/align.py:520"
 WALK_SOURCE = "mecat_tpu_torch/csrc/cns_walk.cu"
 #: each walk kernel -> the reference's scan it replaces
 WALK_REPLACES = {
@@ -232,6 +251,15 @@ ROLL_LANES = 2048   # the tool's default
 WALK_OPS = dict(row_chunk=20, row=12, deposit_row=24, gap_cell=3,
                 deposit_char=6, col_step=16)
 
+#: band widths held in phase 2 besides the paths' 64 and 128: every other
+#: kernel instance (C = 2, 4, 6, 8 cells a thread), with and without
+#: padding cells, and the row walk's odd word counts
+BAND_SWEEP = (32, 48, 96, 160, 256)
+#: the four DP kernels' launch counters: record key -> summary key
+DP_KEYS = (("counts", "dp_launches"), ("moves", "dp_launches_moves"),
+           ("extend", "dp_launches_extend"),
+           ("extend_moves", "dp_launches_extend_moves"))
+
 # mapping at a real reference size (tools/ref_bench.py:39-44)
 REF_GENOME, REF_READS, REF_MEAN_LEN = 46_000_000, 2000, 10_000
 #: the small mapping check's options (tests/test_ref.py)
@@ -266,11 +294,27 @@ def need_walks(where: str, counts: dict,
 
 
 def zero_dp_counts() -> None:
-    """Set the three DP kernels' launch counters to 0."""
+    """Set the four DP kernels' launch counters to 0."""
     from mecat_tpu_torch.ops import dp_kernel
 
     dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
-    dp_kernel.LAUNCHES_EXTEND = 0
+    dp_kernel.LAUNCHES_EXTEND = dp_kernel.LAUNCHES_EXTEND_MOVES = 0
+
+
+def dp_launches_of(counts: dict, prefix: str = "") -> dict:
+    """The four DP kernels' launches in ``counts`` (``dp_kernel.launches()``,
+    a metrics summary, or a bench line with ``prefix``), by record key."""
+    return {key: counts.get(prefix + name, 0) for key, name in DP_KEYS}
+
+
+def need_moves_loop(where: str, launches: dict) -> None:
+    """Raises unless a correction or mapping path ran its move-writing DP
+    through the move loop (``extend_moves`` launches > 0) and never
+    through the per-segment move kernel, whose body runs inside it."""
+    if launches.get("extend_moves", 0) <= 0 or launches.get("moves", 0):
+        raise AssertionError(
+            f"{where} did not run its move-writing DP through the move loop "
+            f"alone: {launches}")
 
 
 def need_loop(where: str, extend: int, per_segment: int) -> None:
@@ -512,17 +556,23 @@ def extend_cases(S: int, W: int):
                         tmax, zeros, zeros)])]
 
 
-def extend_bound(lanes, S: int, W: int, max_segs: int):
-    """The plain loop on these direction lanes, timed between two events,
-    and the work it did: (result, its ms, bound numbers, dependent steps of
-    the longest lane, lane-segments run).  A lane-segment computes rows 1..min(seg_q, S, tmax + W/2) (one more row
-    finds the band gone, as in ``dp_bound``) of W cells at the
-    source's 12 operations a cell; it reads its S + S + W window bytes, and
-    each lane its four int32 inputs and six outputs once.  The longest
-    lane's chain: 2 rows + W steps a segment, over its segments."""
+def loop_bound(run, S: int, W: int, moves: bool):
+    """A host loop on the plain DP (a segment loop's plain version), timed
+    between two events, and the work it did: (its result, its ms, bound
+    numbers, dependent steps of the longest lane, lane-segments run).
+    ``run(dp)`` runs the loop with segment function ``dp`` and returns
+    (result, G): G, where the loop runs both directions, is the right
+    direction's segments (the first G calls), else None.
+
+    A lane-segment computes rows 1..min(seg_q, S, tmax + W/2) (one more row
+    finds the band gone, as in ``dp_bound``) of W cells at the source's
+    operations a cell (18 with moves); it reads its S + S + W window bytes,
+    with moves writes its S * W/4 bytes of move words (zeros past the last
+    row) and 17 bytes of endpoint, and each lane its four int32 inputs and
+    six outputs once.  The longest lane's chain: 2 rows + W steps a
+    segment, over its segments (each direction lane its own chain)."""
     import torch
 
-    from mecat_tpu_torch import constants as C
     from mecat_tpu_torch.ops import align
 
     rows_of = []
@@ -537,20 +587,21 @@ def extend_bound(lanes, S: int, W: int, max_segs: int):
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    res, _ = align._extend_direction_impl(
-        *lanes, S=S, W=W, max_segs=max_segs,
-        min_seg_identity=C.MIN_SEGMENT_IDENTITY, dp=recording)
+    res, G = run(recording)
     b.record()
     torch.cuda.synchronize()
     plain_ms = a.elapsed_time(b)
-    rows = torch.stack(rows_of) if rows_of else torch.zeros(
-        (0, lanes[0].shape[0]), dtype=torch.long, device=lanes[0].device)
-    n_rows = int(rows.sum())
-    lane_segs = int((rows > 0).sum())
-    chain = int(torch.where(rows > 0, 2 * rows + W, 0).sum(0).max()) \
-        if rows.numel() else 0
-    bound = card_bound(lane_segs * (S + S + W) + lanes[0].shape[0] * 40,
-                       n_rows * W * OPS_PER_CELL[False])
+    n_rows = lane_segs = chain = n_lanes = 0
+    for part in ((rows_of,) if G is None else (rows_of[:G], rows_of[G:])):
+        rows = torch.stack(part)
+        n_lanes += rows.shape[1]
+        n_rows += int(rows.sum())
+        lane_segs += int((rows > 0).sum())
+        chain = max(chain, int(torch.where(rows > 0, 2 * rows + W,
+                                           0).sum(0).max()))
+    per_seg = S + S + W + (S * W // 4 + 17 if moves else 0)
+    bound = card_bound(lane_segs * per_seg + n_lanes * 40,
+                       n_rows * W * OPS_PER_CELL[moves])
     return res, plain_ms, bound, chain, lane_segs
 
 
@@ -579,15 +630,17 @@ def phase_extend(S: int, W: int, time_it: bool) -> dict:
             got, _ = align._extend_direction_impl(*lanes, **kw)
             launched = dp_kernel.launches_since(before)
             if time_it and timed is None:
-                want, plain_ms, b, chain, lane_segs = extend_bound(
-                    lanes, S, W, max_segs)
+                want, plain_ms, b, chain, lane_segs = loop_bound(
+                    lambda dp: (align._extend_direction_impl(
+                        *lanes, **kw, dp=dp)[0], None), S, W, False)
                 timed = (lanes, max_segs)
             else:
                 want, _ = align._extend_direction_impl(
                     *lanes, **kw, dp=align.dp_segment_best_plain)
             torch.cuda.synchronize()
             if launched != {"dp_launches": 0, "dp_launches_moves": 0,
-                            "dp_launches_extend": 1}:
+                            "dp_launches_extend": 1,
+                            "dp_launches_extend_moves": 0}:
                 raise AssertionError(f"the counts loop on cuda launched "
                                      f"{launched}")
             for name, g, w in zip(align.ExtensionResult._fields, got, want):
@@ -619,6 +672,186 @@ def phase_extend(S: int, W: int, time_it: bool) -> dict:
     return dict(max_abs_err=err, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
                 chain_steps=chain, ns_step=1e6 * graph_ms / max(chain, 1),
                 lane_segments=lane_segs, **b)
+
+
+def check_moves_loop(got, want, pairs, S: int, W: int, what: str) -> int:
+    """The move loop's (left, right, raw2, G) against the host loop's on
+    the plain DP: both ExtensionResults, G and every element of the six raw
+    arrays of every slot < G, the plain moves past each segment's last row
+    set to zero as the kernels leave them.  Returns the largest difference
+    (0)."""
+    import torch
+
+    from mecat_tpu_torch.ops import align
+    from mecat_tpu_torch.testing import moves_as_the_kernels_leave_them
+
+    err = 0
+    for side, g_res, w_res in zip(("left", "right"), got[:2], want[:2]):
+        for name, g, w in zip(align.ExtensionResult._fields, g_res, w_res):
+            err = max(err, int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"move loop != plain, {what}: {side} "
+                                     f"{name} differs")
+    if got[3] != want[3] or got[2][0].shape != want[2][0].shape:
+        raise AssertionError(f"move loop != plain, {what}: G {got[3]} / "
+                             f"{tuple(got[2][0].shape)}, plain {want[3]} / "
+                             f"{tuple(want[2][0].shape)}")
+    lanes = align.direction_lanes(*pairs, S, W)
+    want_raw = moves_as_the_kernels_leave_them(want[2], want[3], lanes[4],
+                                               lanes[5], S, W)
+    for name, g, w in zip(("moves", "r_end", "w_end", "qoff_before",
+                           "toff_before", "ok"), got[2], want_raw):
+        err = max(err, int((g.long() - w.long()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"move loop != plain, {what}: {name} "
+                                 f"differs on {int((g != w).sum())} of "
+                                 f"{g.numel()} elements")
+    return err
+
+
+def phase_extend_moves(S: int, W: int, time_it: bool) -> dict:
+    """The move loop (the move-writing segment loop of both directions, one
+    launch) against the host loop at one shape, on the ``extend_inputs``
+    case of ``extend_cases``, at 30 segments right and 20 left and at 1:
+    both ExtensionResults and the six raw arrays on every slot < G, one
+    launch a call and none of the other DP kernels.  With ``time_it`` the
+    host loop of the first call is timed (the run the kernel is held
+    against) and the wrapper alone: ms of one launch from the host and
+    replayed from a CUDA graph, the bound, and ns a dependent step of the
+    longest lane.  Returns those numbers."""
+    import torch
+
+    from mecat_tpu_torch import constants as C
+    from mecat_tpu_torch.ops import align, dp_kernel
+
+    what, pairs = extend_cases(S, W)[0]
+    err = 0
+    timed = None
+    for max_segs, max_left in ((CFG["max_segs"], 20), (1, 1)):
+        kw = dict(S=S, W=W, max_segs=max_segs, max_segs_left=max_left,
+                  min_seg_identity=C.MIN_SEGMENT_IDENTITY)
+        before = dp_kernel.launches()
+        got = align._extend_both_with_moves(*pairs, **kw,
+                                            dp=align.dp_segment_best)
+        launched = dp_kernel.launches_since(before)
+        if time_it and timed is None:
+            def host_loop(dp):
+                res = align._extend_both_with_moves(*pairs, **kw, dp=dp)
+                return res, res[3]
+
+            want, plain_ms, b, chain, lane_segs = loop_bound(host_loop, S, W,
+                                                             True)
+            timed = (max_segs, max_left)
+        else:
+            want = align._extend_both_with_moves(
+                *pairs, **kw, dp=align.dp_segment_best_plain)
+        torch.cuda.synchronize()
+        if launched != {"dp_launches": 0, "dp_launches_moves": 0,
+                        "dp_launches_extend": 0,
+                        "dp_launches_extend_moves": 1}:
+            raise AssertionError(f"the move loop on cuda launched {launched}")
+        err = max(err, check_moves_loop(
+            got, want, pairs, S, W,
+            f"S={S} W={W}, max_segs {max_segs} / {max_left}, {what}"))
+        say(f"phase 2: move loop == plain at S={S} W={W}, "
+            f"{2 * pairs[0].shape[0]} direction lanes of {what}, max_segs "
+            f"{max_segs} right / {max_left} left: both ExtensionResults and "
+            f"every element of the six raw arrays of all "
+            f"{want[2][0].shape[0]} "
+            f"slots (G {want[3]} right) equal; "
+            f"{int(want[0].n_segs.sum() + want[1].n_segs.sum())} "
+            f"lane-segments")
+        del got, want
+    if not time_it:
+        return dict(max_abs_err=err)
+    max_segs, max_left = timed
+    lanes = [x.contiguous() for x in align.direction_lanes(*pairs, S, W)]
+    B = pairs[0].shape[0]
+    fn = lambda: dp_kernel.extend_moves_cuda(
+        *lanes, S=S, W=W, max_segs=max_segs, split=B, max_segs_b=max_left,
+        min_seg_identity=C.MIN_SEGMENT_IDENTITY)
+    ms = cuda_median_ms(fn, 11)
+    graph_ms = cuda_graph_ms(fn, launches=3, reps=5)
+    torch.cuda.empty_cache()
+    say(f"phase 2: move loop alone at S={S} W={W}, {len(lanes[0])} lanes, "
+        f"max_segs {max_segs} / {max_left}: one launch from the host "
+        f"{ms:.4f} ms, replayed from a CUDA graph {graph_ms:.4f} ms "
+        f"({1e6 * graph_ms / max(chain, 1):.1f} ns a step of the longest "
+        f"lane's {chain}); plain loop {plain_ms:.2f} ms; {lane_segs} "
+        f"lane-segments; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return dict(max_abs_err=err, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                chain_steps=chain, ns_step=1e6 * graph_ms / max(chain, 1),
+                lane_segments=lane_segs, **b)
+
+
+def phase_widths() -> dict:
+    """Every DP-family kernel at the band widths of BAND_SWEEP (S = 128):
+    the two per-segment kernels on 256 ``dp_inputs`` lanes (the endpoints
+    on every lane, the move words on every row: the plain version's up to
+    the last row computed, zeros after), the row and the column walk on the
+    move kernel's words, the counts loop on 256 direction lanes of
+    ``extend_inputs`` pairs and the move loop on the same pairs, each
+    against its plain version.  Returns {kernel: largest difference}."""
+    import torch
+
+    from mecat_tpu_torch import constants as C
+    from mecat_tpu_torch.ops import align
+    from mecat_tpu_torch.testing import dp_inputs, extend_inputs
+
+    dev = torch.device("cuda")
+    S = 128
+    err = dict.fromkeys(("dp_segment_best", "dp_segment_best_moves",
+                         "extend_counts", "extend_moves", "traceback_rows",
+                         "traceback_ops"), 0)
+
+    def check(name, got, want, W):
+        for g, w in zip(got, want):
+            err[name] = max(err[name], int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name} kernel != plain at S={S} W={W}")
+
+    for W in BAND_SWEEP:
+        args = [torch.as_tensor(a, device=dev)
+                for a in dp_inputs(S, W, 256, seed=211 + W)]
+        want = align.dp_segment_best_plain(*args, S, W, want_moves=True)
+        check("dp_segment_best", align.dp_segment_best(*args, S, W), want[1:],
+              W)
+        got = align.dp_segment_best(*args, S, W, want_moves=True)
+        last = torch.minimum(args[3].clamp(max=S), args[2] + W // 2)
+        last = torch.where(args[2] < 0, 0, last).clamp(min=0)
+        row = torch.arange(1, S + 1, device=dev)[None, :, None]
+        check("dp_segment_best_moves", got, (torch.where(
+            (row <= last[:, None, None]) & args[4][:, None, None], want[0],
+            0), *want[1:]), W)
+        moves, r_best, w_best = got[:3]
+        check("traceback_rows", align.traceback_rows(moves, r_best, w_best, W),
+              align.traceback_rows_plain(moves, r_best, w_best, W), W)
+        TC = align.max_tape_cols(S, W, C.MIN_SEGMENT_IDENTITY)
+        check("traceback_ops",
+              align.traceback_ops(moves, r_best, w_best, W, TC),
+              align.traceback_ops_plain(moves, r_best, w_best, W, TC), W)
+        pairs = [torch.as_tensor(a, device=dev)
+                 for a in extend_inputs(128, 20 * S, S, seed=221 + W)]
+        lanes = [x.contiguous() for x in align.direction_lanes(*pairs, S, W)]
+        kw = dict(S=S, W=W, min_seg_identity=C.MIN_SEGMENT_IDENTITY)
+        check("extend_counts",
+              align._extend_direction_impl(*lanes, **kw, max_segs=16)[0],
+              align._extend_direction_impl(
+                  *lanes, **kw, max_segs=16,
+                  dp=align.dp_segment_best_plain)[0], W)
+        kw.update(max_segs=16, max_segs_left=9)
+        err["extend_moves"] = max(err["extend_moves"], check_moves_loop(
+            align._extend_both_with_moves(*pairs, **kw,
+                                          dp=align.dp_segment_best),
+            align._extend_both_with_moves(*pairs, **kw,
+                                          dp=align.dp_segment_best_plain),
+            pairs, S, W, f"S={S} W={W}"))
+        torch.cuda.synchronize()
+        say(f"phase 2: band W={W} (S={S}): both per-segment DP kernels (256 "
+            f"lanes, every move word), the row and the column walk on their "
+            f"words, the counts loop and the move loop (256 direction lanes, "
+            f"16 / 9 segments) == their plain versions")
+    return err
 
 
 def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
@@ -820,7 +1053,12 @@ def phase_roll_micro_tool() -> int:
     return launches
 
 
-def phase_golden(work: str) -> None:
+def phase_golden(work: str) -> dict:
+    """Golden bytes on the card: the staged pw route (the golden files are
+    its; -j 1 on cuda takes the fused route unless asked) and the cns run,
+    whose DP must go through the move loop.  Returns the cns run's DP
+    launches."""
+    from mecat_tpu_torch.ops import dp_kernel
     from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
     from mecat_tpu_torch.testing import GOLDEN_J0, GOLDEN_J1
 
@@ -831,7 +1069,7 @@ def phase_golden(work: str) -> None:
         out = os.path.join(work, want)
         t0 = time.time()
         run_pw(reads, out, os.path.join(work, "w" + want), PwOptions(**opts),
-               device="cuda")
+               device="cuda", route="staged")
         with open(out, "rb") as fh, \
                 open(os.path.join(golden, want), "rb") as gh:
             if fh.read() != gh.read():
@@ -844,14 +1082,18 @@ def phase_golden(work: str) -> None:
 
     out = os.path.join(work, "corrected.fasta")
     t0 = time.time()
+    before = dp_kernel.launches()
     run_cns(os.path.join(golden, "candidates.txt"), reads, out,
             CnsOptions(**GOLDEN_CNS), device="cuda")
+    launches = dp_launches_of(dp_kernel.launches_since(before))
     with open(out, "rb") as fh, \
             open(os.path.join(golden, "corrected.fasta"), "rb") as gh:
         if fh.read() != gh.read():
             raise AssertionError("golden corrected.fasta differs on the card")
+    need_moves_loop("the golden cns run", launches)
     say(f"phase 3: golden corrected.fasta (mecat2cns -i 0) byte-equal on the "
-        f"card ({time.time() - t0:.2f} s)")
+        f"card ({time.time() - t0:.2f} s; DP launches {launches})")
+    return launches
 
 
 def bench_reads():
@@ -1032,6 +1274,8 @@ class StageTimers:
         self.calls: dict = {}
         self.sites = [(align, "traceback_rows", "row walk"),
                       (align, "_extend_direction_impl", "segment loop + DP"),
+                      (align, "_extend_both_with_moves",
+                       "move loop + DP (both directions, cut to G)"),
                       (consensus_banded, "_deposit_scan", "deposit scan"),
                       (consensus_banded, "banded_global_planes",
                        "global planes (incl. deposit scan)"),
@@ -1100,14 +1344,16 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
 
     _, _, warm_s = one_pass(templates)
     torch.cuda.reset_peak_memory_stats()
-    dp_kernel.LAUNCHES_MOVES = 0         # the main path's run starts here
+    zero_dp_counts()                     # the main path's run starts here
     zero_walk_counts()
     out, stats, dt = one_pass(templates)
-    launches = dp_kernel.LAUNCHES_MOVES  # ... and ends here
+    launches = dp_launches_of(dp_kernel.launches())  # ... and ends here
     walks = need_walks("the cns pass", walk_kernel.launches())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches <= 0:
-        raise AssertionError("the cns pass launched no move-writing kernel")
+    need_moves_loop("the cns pass", launches)
+    if launches["counts"] or launches["extend"]:
+        raise AssertionError(f"the cns pass launched a counts kernel: "
+                             f"{launches}")
     if stats.corrected_reads <= 0 or stats.corrected_reads != len(out):
         raise AssertionError(f"cns pass corrected {stats.corrected_reads} "
                              f"reads, yielded {len(out)}")
@@ -1119,7 +1365,7 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
         f"{stats.supports_aligned} supports aligned in {dt:.4f} s (warm pass "
         f"{warm_s:.4f} s): {stats.supports_aligned / dt:.1f} supports/s, "
         f"{stats.corrected_reads} corrected reads, {stats.corrected_bases} "
-        f"bases, {stats.table_slices} table slices, {launches} DP launches, "
+        f"bases, {stats.table_slices} table slices, DP launches {launches}, "
         f"walk launches {walks}, peak device memory {peak_gb:.3f} GB")
     say(f"phase 6: DP lane-segments issued {stats.dp_lane_segs_issued}, "
         f"useful {stats.dp_lane_segs_useful}: "
@@ -1224,10 +1470,14 @@ def phase_cli(reads: str, n_reads: int, work: str) -> dict:
     out = os.path.join(work, "bench.m4")
     wall, summary = run_cli(
         "mecat2pw", ["-j", "1", "-d", reads, "-o", out, "-w",
-                     os.path.join(work, "wrk"), "-n", "16", "-a", "1000"],
+                     os.path.join(work, "wrk"), "-n", "16", "-a", "1000",
+                     "--route", "staged"],
         "pw")
     n_rec = count_lines(out)
-    say(f"phase 5: CLI mecat2pw -j 1 -n 16 -a 1000 on {n_reads} reads: "
+    if summary.get("route") != "staged":
+        raise AssertionError(f"--route staged ran {summary.get('route')!r}")
+    say(f"phase 5: CLI mecat2pw -j 1 -n 16 -a 1000 --route staged on "
+        f"{n_reads} reads: "
         f"exit 0, {n_rec} M4 records, wall {wall:.2f} s, of which outside "
         f"run_pw (process start, imports, CUDA set-up) "
         f"{wall - summary.get('seconds', 0.0):.2f} s")
@@ -1246,7 +1496,7 @@ def phase_cli(reads: str, n_reads: int, work: str) -> dict:
 
 def phase_cli_cns(reads: str, n_reads: int, work: str) -> dict:
     """``reads``: the depth cut of the bench reads (see the module text).
-    Returns the CLI's walk launches."""
+    Returns the cns CLI's walk and DP launches."""
     cand = os.path.join(work, "bench_cand.txt")
     pw_wall, pw = run_cli(
         "mecat2pw", ["-j", "0", "-d", reads, "-o", cand, "-w",
@@ -1272,10 +1522,9 @@ def phase_cli_cns(reads: str, n_reads: int, work: str) -> dict:
     if n_out <= 0 or summary.get("corrected_reads", 0) != n_out:
         raise AssertionError("the cns CLI wrote no corrected reads, or not "
                              "as many as its summary says")
-    if summary.get("dp_launches", 0) <= 0:
-        raise AssertionError("the cns CLI's DP did not go through the "
-                             "move-writing kernel")
-    return need_walks("the cns CLI", summary)
+    launches = dp_launches_of(summary)
+    need_moves_loop("the cns CLI", launches)
+    return dict(walks=need_walks("the cns CLI", summary), launches=launches)
 
 
 def phase_ref_small(work: str) -> dict:
@@ -1316,9 +1565,7 @@ def phase_ref_small(work: str) -> dict:
                             device=dev)
             dt = time.time() - t0
             if (fmt, dev) == ("sam", "cuda"):
-                launches = dict(counts=dp_kernel.LAUNCHES,
-                                moves=dp_kernel.LAUNCHES_MOVES,
-                                extend=dp_kernel.LAUNCHES_EXTEND,
+                launches = dict(dp_launches_of(dp_kernel.launches()),
                                 walks=need_walks("the CUDA SAM run",
                                                  walk_kernel.launches(),
                                                  ("cols",)))
@@ -1339,8 +1586,7 @@ def phase_ref_small(work: str) -> dict:
             if junk != ["4"]:
                 raise AssertionError(f"the junk read's FLAGs: {junk}")
     need_loop("the CUDA SAM run", launches["extend"], launches["counts"])
-    if launches["moves"] <= 0:
-        raise AssertionError(f"the CUDA SAM run launched {launches}")
+    need_moves_loop("the CUDA SAM run", launches)
     say(f"phase 8: SAM and M4 output byte-equal between cuda and cpu, junk "
         f"read FLAG 4, DP launches on the CUDA SAM run: {launches}")
     return launches
@@ -1469,9 +1715,7 @@ def phase_ref_genome(work: str, profile_path: str | None) -> dict:
                              f"the summary says {summary.get('mapped')}")
     need_loop("the mapping CLI", summary.get("dp_launches_extend", 0),
               summary.get("dp_launches", 0))
-    if summary.get("dp_launches_moves", 0) <= 0:
-        raise AssertionError("the mapping CLI's phase B did not go through "
-                             "the move-writing kernel")
+    need_moves_loop("the mapping CLI's phase B", dp_launches_of(summary))
     need_walks("the mapping CLI", summary, ("cols",))
     if profile_path:
         profile_ref(reads, ref, work, profile_path)
@@ -1491,27 +1735,28 @@ def phase_rounds_small(work: str) -> None:
     got, secs, launches, walks = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         out = os.path.join(d, f"rounds2_{dev}.fasta")
-        before = dp_kernel.LAUNCHES_MOVES, walk_kernel.launches()
+        before = dp_kernel.launches(), walk_kernel.launches()
         t0 = time.time()
         run_cns(cand, reads, out, CnsOptions(rounds=2, **PILE_CNS),
                 device=dev)
         secs[dev] = time.time() - t0
-        launches[dev] = dp_kernel.LAUNCHES_MOVES - before[0]
+        launches[dev] = dp_launches_of(dp_kernel.launches_since(before[0]))
         walks[dev] = walk_kernel.launches_since(before[1])
         with open(out, "rb") as fh:
             got[dev] = fh.read()
     if not got["cuda"] or got["cuda"] != got["cpu"]:
         raise AssertionError("rounds=2 corrected reads differ between cuda "
                              "and cpu (or none came out)")
-    if launches["cuda"] <= 0 or launches["cpu"] != 0:
-        raise AssertionError(f"rounds=2 move-kernel launches: {launches}")
+    need_moves_loop("rounds=2 on cuda", launches["cuda"])
+    if any(launches["cpu"].values()):
+        raise AssertionError(f"rounds=2 on cpu launched {launches['cpu']}")
     walks["cuda"] = need_walks("rounds=2 on cuda", walks["cuda"])
     if any(walks["cpu"].values()):
         raise AssertionError(f"rounds=2 on cpu launched {walks['cpu']}")
     say(f"phase 10: run_cns rounds=2 on the 28-read pile: "
         f"{got['cuda'].count(b'>')} corrected reads, {len(got['cuda'])} "
-        f"bytes, byte-equal on cuda ({secs['cuda']:.2f} s, "
-        f"{launches['cuda']} move-kernel launches, walk launches "
+        f"bytes, byte-equal on cuda ({secs['cuda']:.2f} s, DP launches "
+        f"{launches['cuda']}, walk launches "
         f"{walks['cuda']}) and cpu ({secs['cpu']:.2f} s)")
 
 
@@ -1546,20 +1791,19 @@ def phase_rounds(db, by_template: dict, cns: dict) -> dict:
     zero_walk_counts()
     out, stats, dt = one_pass()
     # ... and ends here
-    launches_counts, launches = dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES
-    launches_extend = dp_kernel.LAUNCHES_EXTEND
+    launches = dp_launches_of(dp_kernel.launches())
     walks = need_walks("two correction rounds", walk_kernel.launches())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     r1 = cns["round1"]
     s1 = r1["stats"]
-    if launches_counts or launches_extend:
-        raise AssertionError(f"the correction rounds launched the counts-only "
-                             f"kernels {launches_counts} / {launches_extend} "
-                             f"times; they align through the move-writing "
-                             f"kernel alone")
-    if launches <= cns["launches"]:
-        raise AssertionError(f"two rounds launched {launches} move kernels, "
-                             f"one round {cns['launches']}")
+    if launches["counts"] or launches["extend"]:
+        raise AssertionError(f"the correction rounds launched a counts-only "
+                             f"kernel: {launches}; they align through the "
+                             f"move loop alone")
+    need_moves_loop("two correction rounds", launches)
+    if launches["extend_moves"] <= cns["launches"]["extend_moves"]:
+        raise AssertionError(f"two rounds launched {launches}, one round "
+                             f"{cns['launches']}")
     if stats.templates != len(templates) or stats.templates != s1.templates:
         raise AssertionError(f"templates counted {stats.templates} times for "
                              f"{len(templates)} templates")
@@ -1576,19 +1820,18 @@ def phase_rounds(db, by_template: dict, cns: dict) -> dict:
         f"{dt:.4f} s (warm pass {warm_s:.4f} s): "
         f"{stats.supports_aligned / dt:.1f} supports/s, "
         f"{stats.corrected_reads} corrected reads, {stats.corrected_bases} "
-        f"bases, {launches} move-kernel launches, walk launches {walks}, "
+        f"bases, DP launches {launches}, walk launches {walks}, "
         f"lane-segments issued {stats.dp_lane_segs_issued}, useful "
         f"{stats.dp_lane_segs_useful}, peak device memory {peak_gb:.3f} GB")
     say(f"phase 10: beside it, rounds=1 (phase 6): {s1.supports_aligned} "
         f"supports in {r1['seconds']:.4f} s: "
         f"{s1.supports_aligned / r1['seconds']:.1f} supports/s, "
         f"{s1.corrected_reads} corrected reads, {s1.corrected_bases} bases, "
-        f"{cns['launches']} launches, lane-segments issued "
+        f"DP launches {cns['launches']}, lane-segments issued "
         f"{s1.dp_lane_segs_issued}, useful {s1.dp_lane_segs_useful}, peak "
         f"{r1['peak_gb']:.3f} GB; two rounds take "
         f"{dt / r1['seconds']:.2f}x the seconds")
-    return dict(launches=dict(counts=launches_counts, moves=launches,
-                              extend=launches_extend), walks=walks)
+    return dict(launches=launches, walks=walks)
 
 
 def fasta_counts(path: str):
@@ -1654,7 +1897,8 @@ def phase_pipeline(reads: str, n_reads: int, n_bases: int, work: str) -> dict:
         raise AssertionError("the pipeline trimmed every read away")
     launches = dict(counts=sum(r.get("dp_launches", 0) for r in pws),
                     extend=sum(r.get("dp_launches_extend", 0) for r in pws),
-                    moves=cns[0].get("dp_launches", 0))
+                    moves=cns[0].get("dp_launches_moves", 0),
+                    extend_moves=cns[0].get("dp_launches_extend_moves", 0))
     # pw-candidates (-j 0) extends nothing; asm-overlaps (-j 1) does
     if pws[0].get("dp_launches_extend", 0) or pws[0].get("dp_launches", 0):
         raise AssertionError(f"the pipeline's pw-candidates stage launched a "
@@ -1662,9 +1906,11 @@ def phase_pipeline(reads: str, n_reads: int, n_bases: int, work: str) -> dict:
     need_loop("the pipeline's asm-overlaps stage",
               pws[1].get("dp_launches_extend", 0),
               pws[1].get("dp_launches", 0))
-    if launches["moves"] <= 0:
-        raise AssertionError(f"the pipeline's cns stage did not go through "
-                             f"the move-writing kernel: {launches}")
+    # -j 1 on cuda takes the fused route, as the reference's accelerator
+    if pws[1].get("route") != "fused":
+        raise AssertionError(f"the pipeline's asm-overlaps stage ran route "
+                             f"{pws[1].get('route')!r}")
+    need_moves_loop("the pipeline's cns stage", launches)
     walks = need_walks("the pipeline's cns stage", cns[0])
 
     stamps = [os.stat(p).st_mtime_ns for p in paths]
@@ -1706,11 +1952,11 @@ def phase_polish_small(work: str) -> None:
     db, tig, backbone = polish_case(work, 6000, 7, seed=77)
     opts = ctgcns.CtgCnsOptions(extend_batch=8, align_segment=128,
                                 align_band=64)
-    before = dp_kernel.LAUNCHES_MOVES, walk_kernel.launches()
+    before = dp_kernel.launches(), walk_kernel.launches()
     t0 = time.time()
     got = ctgcns._polish_contig_device(db, tig, backbone, opts, device="cuda")
     cuda_s = time.time() - t0
-    launches = dp_kernel.LAUNCHES_MOVES - before[0]
+    launches = dp_launches_of(dp_kernel.launches_since(before[0]))
     walks = need_walks("the small polish on cuda",
                        walk_kernel.launches_since(before[1]))
     cpu = ctgcns._polish_contig_device(db, tig, backbone, opts, device="cpu")
@@ -1721,12 +1967,13 @@ def phase_polish_small(work: str) -> None:
         if not np.array_equal(got, other):
             raise AssertionError(f"the polished 7-read contig differs "
                                  f"between cuda tiles and {name}")
-    if launches <= 0 or np.array_equal(got, backbone) or len(got) == 0:
-        raise AssertionError(f"the small polish did nothing: {launches} "
-                             f"move-kernel launches")
+    need_moves_loop("the small polish on cuda", launches)
+    if np.array_equal(got, backbone) or len(got) == 0:
+        raise AssertionError(f"the small polish did nothing: DP launches "
+                             f"{launches}")
     say(f"phase 12: polish exactness: the 7-read contig ({len(backbone)} "
         f"backbone bases -> {len(got)}) in device tiles on cuda "
-        f"({cuda_s:.2f} s, {launches} move-kernel launches, walk launches "
+        f"({cuda_s:.2f} s, DP launches {launches}, walk launches "
         f"{walks}) == the same on cpu == the host route == polish_contig")
 
 
@@ -1775,10 +2022,8 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
         f"polish: {canu.get('polish_tiles')} tiles, "
         f"{canu.get('polish_alignments')} (read, tile) alignments, "
         f"{canu.get('polish_contigs_device')} contigs in device tiles, "
-        f"{canu.get('polish_contigs_host')} through the host route; launches "
-        f"{canu.get('dp_launches_extend')} segment-loop / "
-        f"{canu.get('dp_launches')} per-segment counts / "
-        f"{canu.get('dp_launches_moves')} moves, walk launches {walks}; "
+        f"{canu.get('polish_contigs_host')} through the host route; DP "
+        f"launches {dp_launches_of(canu)}, walk launches {walks}; "
         f"peak device memory {canu.get('peak_device_gb')} GB; "
         f"{100 * share:.2f} % of the longest contig's 21-mers occur "
         f"in the simulated genome")
@@ -1788,9 +2033,7 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
             raise AssertionError(f"assembler artifact {name} is missing")
     need_loop("the assembler", canu.get("dp_launches_extend", 0),
               canu.get("dp_launches", 0))
-    if canu.get("dp_launches_moves", 0) <= 0:
-        raise AssertionError("the assembler's polish did not go through the "
-                             "move-writing kernel")
+    need_moves_loop("the assembler's polish", dp_launches_of(canu))
     if canu.get("polish_tiles", 0) <= 0:
         raise AssertionError("no contig was polished in device tiles")
     if share < 0.9:
@@ -1803,8 +2046,7 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
 
     wall2, again = run_cli_summaries("mecat2canu", argv)
     if (len(again) != 1 or again[0].get("stages_run") != 0
-            or again[0].get("dp_launches_moves") != 0
-            or again[0].get("dp_launches_extend") != 0
+            or any(dp_launches_of(again[0]).values())
             or again[0].get("n50") != canu.get("n50")):
         raise AssertionError(f"the second assembler call re-ran something: "
                              f"{again}")
@@ -1812,10 +2054,7 @@ def phase_assembly(corrected: str, genome: np.ndarray, work: str,
         f"same report)")
     if profile:
         profile_polish(wrk)
-    return dict(launches=dict(counts=canu["dp_launches"],
-                              moves=canu["dp_launches_moves"],
-                              extend=canu["dp_launches_extend"]),
-                walks=walks, wall=wall)
+    return dict(launches=dp_launches_of(canu), walks=walks, wall=wall)
 
 
 def profile_polish(wrk: str) -> None:
@@ -1921,19 +2160,19 @@ def phase_fused_exact(work: str) -> dict:
 
 def phase_fused_cli(reads: str, n_reads: int, work: str,
                     staged: dict) -> dict:
-    """Phase 13b: the fused route of the pw CLI on the bench reads, beside
-    phase 5's staged run."""
+    """Phase 13b: the pw CLI on the bench reads with no ``--route``: -j 1 on
+    cuda takes the fused route, beside phase 5's staged run."""
     out = os.path.join(work, "bench_fused.m4")
     wall, summary = run_cli(
         "mecat2pw", ["-j", "1", "-d", reads, "-o", out, "-w",
                      os.path.join(work, "wrk_fused"), "-n", "16", "-a",
-                     "1000", "--route", "fused", "--device", "cuda"], "pw")
+                     "1000", "--device", "cuda"], "pw")
     n_rec = count_lines(out)
     keys = ("seconds", "index_build_seconds", "fused_prep_s", "fused_scan_s",
             "fused_extend_s", "candidates", "overlaps", "dp_gcells_issued",
             "dp_gcells_useful", "dp_launches", "dp_launches_moves",
-            "dp_launches_extend")
-    say(f"phase 13: CLI mecat2pw -j 1 -n 16 -a 1000 --route fused on "
+            "dp_launches_extend", "dp_launches_extend_moves")
+    say(f"phase 13: CLI mecat2pw -j 1 -n 16 -a 1000 (the default route) on "
         f"{n_reads} reads: exit 0, {n_rec} M4 records, wall {wall:.2f} s, "
         f"run_pw {summary.get('seconds', 0.0):.2f} s; the staged route "
         f"(phase 5): {staged['records']} records, wall "
@@ -1946,15 +2185,15 @@ def phase_fused_cli(reads: str, n_reads: int, work: str,
     say("phase 13: fused CLI summary " + json.dumps(
         {k: summary[k] for k in keys if k in summary}))
     if summary.get("route") != "fused" or n_rec <= 0:
-        raise AssertionError(f"the fused CLI ran route "
+        raise AssertionError(f"-j 1 on cuda ran route "
                              f"{summary.get('route')!r}, {n_rec} records")
     need_loop("the fused CLI", summary.get("dp_launches_extend", 0),
               summary.get("dp_launches", 0))
-    if summary["dp_launches_moves"]:
-        raise AssertionError("the fused CLI launched the move-writing kernel")
-    return dict(m4=out, launches=dict(
-        counts=summary["dp_launches"], moves=summary["dp_launches_moves"],
-        extend=summary["dp_launches_extend"]))
+    launches = dp_launches_of(summary)
+    if launches["moves"] or launches["extend_moves"]:
+        raise AssertionError(f"the fused CLI launched a move-writing kernel: "
+                             f"{launches}")
+    return dict(m4=out, records=n_rec, launches=launches)
 
 
 def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
@@ -2015,15 +2254,14 @@ def phase_dist_one_rank(bench_reads_path: str, fused_cli: dict,
                 raise AssertionError(f"run_cns_dist rounds={rounds} on one "
                                      f"rank: {len(got)} records, run_cns "
                                      f"{len(want)}, equal {got == want}")
-        launches = dict(counts=dp_kernel.LAUNCHES,
-                        moves=dp_kernel.LAUNCHES_MOVES,
-                        extend=dp_kernel.LAUNCHES_EXTEND)
+        launches = dp_launches_of(dp_kernel.launches())
         walks = need_walks("run_cns_dist on one rank", walk_kernel.launches())
     finally:
         dist.destroy_process_group()
     need_loop("run_pw_dist on one rank", launches["extend"],
               launches["counts"])
-    if backend != "nccl" or launches["moves"] <= 0:
+    need_moves_loop("run_cns_dist on one rank", launches)
+    if backend != "nccl":
         raise AssertionError(f"one rank ran over {backend}, launches "
                              f"{launches}")
     say(f"phase 13: one rank over {backend}: run_pw_dist on the bench reads "
@@ -2090,18 +2328,23 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
         raise AssertionError("run_cns_dist rounds=2 on four ranks differs "
                              "from run_cns")
     for t in tasks[1:]:
-        dp_counts = [(r["launches_extend"], r["launches"], r["launches_moves"])
-                     for r in rec[t]]
+        dp_counts = [(r["launches_extend"], r["launches"], r["launches_moves"],
+                      r["launches_extend_moves"]) for r in rec[t]]
         say(f"phase 13: 4 ranks, {t}: equal to the single device; seconds "
             f"{[round(r['seconds'], 2) for r in rec[t]]}, exchange bytes "
             f"{[r['exchange_bytes'] for r in rec[t]]}, launches (segment "
-            f"loop, per-segment counts, moves) {dp_counts}"
+            f"loop, per-segment counts, per-segment moves, move loop) "
+            f"{dp_counts}"
             f", walk launches (rows, deposit, cols) "
             f"{[tuple(need_walks(t, r, ()).values()) for r in rec[t]]}")
     for t in ("overlap-2x2", "pw-2x2", "pw-1x4"):
         need_loop(f"{t} on four ranks",
                   sum(r["launches_extend"] for r in rec[t]),
                   sum(r["launches"] for r in rec[t]))
+    need_moves_loop("run_cns_dist on four ranks", {
+        key: sum(r[name] for r in rec["cns-r2"])
+        for key, name in (("moves", "launches_moves"),
+                          ("extend_moves", "launches_extend_moves"))})
     ranks_walks = need_walks("run_cns_dist on four ranks", {
         k: sum(r[k] for r in rec["cns-r2"])
         for k in ("walk_launches_rows", "walk_launches_deposit",
@@ -2124,10 +2367,13 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
     say(f"phase 13: python -m mecat_tpu_torch.parallel.dryrun 8 --device "
         f"cuda (production shapes, content check) passed, wall {wall:.2f} "
         f"s: " + json.dumps(found))
-    launches = dict(counts=found["launches"], moves=found["launches_moves"],
-                    extend=found["launches_extend"])
+    launches = {k: found[name] for k, name in (
+        ("counts", "launches"), ("moves", "launches_moves"),
+        ("extend", "launches_extend"),
+        ("extend_moves", "launches_extend_moves"))}
     need_loop("the dry run", launches["extend"], launches["counts"])
-    if launches["moves"] <= 0 or not found.get("identity_checked"):
+    need_moves_loop("the dry run", launches)
+    if not found.get("identity_checked"):
         raise AssertionError(f"the dry run launched {launches}, checked "
                              f"{found.get('identity_checked')} segments")
     return dict(launches=launches, walks=need_walks("the dry run", found),
@@ -2305,9 +2551,9 @@ def phase_bench_module(bench: dict, cns: dict) -> dict:
         raise AssertionError("the bench measured no scalar denominator")
     need_loop("the bench's overlap leg", line["dp_launches_extend"],
               line["dp_launches"])
-    if line["cns_dp_launches_moves"] <= 0:
-        raise AssertionError("the bench's cns leg did not go through the "
-                             "move-writing kernel")
+    need_moves_loop("the bench's cns leg", dict(
+        moves=line["cns_dp_launches_moves"],
+        extend_moves=line["cns_dp_launches_extend_moves"]))
     need_walks("the bench's cns leg", {k[len("cns_"):]: v
                                        for k, v in line.items()
                                        if k.startswith("cns_walk_")})
@@ -2345,7 +2591,8 @@ def phase_scaling() -> dict:
         raise AssertionError(f"scaling rows: {len(meshes)} meshes, failing "
                              f"{bad}")
     return dict(counts=sum(r["dp_launches"] for r in meshes), moves=0,
-                extend=sum(r["dp_launches_extend"] for r in meshes))
+                extend=sum(r["dp_launches_extend"] for r in meshes),
+                extend_moves=0)
 
 
 def main(argv=None) -> int:
@@ -2389,10 +2636,15 @@ def main(argv=None) -> int:
     stats = {(S, W): phase_kernel(S, W) for S, W in shapes}
     extend = {(S, W): phase_extend(S, W, (S, W) == main_sw)
               for S, W in shapes}
+    extend_moves = {(S, W): phase_extend_moves(S, W, (S, W) == main_sw)
+                    for S, W in shapes}
+    widths = phase_widths()
     path_shapes = phase_kernel_path_shapes(*main_sw)
     walks = {(S, W): phase_walks(S, W) for S, W in shapes}
     if args.kernels_only:
-        say(json.dumps({"extend": extend[main_sw], "path_shapes": {
+        say(json.dumps({"extend": extend[main_sw],
+                        "extend_moves": extend_moves[main_sw],
+                        "widths": widths, "path_shapes": {
             "moves" if m else "counts": v for m, v in path_shapes.items()},
             "walks": walks[main_sw]}))
         say(f"card: {card}")
@@ -2405,7 +2657,7 @@ def main(argv=None) -> int:
         t0 = time.time()
         db, truths, genome = bench_reads()
         say(f"bench reads simulated in {time.time() - t0:.2f} s")
-        phase_golden(work)
+        golden_cns = phase_golden(work)
         bench = phase_bench(db, args.passes, args.profile)
         from mecat_tpu_torch.io.fasta import write_fasta
 
@@ -2418,7 +2670,7 @@ def main(argv=None) -> int:
         cut = [i for i, t in enumerate(truths) if t.start < GENOME // 4]
         reads_cut = os.path.join(work, "bench_reads_cut.fasta")
         write_fasta(reads_cut, [(db.name(i), db.read(i)) for i in cut])
-        cli_cns_walks = phase_cli_cns(reads_cut, len(cut), work)
+        cli_cns = phase_cli_cns(reads_cut, len(cut), work)
         ref_small = phase_ref_small(work)
         ref_cli = phase_ref_genome(work, args.profile)
         phase_rounds_small(work)
@@ -2442,23 +2694,27 @@ def main(argv=None) -> int:
     # both main paths run S 512, W 128: that shape's times and bound
     main_shape = stats[main_sw]
     # each DP kernel's launches on every path: phase 4's bench passes
-    # (counts, the main path) or phase 6's cns pass (moves); the pw CLI of
-    # phase 5; the mapping pass (phase 8's CUDA SAM run in this process, and
-    # the CLI's own count of phase 9); phase 10's timed two-round pass in
-    # this process, and the counts the CLIs of phases 11 and 12 report;
-    # phase 13: the fused pw CLI's own count, the one-rank NCCL drivers in
-    # this process, the 8-rank dry run summed over ranks; phase 14: the
-    # bench module's timed overlap window (counts) and steady cns pass
-    # (moves), and the scaling report's timed steps summed over every
-    # mesh's ranks
-    bench_launches = bench["launches"]
+    # (counts, the main path of the counts kernels) or phase 6's cns pass
+    # (moves, the main path of the move-writing kernels); the golden cns
+    # run of phase 3; the pw CLI of phase 5; the cns CLI of phase 7; the
+    # mapping pass (phase 8's CUDA SAM run in this process, and the CLI's
+    # own count of phase 9); phase 10's timed two-round pass in this
+    # process, and the counts the CLIs of phases 11 and 12 report; phase 13:
+    # the default -j 1 pw CLI's own count (the fused route), the one-rank
+    # NCCL drivers in this process, the 8-rank dry run summed over ranks;
+    # phase 14: the bench module's timed overlap window (counts) and steady
+    # cns pass (moves), and the scaling report's timed steps summed over
+    # every mesh's ranks
+    bench_launches = dp_launches_of(bench["launches"])
     paths = {
         key: dict(
-            launches=(bench_launches[cli_key] if key != "moves"
-                      else cns["launches"]),
+            launches=(cns["launches"][key] if "moves" in key
+                      else bench_launches[key]),
+            launches_golden_cns=golden_cns[key],
             launches_pw_cli=staged_cli["summary"].get(cli_key, 0),
+            launches_cns_cli=cli_cns["launches"][key],
             launches_mapping=ref_small[key],
-            launches_mapping_cli=ref_cli[cli_key],
+            launches_mapping_cli=ref_cli.get(cli_key, 0),
             launches_rounds=rounds["launches"][key],
             launches_pipeline_cli=pipeline["launches"][key],
             launches_assembly_cli=assembly["launches"][key],
@@ -2466,11 +2722,9 @@ def main(argv=None) -> int:
             launches_dist=dist1["launches"][key],
             launches_dryrun=ranks["launches"][key],
             launches_bench=bench_line[
-                "cns_dp_launches_moves" if key == "moves" else cli_key],
+                "cns_" + cli_key if "moves" in key else cli_key],
             launches_scaling=scaling[key])
-        for key, cli_key in (("counts", "dp_launches"),
-                             ("moves", "dp_launches_moves"),
-                             ("extend", "dp_launches_extend"))}
+        for key, cli_key in DP_KEYS}
     kernels = []
     for name, with_moves, replaces, key in (
             ("dp_segment_best", False, KERNEL_REPLACES, "counts"),
@@ -2478,25 +2732,34 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": replaces, **paths[key],
-            "max_abs_err": max(s[with_moves]["max_abs_err"]
-                               for s in stats.values()),
+            "max_abs_err": max([s[with_moves]["max_abs_err"]
+                                for s in stats.values()] + [widths[name]]),
             **{k: main_shape[with_moves][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             # no single PyTorch call computes a banded min-plus DP segment
             "library_ms": None,
             # the wrapper alone at the shapes the paths launch
             "path_shapes": path_shapes[with_moves]})
-    # the counts paths run the per-segment body inside the segment loop
+    # every path runs the per-segment bodies inside the segment loops
     kernels[0]["body_runs_in"] = "extend_counts"
-    kernels.append({
-        "name": "extend_counts", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": EXTEND_REPLACES, **paths["extend"],
-        "max_abs_err": max(e["max_abs_err"] for e in extend.values()),
-        **{k: extend[main_sw][k]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "graph_ms",
-                     "chain_steps", "ns_step", "lane_segments")},
-        # no PyTorch call computes a segmented banded extension
-        "library_ms": None})
+    kernels[1]["body_runs_in"] = "extend_moves"
+    for name, replaces, loop in (
+            ("extend_counts", EXTEND_REPLACES, extend),
+            ("extend_moves", EXTEND_MOVES_REPLACES, extend_moves)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": replaces,
+            **paths["extend" if name == "extend_counts" else "extend_moves"],
+            "max_abs_err": max([e["max_abs_err"] for e in loop.values()]
+                               + [widths[name]]),
+            **{k: loop[main_sw][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "graph_ms", "chain_steps", "ns_step",
+                         "lane_segments")},
+            # no PyTorch call computes a segmented banded extension
+            "library_ms": None})
+    for k in kernels:
+        k["band_widths"] = [64, 128, *BAND_SWEEP]
     # the walks of both main paths run S 512, W 128 (mapping's MAXC 704)
     walk_main = walks[(CFG["S"], CFG["W"])]
     for name, short in (("traceback_rows", "rows"),
@@ -2514,7 +2777,7 @@ def main(argv=None) -> int:
             # four gloo ranks (13d), the 8-rank dry run, the bench's cns leg
             paths = dict(
                 launches=cns["walks"][short],
-                launches_cns_cli=cli_cns_walks[short],
+                launches_cns_cli=cli_cns["walks"][short],
                 launches_rounds=rounds["walks"][short],
                 launches_pipeline_cli=pipeline["walks"][short],
                 launches_assembly_cli=assembly["walks"][short],
@@ -2525,8 +2788,9 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": WALK_SOURCE,
             "replaces": WALK_REPLACES[name], **paths,
-            "max_abs_err": max(w[name]["max_abs_err"]
-                               for w in walks.values()),
+            "max_abs_err": max([w[name]["max_abs_err"]
+                                for w in walks.values()]
+                               + [widths.get(name, 0)]),
             **{k: walk_main[name][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                          "graph_ms", "chain_steps", "ns_step")},

@@ -34,7 +34,9 @@ number of cards), the counts behind the rates (``overlaps``,
 ``useful_segments``, ``batches``, ``reads``) and the DP kernel launches of
 the timed overlap window (``dp_launches_extend`` of the segment-loop kernel,
 one a batch, beside ``dp_launches`` of the per-segment counts kernel, 0 on
-that path) and of the steady cns pass (``cns_dp_launches_moves``), and the
+that path) and of the steady cns pass (``cns_dp_launches_extend_moves`` of
+the move loop, one a chunk, beside ``cns_dp_launches_moves`` of the
+per-segment move kernel, 0 on that path), and the
 walk kernels' launches of that pass (``cns_walk_launches_rows`` /
 ``_deposit`` / ``_cols``): 0 on the CPU.
 """
@@ -184,11 +186,13 @@ def run_cns(db, supports, device, max_templates: int):
         return stats, time.time() - t0
 
     _, cold_dt = one_pass()
-    dp_kernel.LAUNCHES_MOVES = 0
+    dp0 = dp_kernel.launches()
     walk0 = walk_kernel.launches()
     stats, dt = one_pass()
+    dp = dp_kernel.launches_since(dp0)
     return dict(
-        cns_dp_launches_moves=dp_kernel.LAUNCHES_MOVES,
+        cns_dp_launches_moves=dp["dp_launches_moves"],
+        cns_dp_launches_extend_moves=dp["dp_launches_extend_moves"],
         **{"cns_" + k: n
            for k, n in walk_kernel.launches_since(walk0).items()},
         cns_supports_per_s=stats.supports_aligned / dt if dt > 0 else None,

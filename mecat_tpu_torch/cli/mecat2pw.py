@@ -8,9 +8,11 @@ Usage:
 ``-t`` (threads) is accepted for compatibility; parallelism is device
 batching.  ``--device`` names the torch device (default ``cuda``); the tool
 refuses to start if that device does not exist.  ``--route`` picks the
-``-j 1`` route of ``pipeline.pw.run_pw`` (default ``staged``; ``fused``
-probes every candidate on the device and extends the survivors, top n per
-strand).
+``-j 1`` route of ``pipeline.pw.run_pw``: ``fused`` probes every candidate
+on the device and extends the survivors, top n per strand; ``staged``
+extends the pairs left by the host's strand merge.  Without it the route is
+``pipeline.pw.default_route``: fused for ``-j 1`` on ``cuda``, staged
+otherwise.
 """
 from __future__ import annotations
 
@@ -56,9 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--align-band", type=int, default=C.ALIGN_BAND)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
-    p.add_argument("--route", default="staged", choices=ROUTES,
+    p.add_argument("--route", default=None, choices=ROUTES,
                    help="-j 1 route: staged (host-built extension batches) "
-                        "or fused (device probe, survivors extended)")
+                        "or fused (device probe, survivors extended); "
+                        "default fused for -j 1 on cuda, else staged")
     return p
 
 

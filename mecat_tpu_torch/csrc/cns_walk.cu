@@ -38,7 +38,8 @@
 //     The loads do not depend on the walk, so the thread loads a block of
 //     rows ahead of the block it walks (double-buffered), a full 128-byte
 //     line a block at W = 128.  About 20 int32 operations a 32-cell chunk
-//     and 12 more a row.
+//     and 12 more a row.  Every W % 16 == 0 up to 256 has its instance
+//     (rows of 1-16 words; an odd count loads word by word).
 //   * walk_deposit, one warp a lane.  The reference slides a W-wide
 //     accumulator down the rows; indexed by target char instead of band
 //     column, it does not move, and the accumulator is the output row
@@ -92,7 +93,8 @@ constexpr uint64_t kEven = 0x5555555555555555ull;
 
 // ---------------------------------------------------------------- row walk
 
-// Rows r0, r0-1, ..., r0-kAhead+1 of a lane (those >= 1) into registers.
+// Rows r0, r0-1, ..., r0-kAhead+1 of a lane (those >= 1) into registers:
+// 16-byte loads where a row is a whole number of them, else 8- or 4-byte.
 template <int kWp, int kAhead>
 __device__ __forceinline__ void load_rows(const uint32_t* __restrict__ lm,
                                           int r0, uint32_t (&buf)[kAhead][kWp]) {
@@ -110,13 +112,16 @@ __device__ __forceinline__ void load_rows(const uint32_t* __restrict__ lm,
           buf[a][k + 2] = v.z;
           buf[a][k + 3] = v.w;
         }
-      } else {
+      } else if constexpr (kWp % 2 == 0) {
 #pragma unroll
         for (int k = 0; k < kWp; k += 2) {
           const uint2 v = __ldg(reinterpret_cast<const uint2*>(p + k));
           buf[a][k] = v.x;
           buf[a][k + 1] = v.y;
         }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kWp; ++k) buf[a][k] = __ldg(p + k);
       }
     }
   }
@@ -130,7 +135,9 @@ walk_rows_kernel(const uint32_t* __restrict__ moves,
                  int32_t* __restrict__ h_out, int32_t* __restrict__ wo_out,
                  int32_t* __restrict__ w0_out, int N, int S) {
   constexpr int kWp = kW / 16;           // words a row
-  constexpr int kChunks = kW / 32;       // 32-cell chunks (register pairs)
+  // 32-cell chunks (register pairs); at an odd kWp the last chunk's upper
+  // half is empty (cells past W, never left of the walk's column)
+  constexpr int kChunks = (kWp + 1) / 2;
   // rows a load block: 32 words in flight, double-buffered
   constexpr int kAhead = 32 / kWp < 8 ? 32 / kWp : 8;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -166,8 +173,9 @@ walk_rows_kernel(const uint32_t* __restrict__ moves,
         int code = 0;
 #pragma unroll
         for (int j = kChunks - 1; j >= 0; --j) {
-          const uint64_t raw = (uint64_t)cur[a][2 * j]
-                               | ((uint64_t)cur[a][2 * j + 1] << 32);
+          const uint64_t hi =
+              2 * j + 1 < kWp ? cur[a][2 * j + 1 < kWp ? 2 * j + 1 : 0] : 0u;
+          const uint64_t raw = (uint64_t)cur[a][2 * j] | (hi << 32);
           const uint64_t not_h = ~(raw & (raw >> 1)) & kEven;
           const int lim = 2 * (w - 32 * j);    // bit of cell w in this chunk
           const uint64_t keep =
@@ -347,8 +355,8 @@ unsigned blocks_for(int lanes, int per_block) {
 // outputs mv, h, w_out int32 [N, S] and w0 int32 [N], uninitialised: every
 // element is written.  All device pointers, row-major, contiguous.  Returns
 // cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue, without a launch, for a W other than 32, 64, 128
-// or 256 or an S below 1.
+// cudaErrorInvalidValue, without a launch, for a W that is not a multiple
+// of 16 in [16, 256] or an S below 1.
 extern "C" int mecat_walk_rows(const void* moves, const void* seg_qlen,
                                const void* w_end, void* mv, void* h, void* wo,
                                void* w0, int N, int S, int W, void* stream) {
@@ -364,22 +372,18 @@ extern "C" int mecat_walk_rows(const void* moves, const void* seg_qlen,
   auto* o3 = static_cast<int32_t*>(wo);
   auto* o4 = static_cast<int32_t*>(w0);
   switch (W) {
-    case 32:
-      walk_rows_kernel<32><<<grid, kWalkThreads, 0, st>>>(m, q, e, o1, o2, o3,
-                                                          o4, N, S);
+#define MECAT_ROWS_CASE(kW)                                                 \
+    case kW:                                                                \
+      walk_rows_kernel<kW><<<grid, kWalkThreads, 0, st>>>(m, q, e, o1, o2,  \
+                                                          o3, o4, N, S);    \
       break;
-    case 64:
-      walk_rows_kernel<64><<<grid, kWalkThreads, 0, st>>>(m, q, e, o1, o2, o3,
-                                                          o4, N, S);
-      break;
-    case 128:
-      walk_rows_kernel<128><<<grid, kWalkThreads, 0, st>>>(m, q, e, o1, o2,
-                                                           o3, o4, N, S);
-      break;
-    case 256:
-      walk_rows_kernel<256><<<grid, kWalkThreads, 0, st>>>(m, q, e, o1, o2,
-                                                           o3, o4, N, S);
-      break;
+    MECAT_ROWS_CASE(16) MECAT_ROWS_CASE(32) MECAT_ROWS_CASE(48)
+    MECAT_ROWS_CASE(64) MECAT_ROWS_CASE(80) MECAT_ROWS_CASE(96)
+    MECAT_ROWS_CASE(112) MECAT_ROWS_CASE(128) MECAT_ROWS_CASE(144)
+    MECAT_ROWS_CASE(160) MECAT_ROWS_CASE(176) MECAT_ROWS_CASE(192)
+    MECAT_ROWS_CASE(208) MECAT_ROWS_CASE(224) MECAT_ROWS_CASE(240)
+    MECAT_ROWS_CASE(256)
+#undef MECAT_ROWS_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

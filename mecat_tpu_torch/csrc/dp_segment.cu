@@ -29,6 +29,19 @@
 //     inactive lane are written as zeros, so the caller allocates the
 //     buffer uninitialised; no traceback reads a row above its r_best.
 //
+// Band widths: every W with W % 16 == 0 and 16 <= W <= 256, as the
+// reference computes them.  The warp holds Wp = 32 * C band cells, C = 2,
+// 4, 6 or 8 cells a thread (Wp = 64, 128, 192, 256, the least that covers
+// W); the real W comes at run time, except in the instances of the paths'
+// widths, 64 and 128, which fix it, so that their code folds as a
+// compile-time band allows (a runtime W cost the counts loop 12 % and the
+// move kernel 15 % at W = 128 on an H100).  Cells w >= W are padding: their target
+// index is pushed out of [0, tmax], so every update leaves them at VINF,
+// and the last real cell's vertical input is then VINF + 4097 as in the
+// plain version.  They never score and no move of theirs is stored.  Where
+// W < Wp every iteration keeps the validity select (the fast iterations
+// below need W == Wp).
+//
 // What bounds it on an H100.  In operations: int32 ALU, 12 per cell (char
 // compare, three adds, two mins; for the best cell a shift, a multiply-add,
 // a compare and three selects) and 18 with moves (two compares, two
@@ -49,14 +62,14 @@
 //     on an even tau all even band cells advance one row at once, on an odd
 //     tau all odd ones, each from its own value and its two neighbours as
 //     they stand.  No scan, no vote;
-//   * a thread holds C = W/32 adjacent cells in registers.  Only one value
+//   * a thread holds C adjacent cells in registers.  Only one value
 //     crosses a thread border a step: the horizontal input of the thread's
 //     first cell (__shfl_up_sync, even tau) or the vertical input of its
 //     last (__shfl_down_sync, odd tau).  A step is one shuffle, an add, a
 //     three-way min and a select; a lane of r rows takes 2*r + W steps;
-//   * the loop counts k = tau / 2.  In iteration k the thread's cell pair p
-//     (cells 2p, 2p+1) stands on row k - w0/2 - p, so the query and target
-//     bytes it needs move by one a k: they are kept in registers and one
+//   * the loop counts k = tau / 2.  In iteration k the band's cell pair g
+//     (cells 2g, 2g+1) stands on row k - g, so the query and target bytes
+//     a thread needs move by one a k: they are kept in registers and one
 //     byte of each is read from shared memory per iteration.  Iterations
 //     in which some cell of the warp stands outside rows 1..last (the
 //     first and the last W/2) run a predicated form of the same body;
@@ -68,25 +81,28 @@
 //     rising order); one warp reduction on (score desc, r * W + w asc)
 //     after the loop.  No packed (score, row) key, so nothing aliases at
 //     any S;
-//   * moves: at C = 4 a thread's four cells are byte `lane` of the row's
-//     W/4 bytes, its cells 0-1 made one iteration before its cells 2-3: it
-//     keeps the low nibble for one iteration and puts the whole byte into a
-//     128-row ring in shared memory.  At C = 2 a byte spans two threads
-//     whose nibbles of one row are made one iteration apart: the even
-//     thread keeps its nibble and fetches the odd thread's with one
-//     __shfl_down_sync, which no DP value waits on.  Every 32 iterations
-//     the warp writes the 32 rows that have become whole with 16-byte
-//     stores;
+//   * moves: byte m of a row holds cell pairs 2m (low nibble) and 2m + 1
+//     (high nibble), and pair 2m meets a row one iteration before pair
+//     2m + 1.  So in each iteration the thread holding an odd pair joins
+//     its nibble with pair 2m's of the iteration before: kept in a register
+//     when the thread holds pair 2m too, else fetched from the thread to
+//     its left with one __shfl_up_sync (C = 2 and 6), which no DP value
+//     waits on.  The byte goes into a ring of move rows in shared memory
+//     (128 rows, 160 at C = 8: W/2 rows are being filled while 32 wait to
+//     be written), and every 32 iterations the warp writes the 32 rows that
+//     have become whole, with 16-byte stores where the lane's rows are
+//     16-byte aligned;
 //   * lanes are handed out at run time: the grid is two warps for every
 //     scheduler of the card, and a warp takes the next lane from a counter
 //     until none is left, so the live lanes of a launch spread over the
 //     card wherever they lie among the inactive ones (see kResident).
 //
-// The result is exact.  The counts-only body also runs inside
-// extend_counts_kernel (entry mecat_extend_counts, below), which carries a
-// lane's whole segment loop, so the counts paths launch once a batch.
-// Left for later: several lanes per warp at W=64, and the move-writing
-// segment loop of the correction and mapping paths.
+// The result is exact.  Both forms of the body also run inside
+// extend_kernel (below), which carries a lane's whole segment loop: the
+// counts form for the overlap paths (entry mecat_extend_counts), the move
+// form for the correction and mapping paths (entry mecat_extend_moves), so
+// every path launches once a batch.  Left for later: several lanes per warp
+// at W=64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmecat_dp.so dp_segment.cu
@@ -102,6 +118,9 @@ constexpr int kK1 = kIndK + 1;          // one indel step, packed units
 constexpr uint32_t kVinf = 1u << 30;    // ops.align.VINF
 constexpr int kNeg = -(1 << 26);        // pick_end_local's masked score
 constexpr int kTwoPenalty = 4;          // 2 * constants.ALIGN_TRIM_PENALTY
+constexpr int kFar = 1 << 30;           // target offset of a padding cell
+constexpr int kMinW = 16;               // band widths taken: multiples of 16
+constexpr int kMaxW = 256;              //   in [kMinW, kMaxW]
 constexpr int kWarps = 4;               // warps per block
 // Blocks per SM, so warps per scheduler.  On an H100 with 1,024 live lanes
 // scattered over 4,096, 2 / 3 / 4 / 6 took 0.075 / 0.104 / 0.134 / 0.181 ms
@@ -110,9 +129,10 @@ constexpr int kWarps = 4;               // warps per block
 // 4,096 live the order turns (0.270 / 0.248 / 0.245 / 0.249, every block
 // resident 0.204), but no caller launches that.
 constexpr int kResident = 2;
-constexpr int kRing = 128;              // move rows staged per lane
 constexpr int kFlush = 32;              // move rows written out at a time
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kSmemDefault = 48 * 1024;  // without an opt-in attribute
+constexpr size_t kSmemLimit = 227 * 1024;   // with it
 
 // compile-time switch handed to the loop body
 template <bool kValue>
@@ -124,35 +144,84 @@ __device__ __forceinline__ bool better(int s, int f, int bs, int bf) {
   return s > bs || (s == bs && f < bf);
 }
 
-// Bytes of shared memory one lane takes: the query with W/2 bytes of
-// padding on either side, the framed target window, and with moves the ring.
-__host__ __device__ constexpr size_t lane_smem(int S, int W, bool moves) {
-  return 2 * (size_t)(S + W) + (moves ? (size_t)kRing * (W / 4) : 0);
+// Band cells a thread holds for a band of W: an even count, so a thread
+// holds whole cell pairs.
+__host__ __device__ constexpr int cells_for(int W) {
+  return 2 * ((W + 63) / 64);
+}
+
+// Move rows in a lane's ring: the W/2 rows being filled and the kFlush
+// whole ones waiting to be written must fit.
+__host__ __device__ constexpr int ring_rows(int C) {
+  return 32 * C / 2 + kFlush <= 128 ? 128 : 160;
+}
+
+// Bytes of shared memory one lane takes: the query with Wp/2 bytes of
+// padding on either side, the framed target window with room for the
+// padding cells' reads, and with moves the ring.
+__host__ __device__ constexpr size_t lane_smem(int S, int W, int C,
+                                               bool moves) {
+  return 2 * (size_t)(S + 32 * C) +
+         (moves ? (size_t)ring_rows(C) * (W / 4) : 0);
+}
+
+// n words from a warp's shared memory (16-byte aligned) to dst, by the
+// warp: 16-byte stores where dst and n allow them.
+__device__ __forceinline__ void copy_words(uint32_t* __restrict__ dst,
+                                           const uint8_t* src, const int n,
+                                           const int lane) {
+  if (((reinterpret_cast<uintptr_t>(dst) & 15) | (n & 3)) == 0) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    for (int u = lane; u < n / 4; u += 32) d[u] = s[u];
+  } else {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+    for (int u = lane; u < n; u += 32) dst[u] = s[u];
+  }
+}
+
+// n zero words at dst, by the warp: words up to the first 16-byte boundary,
+// then 16-byte stores, then the words left.
+__device__ __forceinline__ void zero_words(uint32_t* __restrict__ dst,
+                                           const int n, const int lane) {
+  int head = (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 4;
+  head = min(head, n);
+  if (lane < head) dst[lane] = 0;
+  const int nv = (n - head) / 4;
+  uint4* d = reinterpret_cast<uint4*>(dst + head);
+  for (int u = lane; u < nv; u += 32) d[u] = make_uint4(0, 0, 0, 0);
+  for (int u = head + 4 * nv + lane; u < n; u += 32) dst[u] = 0;
 }
 
 // The segment of one lane, by one warp, from its staged bytes: `qs` is
 // this warp's share of the block's shared memory (see lane_smem), holding
-// the query at qs[W/2 ..] and the framed target window at qs[S + W ..];
-// tm and sq are the lane's tmax and seg_q.  C: band cells per thread, W =
-// 32 * C; kMoves: also write the lane's move rows, [S, W/16] as 16-byte
-// vectors at mv_out, through `ring`.  Returns the endpoint (r, w, packed
-// v) on every thread of the warp.
-template <int C, bool kMoves>
+// the query at qs[Wp/2 ..] and the framed target window at qs[S + Wp ..];
+// tm and sq are the lane's tmax and seg_q, W its band width (Wp = 32 * C >=
+// W > Wp - 64): kW where the instance fixes it (kW = 0: W_rt, at run
+// time).  kMoves: also write the lane's move rows, [S, W/16] words at
+// mv_out, through `ring`.  Returns the endpoint (r, w, packed v) on every
+// thread of the warp.
+template <int C, bool kMoves, int kW>
 __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
                                         const int sq, const int S,
-                                        const int lane, uint8_t* ring,
-                                        uint4* __restrict__ mv_out) {
-  static_assert(C == 2 || C == 4, "a move byte is one or two threads");
-  constexpr int W = 32 * C;
-  constexpr int half = W / 2;
+                                        const int W_rt, const int lane,
+                                        uint8_t* ring,
+                                        uint32_t* __restrict__ mv_out) {
+  static_assert(C == 2 || C == 4 || C == 6 || C == 8,
+                "a thread holds whole cell pairs of a band up to 256");
+  constexpr int Wp = 32 * C;
   constexpr int P = C / 2;              // cell pairs per thread
-  constexpr int kRowBytes = W / 4;      // one row of moves
-  constexpr int kRowVecs = kRowBytes / 16;
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  const uint8_t* qsp = qs + half;       // qsp[x] = q[x], x in [-W/2, S + W/2)
-  const uint8_t* ts = qs + S + W;       // ts[x] = tpad[x]
+  constexpr int kRing = ring_rows(C);
+  static_assert(kW == 0 || kW == Wp, "a fixed width fills the band");
+  const int W = kW ? kW : W_rt;
+  const int half = W / 2;
+  const int row_words = W / 16;         // one row of moves
+  const int row_bytes = W / 4;
+  const uint8_t* qsp = qs + Wp / 2;     // qsp[x] = q[x], x in [-Wp/2, S + Wp/2)
+  const uint8_t* ts = qs + S + Wp;      // ts[x] = tpad[x]
   const int w0 = lane * C;
-  const int hw0 = w0 / 2;
+  const int hw0 = w0 / 2;               // the thread's first cell pair
+  const bool padded = W < Wp;
 
   // DP values are unsigned: every legitimate value is below 2^30, and a
   // border input that must not count is pushed above VINF by its addend
@@ -160,14 +229,22 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   uint32_t val[C];
   int best_s[C], best_r[C];
   uint32_t best_v[C];
+  // the target index of cell c on row i is i + jo[c]; a padding cell's
+  // never lies in [0, tmax], so it stays at VINF
+  int jo[C];
   // row 0: val[0][j] = j leading deletions, VINF outside [0, tmax]
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int j = w0 + c - half;
+    const int w = w0 + c;
+    const bool real = kW != 0 || w < W;   // a fixed width has no padding
+    jo[c] = real ? w - half : kFar;
+    const int j = jo[c];
     const bool valid = j >= 0 && j <= tm;
-    val[c] = valid ? (uint32_t)(j * kK1) : kVinf;
+    val[c] = valid ? (uint32_t)j * kK1 : kVinf;
     const bool ok = valid && sq >= 0;
-    best_s[c] = ok ? j - kTwoPenalty * (int)(val[c] >> 12) : kNeg;
+    // a padding cell loses every tie of the warp reduction
+    best_s[c] = ok ? j - kTwoPenalty * (int)(val[c] >> 12)
+                   : (real ? kNeg : kNeg - 1);
     best_r[c] = 0;
     best_v[c] = val[c];
   }
@@ -177,7 +254,9 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   if (tm < 0 || last < 0) last = 0;
 
   // one indel step on the value that crosses the thread border; the first
-  // band cell has no horizontal input and the last no vertical one
+  // band cell has no horizontal input and the last thread's last cell no
+  // vertical one (below Wp, the padding cell W gives the last real cell
+  // VINF + 4097)
   const uint32_t h_add = kK1 + (lane == 0 ? kVinf : 0u);
   const uint32_t v_add = kK1 + (lane == 31 ? kVinf : 0u);
 
@@ -193,7 +272,9 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   for (int m = 1; m <= P; ++m) tc[m] = ts[hw0 - 1 + m];
   int q_next = qsp[-hw0], t_next = ts[hw0 + P];
 
-  uint32_t kept = 0;                    // the nibble made one iteration ago
+  uint32_t prev[P];                     // each pair's nibble one iteration ago
+#pragma unroll
+  for (int p = 0; p < P; ++p) prev[p] = 0;
   int flushed = 0;                      // move rows written out so far
 
   // One iteration: an even and an odd step.
@@ -226,13 +307,13 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
       for (int p = 0; p < P; ++p) {
         const int c = 2 * p + par;
         const int i = k - hw0 - p;
-        const int w = w0 + c;
         const uint32_t sub = qc[p] != tc[p + par];
         const uint32_t diag = val[c] + sub * kIndK;
         const uint32_t vert =
             (c + 1 < C) ? val[c + 1] + kK1 : edge_in + v_add;
         const uint32_t hor = (c > 0) ? val[c - 1] + kK1 : edge_in + h_add;
-        const int j = i - half + w;
+        // a fixed width takes j from its cell's place, as constants fold
+        const int j = kW ? i - half + w0 + c : i + jo[c];
         uint32_t cur = min(min(diag, vert), hor);
         if (kBorder) {
           const bool valid = (unsigned)j <= (unsigned)tm;  // tm >= 0 here
@@ -253,33 +334,36 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
     }
 
     if (kMoves) {
-      // the byte that became whole in this iteration, and its row (1-based)
-      uint32_t byte;
-      const int row = k - hw0 - 1;
-      bool mine = true;
-      if constexpr (C == 4) {
-        byte = kept | (code[2] << 4) | (code[3] << 6);
-        kept = code[0] | (code[1] << 2);
-      } else {
-        const uint32_t nib = code[0] | (code[1] << 2);
-        byte = kept | (__shfl_down_sync(kFull, nib, 1) << 4);
-        kept = nib;
-        mine = (lane & 1) == 0;
+      uint32_t nib[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) nib[p] = code[2 * p] | (code[2 * p + 1] << 2);
+      // pair hw0 - 1's nibble of the iteration before, from the left thread
+      uint32_t left = 0;
+      if constexpr (P % 2 == 1) left = __shfl_up_sync(kFull, prev[P - 1], 1);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        // an odd pair g completes byte g / 2 of its row k - g
+        const bool odd = (P % 2 == 0) ? (p & 1) != 0 : ((lane + p) & 1) != 0;
+        if (odd) {
+          const int g = hw0 + p;
+          const int row = k - g;        // 1-based
+          const int m = g >> 1;
+          bool mine = kW != 0 || 4 * m < W;
+          if (kEdge) mine = mine && (unsigned)(row - 1) < (unsigned)last;
+          const uint32_t low = p > 0 ? prev[p > 0 ? p - 1 : 0] : left;
+          if (mine)
+            ring[((unsigned)(row - 1) % kRing) * row_bytes + m] =
+                (uint8_t)(low | (nib[p] << 4));
+        }
       }
-      if (kEdge) mine = mine && (unsigned)(row - 1) < (unsigned)last;
-      if (mine)
-        ring[((row - 1) & (kRing - 1)) * kRowBytes + (w0 >> 2)] =
-            (uint8_t)byte;
+#pragma unroll
+      for (int p = 0; p < P; ++p) prev[p] = nib[p];
       // rows 1..k - W/2 + 1 are whole now
       if (k - half + 1 - flushed >= kFlush) {
         __syncwarp();
-        for (int u = lane; u < kFlush * kRowVecs; u += 32) {
-          const int r0 = flushed + u / kRowVecs;
-          mv_out[(size_t)flushed * kRowVecs + u] =
-              *reinterpret_cast<const uint4*>(
-                  ring + (r0 & (kRing - 1)) * kRowBytes +
-                  (u % kRowVecs) * 16);
-        }
+        copy_words(mv_out + (size_t)flushed * row_words,
+                   ring + (flushed % kRing) * row_bytes, kFlush * row_words,
+                   lane);
         flushed += kFlush;
         __syncwarp();
       }
@@ -288,29 +372,31 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
 
   // Iterations 1..last + W/2 - 1.  In [W/2, last] every cell is on a row
   // of the lane; in [W - 1, tmax - W/2 + 1] the rows k - W/2 + 1..k of the
-  // iteration also lie inside the target along the whole band.
+  // iteration also lie inside the target along the whole band, which
+  // without padding cells makes every cell valid.
   const int k_end = last > 0 ? last + half - 1 : 0;
   int k = 1;
   for (; k <= min(half - 1, k_end); ++k)
     iteration(k, Flag<true>{}, Flag<true>{});
   for (; k <= min(W - 2, last); ++k)
     iteration(k, Flag<false>{}, Flag<true>{});
+  if (!padded) {
 #pragma unroll 2
-  for (; k <= min(tm - half + 1, last); ++k)
-    iteration(k, Flag<false>{}, Flag<false>{});
+    for (; k <= min(tm - half + 1, last); ++k)
+      iteration(k, Flag<false>{}, Flag<false>{});
+  }
   for (; k <= last; ++k) iteration(k, Flag<false>{}, Flag<true>{});
   for (; k <= k_end; ++k) iteration(k, Flag<true>{}, Flag<true>{});
 
   if (kMoves) {
-    // the rows still in the ring, then zeros for the rows never computed
+    // the rows still in the ring (fewer than kFlush, contiguous in it), then
+    // zeros for the rows never computed
     __syncwarp();
-    for (int u = flushed * kRowVecs + lane; u < last * kRowVecs; u += 32) {
-      const int r0 = u / kRowVecs;
-      mv_out[u] = *reinterpret_cast<const uint4*>(
-          ring + (r0 & (kRing - 1)) * kRowBytes + (u % kRowVecs) * 16);
-    }
-    for (int u = last * kRowVecs + lane; u < S * kRowVecs; u += 32)
-      mv_out[u] = zero4;
+    copy_words(mv_out + (size_t)flushed * row_words,
+               ring + (flushed % kRing) * row_bytes,
+               (last - flushed) * row_words, lane);
+    zero_words(mv_out + (size_t)last * row_words, (S - last) * row_words,
+               lane);
   }
 
   // per-thread best, then a warp reduction on (score desc, flat index asc)
@@ -338,25 +424,37 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   return make_int3(f / W, f % W, v);  // f >= 0: truncation is floor
 }
 
+// The shares of a block's shared memory that warp `warp` takes: its ring
+// (rings first: they stay 16-byte aligned whatever S is) and its staging.
+template <int C, bool kMoves>
+__device__ __forceinline__ void warp_smem(uint8_t* smem, const int warp,
+                                          const int S, const int W,
+                                          uint8_t** ring, uint8_t** qs) {
+  const size_t ring_bytes = kMoves ? (size_t)ring_rows(C) * (W / 4) : 0;
+  *ring = smem + (size_t)warp * ring_bytes;
+  *qs = smem + (size_t)kWarps * ring_bytes +
+        (size_t)warp * 2 * (S + 32 * C);
+}
+
 // One launch lane of the per-segment kernels, by one warp: stage its q and
 // framed target rows, run the segment, write the endpoint (or the skip
 // record of an inactive lane, with zero moves).  `ring` and `qs` are this
-// warp's shares of the block's shared memory (see the kernel).
-template <int C, bool kMoves>
+// warp's shares of the block's shared memory (see warp_smem).
+template <int C, bool kMoves, int kW>
 __device__ __forceinline__ void dp_lane(
     const uint8_t* __restrict__ q, const uint8_t* __restrict__ tpad,
     const int32_t* __restrict__ tmax, const int32_t* __restrict__ segq,
     const uint8_t* __restrict__ active, int32_t* __restrict__ r_out,
     int32_t* __restrict__ w_out, int32_t* __restrict__ v_out,
-    int32_t* __restrict__ moves_out, const int S, const int b,
+    int32_t* __restrict__ moves_out, const int S, const int W_rt, const int b,
     const int lane, uint8_t* ring, uint8_t* qs) {
-  constexpr int W = 32 * C;
-  constexpr int half = W / 2;
-  constexpr int kRowVecs = W / 64;      // 16-byte vectors in a move row
+  constexpr int Wp = 32 * C;
+  const int W = kW ? kW : W_rt;
+  const int half = W / 2;
 
-  // this lane's move rows, [S, W/16], as 16-byte vectors
-  uint4* mv_out =
-      kMoves ? reinterpret_cast<uint4*>(moves_out + (size_t)b * S * (W / 16))
+  // this lane's move rows, [S, W/16]
+  uint32_t* mv_out =
+      kMoves ? reinterpret_cast<uint32_t*>(moves_out) + (size_t)b * S * (W / 16)
              : nullptr;
 
   if (!active[b]) {
@@ -365,14 +463,12 @@ __device__ __forceinline__ void dp_lane(
       w_out[b] = half;
       v_out[b] = (int32_t)kVinf;
     }
-    if (kMoves)
-      for (int u = lane; u < S * kRowVecs; u += 32)
-        mv_out[u] = make_uint4(0, 0, 0, 0);
+    if (kMoves) zero_words(mv_out, S * (W / 16), lane);
     return;
   }
 
-  uint8_t* qsp = qs + half;
-  uint8_t* ts = qs + S + W;
+  uint8_t* qsp = qs + Wp / 2;
+  uint8_t* ts = qs + S + Wp;
   const uint8_t* qg = q + (size_t)b * S;
   const uint8_t* tg = tpad + (size_t)b * (S + W);
   if ((S & 15) == 0 && ((reinterpret_cast<uintptr_t>(q) |
@@ -390,8 +486,8 @@ __device__ __forceinline__ void dp_lane(
   }
   __syncwarp();
 
-  const int3 best = dp_body<C, kMoves>(qs, tmax[b], segq[b], S, lane, ring,
-                                       mv_out);
+  const int3 best = dp_body<C, kMoves, kW>(qs, tmax[b], segq[b], S, W,
+                                           lane, ring, mv_out);
   if (lane == 0) {
     r_out[b] = best.x;
     w_out[b] = best.y;
@@ -406,7 +502,7 @@ __device__ __forceinline__ void dp_lane(
 // one scheduler while others idle: an inactive lane costs its warp one
 // counter round trip, and a scheduler runs at most kResident live lanes at
 // a time wherever they lie in the batch.
-template <int C, bool kMoves>
+template <int C, bool kMoves, int kW>
 __global__ void __launch_bounds__(32 * kWarps)
 dp_segment_kernel(const uint8_t* __restrict__ q,
                   const uint8_t* __restrict__ tpad,
@@ -416,36 +512,36 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
                   int32_t* __restrict__ r_out, int32_t* __restrict__ w_out,
                   int32_t* __restrict__ v_out,
                   int32_t* __restrict__ moves_out,
-                  int32_t* __restrict__ next_lane, int B, int S) {
-  constexpr int W = 32 * C;
+                  int32_t* __restrict__ next_lane, int B, int S, int W) {
   extern __shared__ uint4 smem_vec[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_vec);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // rings first: they stay 16-byte aligned whatever S is
-  uint8_t* ring = smem + (size_t)warp * kRing * (W / 4);
-  uint8_t* qs = smem + (kMoves ? (size_t)kWarps * kRing * (W / 4) : 0) +
-                (size_t)warp * 2 * (S + W);
+  uint8_t *ring, *qs;
+  warp_smem<C, kMoves>(reinterpret_cast<uint8_t*>(smem_vec), warp, S, W,
+                       &ring, &qs);
   for (;;) {
     int b = 0;
     if (lane == 0) b = atomicAdd(next_lane, 1);
     b = __shfl_sync(kFull, b, 0);
     if (b >= B) return;
-    dp_lane<C, kMoves>(q, tpad, tmax, segq, active, r_out, w_out, v_out,
-                       moves_out, S, b, lane, ring, qs);
+    dp_lane<C, kMoves, kW>(q, tpad, tmax, segq, active, r_out, w_out, v_out,
+                           moves_out, S, W, b, lane, ring, qs);
     __syncwarp();  // the next lane restages this warp's shared memory
   }
 }
 
-// The counts-only segment loop of one extension direction: every lane run
-// to its end in one launch.
+// The segment loop of one extension direction: every lane run to its end
+// in one launch.
 //
-// Replaces the reference's device loop mecat_tpu/ops/align.py:531-541, the
-// jax.lax.while_loop of _extend_direction_impl(collect_ops=False) with body
-// seg_step at :468-514, which the port's plain version runs from the host
-// with one sync and some 40-75 small kernels a segment.  Per lane, from
-// qoff = toff = dist = matches = alen = nsegs = 0 and active = qlen > 0 &
-// tlen > 0, while active and fewer than max_segs segments have run:
+// Replaces the reference's device loops around seg_step
+// (mecat_tpu/ops/align.py:468-514) in _extend_direction_impl: the counts
+// form (kMoves false) the jax.lax.while_loop of collect_ops=False at
+// :531-541, the move form (kMoves true) the jax.lax.scan of
+// collect_ops=True at :520-526, which keeps every segment's moves and
+// endpoint.  The port's plain version runs them from the host with one
+// sync and some 40-75 small kernels a segment.  Per lane, from qoff = toff
+// = dist = matches = alen = nsegs = 0 and active = qlen > 0 & tlen > 0,
+// while active and fewer than the lane's max_segs segments have run:
 //
 //   * seg_q = clamp(qlen - qoff, 0, S), rem_t = clamp(tlen - toff, 0,
 //     S + W/2);
@@ -457,12 +553,16 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
 //   * m = max(floor((r + j + ind) / 2) - d, 0), a = m + d, and ok = r + j
 //     > 0 & d < INF & (m / max(a, 1) >= min_seg_identity | a < 32), the
 //     quotient and the threshold in float32;
+//   * the move form stores the segment in slot nsegs: its moves, r, w, the
+//     qoff and toff it started from, and ok;
 //   * where ok, qoff, toff, dist, matches, alen advance by r, j, d, m, a;
 //     nsegs += 1; active = ok & r >= seg_q - max(1, S/4) & r >= 1 &
 //     qoff < qlen & toff < tlen.
 //
 // A lane that stops never starts again and a stopped lane changes nothing,
-// so each lane run to its own end gives the batch loop's result.
+// so each lane run to its own end gives the batch loop's result.  The
+// slots a lane never reaches are left unwritten: the caller knows where
+// each lane stopped and fills them with the record of an inactive lane.
 //
 // Design: the persistent warps of the per-segment kernel, one lane a warp
 // from the counter, now run the lane's segments to its end before taking
@@ -475,11 +575,12 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
 // comes from the host already rounded to float32; >> and & floor.
 //
 // What bounds it: the cells of the segments the data runs, at 12 int32
-// operations a cell, and the lane with the longest chain: each of its
-// segments is 2r + W dependent steps, and the next one's windows start
-// where this one's endpoint lies.  All lanes of a batch start together
-// and most stop within a few segments, so a launch ends with few live
-// warps, each on its own chain.
+// operations a cell (18 with moves), beside the move bytes written (S*W/4 a
+// lane-segment), and the lane with the longest chain: each of its segments
+// is 2r + W dependent steps, and the next one's windows start where this
+// one's endpoint lies.  All lanes of a batch start together and most stop
+// within a few segments, so a launch ends with few live warps, each on its
+// own chain.
 struct ExtendArgs {
   const uint8_t* q_pad;    // [N, Lq], query rows with S sentinel bytes
   const uint8_t* t_pad;    // [N, Lt], framed target rows
@@ -489,7 +590,17 @@ struct ExtendArgs {
   const int32_t* tlen;
   int32_t* out;            // [6, N]: qoff, toff, dist, matches, alen, nsegs
   int32_t* next_lane;      // one int32: the lane counter
-  int N, S, Lq, Lt, max_segs;
+  // the move form's slots, [G, N] (moves [G, N, S, W/16])
+  int32_t* moves;
+  int32_t* r_end;
+  int32_t* w_end;
+  int32_t* qoff_before;
+  int32_t* toff_before;
+  uint8_t* ok;
+  int N, S, W, Lq, Lt;
+  int max_segs;            // lanes below `split`
+  int split;
+  int max_segs_b;          // lanes from `split` on
   float min_identity;
 };
 
@@ -503,40 +614,46 @@ __device__ __forceinline__ int window_start(int start, const int width,
   return min(max(start, 0), width - size);
 }
 
-template <int C>
+template <int C, bool kMoves, int kW>
 __global__ void __launch_bounds__(32 * kWarps)
-extend_counts_kernel(const ExtendArgs a) {
-  constexpr int W = 32 * C;
-  constexpr int half = W / 2;
+extend_kernel(const ExtendArgs a) {
+  constexpr int Wp = 32 * C;
   extern __shared__ uint4 smem_vec[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int S = a.S;
-  uint8_t* qs = reinterpret_cast<uint8_t*>(smem_vec) +
-                (size_t)warp * lane_smem(S, W, false);
+  const int S = a.S, W = kW ? kW : a.W;
+  const int half = W / 2;
+  uint8_t *ring, *qs;
+  warp_smem<C, kMoves>(reinterpret_cast<uint8_t*>(smem_vec), warp, S, W,
+                       &ring, &qs);
   const int slack = max(1, S / 4);
+  const size_t lane_words = (size_t)S * (W / 16);
   for (;;) {
     int b = 0;
     if (lane == 0) b = atomicAdd(a.next_lane, 1);
     b = __shfl_sync(kFull, b, 0);
     if (b >= a.N) return;
+    const int max_segs = b < a.split ? a.max_segs : a.max_segs_b;
     const int qlen = a.qlen[b], tlen = a.tlen[b];
     const int q0 = a.q0[b], t0 = a.t0[b];
     const uint8_t* qrow = a.q_pad + (size_t)b * a.Lq;
     const uint8_t* trow = a.t_pad + (size_t)b * a.Lt;
     int qoff = 0, toff = 0, dist = 0, matches = 0, alen = 0, nsegs = 0;
     bool active = qlen > 0 && tlen > 0;
-    while (active && nsegs < a.max_segs) {
+    while (active && nsegs < max_segs) {
       const int seg_q = min(max(qlen - qoff, 0), S);
       const int rem_t = min(max(tlen - toff, 0), S + half);
       const uint8_t* qg = qrow + window_start(q0 + qoff, a.Lq, S);
       const uint8_t* tg = trow + window_start(t0 + toff, a.Lt, S + W);
       __syncwarp();                     // the last segment's reads are done
-      for (int x = lane; x < S; x += 32) qs[half + x] = qg[x];
-      for (int x = lane; x < S + W; x += 32) qs[S + W + x] = tg[x];
+      for (int x = lane; x < S; x += 32) qs[Wp / 2 + x] = qg[x];
+      for (int x = lane; x < S + W; x += 32) qs[S + Wp + x] = tg[x];
       __syncwarp();
-      const int3 e =
-          dp_body<C, false>(qs, rem_t, seg_q, S, lane, nullptr, nullptr);
+      const size_t slot = (size_t)nsegs * a.N + b;
+      const int3 e = dp_body<C, kMoves, kW>(
+          qs, rem_t, seg_q, S, W, lane, ring,
+          kMoves ? reinterpret_cast<uint32_t*>(a.moves) + slot * lane_words
+                 : nullptr);
       const int r = e.x;
       const int j = r - half + e.y;
       const bool vinf = e.z >= (int)kVinf;
@@ -547,6 +664,13 @@ extend_counts_kernel(const ExtendArgs a) {
       const float ident = __fdiv_rn((float)m, (float)max(al, 1));
       const bool ok = r + j > 0 && d < kInf &&
                       (ident >= a.min_identity || al < 32);
+      if (kMoves && lane == 0) {
+        a.r_end[slot] = r;
+        a.w_end[slot] = e.y;
+        a.qoff_before[slot] = qoff;
+        a.toff_before[slot] = toff;
+        a.ok[slot] = ok;
+      }
       if (ok) {
         qoff += r;
         toff += j;
@@ -570,7 +694,16 @@ extend_counts_kernel(const ExtendArgs a) {
   }
 }
 
-constexpr size_t kSmemLimit = 48 * 1024;  // without an opt-in attribute
+// Lets `kernel` take `smem` bytes of dynamic shared memory: fine up to the
+// default, after an opt-in up to the block's limit, refused above it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, const size_t smem) {
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  if (smem <= kSmemDefault) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
 
 // The grid of persistent warps for B lanes: kResident warps for every
 // scheduler of the card, or fewer when the launch has fewer lanes (a block
@@ -589,37 +722,38 @@ cudaError_t persistent_grid(int B, void* next_lane, cudaStream_t stream,
   return err;
 }
 
-template <int C, bool kMoves>
+bool band_ok(int W) { return W % 16 == 0 && W >= kMinW && W <= kMaxW; }
+
+template <int C, bool kMoves, int kW>
 cudaError_t launch(const void* q, const void* tpad, const void* tmax,
                    const void* segq, const void* active, void* r, void* w,
-                   void* v, void* moves, void* next_lane, int B, int S,
+                   void* v, void* moves, void* next_lane, int B, int S, int W,
                    cudaStream_t stream) {
-  const int W = 32 * C;
-  if (S <= 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)kWarps * lane_smem(S, W, kMoves);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t err = persistent_grid(B, next_lane, stream, &grid);
+  const size_t smem = (size_t)kWarps * lane_smem(S, W, C, kMoves);
+  cudaError_t err = allow_smem(dp_segment_kernel<C, kMoves, kW>, smem);
   if (err != cudaSuccess) return err;
-  dp_segment_kernel<C, kMoves><<<grid, 32 * kWarps, smem, stream>>>(
+  int grid = 0;
+  err = persistent_grid(B, next_lane, stream, &grid);
+  if (err != cudaSuccess) return err;
+  dp_segment_kernel<C, kMoves, kW><<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(tpad),
       static_cast<const int32_t*>(tmax), static_cast<const int32_t*>(segq),
       static_cast<const uint8_t*>(active), static_cast<int32_t*>(r),
       static_cast<int32_t*>(w), static_cast<int32_t*>(v),
-      static_cast<int32_t*>(moves), static_cast<int32_t*>(next_lane), B, S);
+      static_cast<int32_t*>(moves), static_cast<int32_t*>(next_lane), B, S,
+      W);
   return cudaGetLastError();
 }
 
-template <int C>
+template <int C, bool kMoves, int kW>
 cudaError_t launch_extend(const ExtendArgs& a, cudaStream_t stream) {
-  const int W = 32 * C;
-  if (a.S <= 0 || a.Lq < a.S || a.Lt < a.S + W) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)kWarps * lane_smem(a.S, W, false);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t err = persistent_grid(a.N, a.next_lane, stream, &grid);
+  const size_t smem = (size_t)kWarps * lane_smem(a.S, a.W, C, kMoves);
+  cudaError_t err = allow_smem(extend_kernel<C, kMoves, kW>, smem);
   if (err != cudaSuccess) return err;
-  extend_counts_kernel<C><<<grid, 32 * kWarps, smem, stream>>>(a);
+  int grid = 0;
+  err = persistent_grid(a.N, a.next_lane, stream, &grid);
+  if (err != cudaSuccess) return err;
+  extend_kernel<C, kMoves, kW><<<grid, 32 * kWarps, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -629,17 +763,43 @@ int dispatch(const void* q, const void* tpad, const void* tmax,
              void* moves, void* next_lane, int B, int S, int W,
              void* stream) {
   if (B <= 0) return 0;
+  if (S <= 0 || !band_ok(W)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 64:
-      return launch<2, kMoves>(q, tpad, tmax, segq, active, r, w, v, moves,
-                               next_lane, B, S, st);
-    case 128:
-      return launch<4, kMoves>(q, tpad, tmax, segq, active, r, w, v, moves,
-                               next_lane, B, S, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define MECAT_LAUNCH(C, kW)                                                 \
+  return launch<C, kMoves, kW>(q, tpad, tmax, segq, active, r, w, v, moves, \
+                               next_lane, B, S, W, st)
+  switch (W) {                  // the paths' widths: W fixed in the instance
+    case 64: MECAT_LAUNCH(2, 64);
+    case 128: MECAT_LAUNCH(4, 128);
   }
+  switch (cells_for(W)) {
+    case 2: MECAT_LAUNCH(2, 0);
+    case 4: MECAT_LAUNCH(4, 0);
+    case 6: MECAT_LAUNCH(6, 0);
+    default: MECAT_LAUNCH(8, 0);
+  }
+#undef MECAT_LAUNCH
+}
+
+template <bool kMoves>
+int dispatch_extend(const ExtendArgs& a, void* stream) {
+  if (a.N <= 0) return 0;
+  if (a.S <= 0 || !band_ok(a.W) || a.Lq < a.S || a.Lt < a.S + a.W)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MECAT_LAUNCH(C, kW) \
+  return static_cast<int>(launch_extend<C, kMoves, kW>(a, st))
+  switch (a.W) {                // the paths' widths: W fixed in the instance
+    case 64: MECAT_LAUNCH(2, 64);
+    case 128: MECAT_LAUNCH(4, 128);
+  }
+  switch (cells_for(a.W)) {
+    case 2: MECAT_LAUNCH(2, 0);
+    case 4: MECAT_LAUNCH(4, 0);
+    case 6: MECAT_LAUNCH(6, 0);
+    default: MECAT_LAUNCH(8, 0);
+  }
+#undef MECAT_LAUNCH
 }
 
 }  // namespace
@@ -649,9 +809,9 @@ int dispatch(const void* q, const void* tpad, const void* tmax,
 // best band cell, packed value; next_lane one int32 of scratch, which the
 // call zeroes and the kernel counts lanes in.  All device pointers,
 // row-major, contiguous.  Returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue, without a launch, for a W other than
-// 64 or 128 or an S whose q/t staging does not fit the block's shared
-// memory.
+// success), or cudaErrorInvalidValue, without a launch, for a W that is not
+// a multiple of 16 in [16, 256], an S below 1 or an S whose staging does not
+// fit the block's shared memory.
 extern "C" int mecat_dp_segment_best(const void* q, const void* tpad,
                                      const void* tmax, const void* segq,
                                      const void* active, void* r, void* w,
@@ -661,9 +821,8 @@ extern "C" int mecat_dp_segment_best(const void* q, const void* tpad,
                          next_lane, B, S, W, stream);
 }
 
-// The same, and also the packed moves: int32 [B, S, W/16], 16-byte aligned
-// and uninitialised: the kernel writes every word, zeros in the rows it does
-// not compute.
+// The same, and also the packed moves: int32 [B, S, W/16], uninitialised:
+// the kernel writes every word, zeros in the rows it does not compute.
 extern "C" int mecat_dp_segment_best_moves(const void* q, const void* tpad,
                                            const void* tmax, const void* segq,
                                            const void* active, void* r,
@@ -675,37 +834,81 @@ extern "C" int mecat_dp_segment_best_moves(const void* q, const void* tpad,
 }
 
 // The counts-only segment loop of one direction for N lanes (see
-// extend_counts_kernel): q_pad uint8 [N, Lq], t_pad uint8 [N, Lt] (W/2
-// leading sentinels), q0, t0, qlen, tlen int32 [N]; out int32 [6, N]
-// (qoff, toff, dist, matches, alen, nsegs), every element written;
-// next_lane one int32 of scratch.  All device pointers, row-major,
-// contiguous.  Returns cudaGetLastError() after the launch (0 on success),
-// or cudaErrorInvalidValue, without a launch, for a W other than 64 or
-// 128, rows narrower than a window, or an S whose staging does not fit the
-// block's shared memory.
+// extend_kernel): q_pad uint8 [N, Lq], t_pad uint8 [N, Lt] (W/2 leading
+// sentinels), q0, t0, qlen, tlen int32 [N]; out int32 [6, N] (qoff, toff,
+// dist, matches, alen, nsegs), every element written; next_lane one int32
+// of scratch.  All device pointers, row-major, contiguous.  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue, without a launch, for a W that is not a multiple
+// of 16 in [16, 256], rows narrower than a window, or an S whose staging
+// does not fit the block's shared memory.
 extern "C" int mecat_extend_counts(const void* q_pad, const void* t_pad,
                                    const void* q0, const void* t0,
                                    const void* qlen, const void* tlen,
                                    void* out, void* next_lane, int N, int S,
                                    int W, int Lq, int Lt, int max_segs,
                                    float min_identity, void* stream) {
-  if (N <= 0) return 0;
-  const ExtendArgs a{static_cast<const uint8_t*>(q_pad),
-                     static_cast<const uint8_t*>(t_pad),
-                     static_cast<const int32_t*>(q0),
-                     static_cast<const int32_t*>(t0),
-                     static_cast<const int32_t*>(qlen),
-                     static_cast<const int32_t*>(tlen),
-                     static_cast<int32_t*>(out),
-                     static_cast<int32_t*>(next_lane),
-                     N, S, Lq, Lt, max_segs, min_identity};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 64:
-      return static_cast<int>(launch_extend<2>(a, st));
-    case 128:
-      return static_cast<int>(launch_extend<4>(a, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  ExtendArgs a{};
+  a.q_pad = static_cast<const uint8_t*>(q_pad);
+  a.t_pad = static_cast<const uint8_t*>(t_pad);
+  a.q0 = static_cast<const int32_t*>(q0);
+  a.t0 = static_cast<const int32_t*>(t0);
+  a.qlen = static_cast<const int32_t*>(qlen);
+  a.tlen = static_cast<const int32_t*>(tlen);
+  a.out = static_cast<int32_t*>(out);
+  a.next_lane = static_cast<int32_t*>(next_lane);
+  a.N = N;
+  a.S = S;
+  a.W = W;
+  a.Lq = Lq;
+  a.Lt = Lt;
+  a.max_segs = max_segs;
+  a.split = N;
+  a.max_segs_b = max_segs;
+  a.min_identity = min_identity;
+  return dispatch_extend<false>(a, stream);
+}
+
+// The move-writing segment loop for N lanes: lanes below `split` run at
+// most max_segs segments, the others max_segs_b.  Inputs and `out` as
+// mecat_extend_counts; per segment slot k and lane b, for k < the lane's
+// nsegs only (the other slots are left as they were): moves int32
+// [G, N, S, W/16] (16-byte aligned), r_end, w_end, qoff_before, toff_before
+// int32 and ok uint8 [G, N], G >= max(max_segs, max_segs_b).  Returns as
+// mecat_extend_counts.
+extern "C" int mecat_extend_moves(const void* q_pad, const void* t_pad,
+                                  const void* q0, const void* t0,
+                                  const void* qlen, const void* tlen,
+                                  void* out, void* moves, void* r_end,
+                                  void* w_end, void* qoff_before,
+                                  void* toff_before, void* ok,
+                                  void* next_lane, int N, int S, int W,
+                                  int Lq, int Lt, int max_segs, int split,
+                                  int max_segs_b, float min_identity,
+                                  void* stream) {
+  ExtendArgs a{};
+  a.q_pad = static_cast<const uint8_t*>(q_pad);
+  a.t_pad = static_cast<const uint8_t*>(t_pad);
+  a.q0 = static_cast<const int32_t*>(q0);
+  a.t0 = static_cast<const int32_t*>(t0);
+  a.qlen = static_cast<const int32_t*>(qlen);
+  a.tlen = static_cast<const int32_t*>(tlen);
+  a.out = static_cast<int32_t*>(out);
+  a.next_lane = static_cast<int32_t*>(next_lane);
+  a.moves = static_cast<int32_t*>(moves);
+  a.r_end = static_cast<int32_t*>(r_end);
+  a.w_end = static_cast<int32_t*>(w_end);
+  a.qoff_before = static_cast<int32_t*>(qoff_before);
+  a.toff_before = static_cast<int32_t*>(toff_before);
+  a.ok = static_cast<uint8_t*>(ok);
+  a.N = N;
+  a.S = S;
+  a.W = W;
+  a.Lq = Lq;
+  a.Lt = Lt;
+  a.max_segs = max_segs;
+  a.split = split;
+  a.max_segs_b = max_segs_b;
+  a.min_identity = min_identity;
+  return dispatch_extend<true>(a, stream);
 }

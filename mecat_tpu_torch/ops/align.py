@@ -12,7 +12,10 @@ tensors.  :func:`dp_segment_best` dispatches on the tensor's device only: a
 CUDA tensor launches the kernel or raises.  The counts form's segment loop
 does the same: on CUDA tensors :func:`_extend_direction_impl` is one launch
 of the segment-loop kernel of the same source, on CPU tensors the host
-loop over :func:`dp_segment_best_plain`.  The two walks do the same:
+loop over :func:`dp_segment_best_plain`; so does the move-writing form of
+both directions (:func:`_extend_both_with_moves`: one launch of the move
+loop, cut by :func:`slots_to_raw` to what the host loop gives).  The two
+walks do the same:
 :func:`traceback_rows` and :func:`traceback_ops` launch the kernels of
 ``csrc/cns_walk.cu`` (through :mod:`.walk_kernel`) for CUDA tensors and run
 :func:`traceback_rows_plain` / :func:`traceback_ops_plain` for CPU tensors.
@@ -461,7 +464,9 @@ def _extend_direction_impl(q_pad, t_pad, q0, t0, qlen, tlen, *, S, W,
     segment axis G.  The reference always scans ``max_segs`` segments there;
     the segments after the last active lane are all ``ok = False`` and every
     consumer masks by ``ok``, so this loop stops early too (after at least
-    one segment) and G <= max_segs.
+    one segment): G = max(1, max(n_segs)) <= max_segs.  On CUDA the
+    move-writing form runs through :func:`_extend_both_with_moves`, one
+    launch of the move loop for both directions.
     """
     B = q_pad.shape[0]
     half = W // 2
@@ -629,6 +634,93 @@ def _pair_alignment(left: ExtensionResult, right: ExtensionResult,
         n_segs=left.n_segs + right.n_segs)
 
 
+def extend_moves_plain(q_pad, t_pad, q0, t0, qlen, tlen, *, S: int, W: int,
+                       max_segs: int, min_seg_identity: float,
+                       split: int | None = None,
+                       max_segs_b: int | None = None):
+    """The plain version of :func:`.dp_kernel.extend_moves_cuda`, lane by
+    lane, on any device.
+
+    Each lane runs alone through the host loop (:func:`_extend_direction_impl`
+    with ``collect_ops`` on :func:`dp_segment_best_plain`), to its own end
+    as the kernel runs it, and its segments go into the same slots: (final,
+    (moves [G, N, S, W/16], r_end, w_end, qoff_before, toff_before, ok
+    [G, N])) with G = max(max_segs, max_segs_b).  Lanes below ``split``
+    (default N) have ``max_segs`` segments, the others ``max_segs_b``
+    (default ``max_segs``).  The slots a lane never reaches, which the
+    kernel leaves unwritten, hold -1 here (``ok`` True), so a caller that
+    reads them shows.
+    """
+    N = q_pad.shape[0]
+    split = N if split is None else split
+    max_segs_b = max_segs if max_segs_b is None else max_segs_b
+    G = max(max_segs, max_segs_b, 1)
+    dev = q_pad.device
+    final = torch.zeros((6, N), dtype=torch.int32, device=dev)
+    slots = (torch.full((G, N, S, W // 16), -1, dtype=torch.int32,
+                        device=dev),
+             *(torch.full((G, N), -1, dtype=torch.int32, device=dev)
+               for _ in range(4)),
+             torch.ones((G, N), dtype=torch.bool, device=dev))
+    for b in range(N):
+        res, raw = _extend_direction_impl(
+            *(x[b:b + 1] for x in (q_pad, t_pad, q0, t0, qlen, tlen)),
+            S=S, W=W, max_segs=max_segs if b < split else max_segs_b,
+            min_seg_identity=min_seg_identity, dp=dp_segment_best_plain,
+            collect_ops=True)
+        final[:, b] = torch.stack([x[0] for x in res])
+        n = int(res.n_segs[0])
+        for dst, src in zip(slots, raw):
+            dst[:n, b] = src[:n, 0]
+    return tuple(final.unbind(0)), slots
+
+
+def slots_to_raw(final, slots, B: int, W: int):
+    """The move loop's slots -> what the host loop of both directions
+    gives: (left, right, raw2, G) as :func:`_extend_both_with_moves`
+    returns them.
+
+    ``final`` and ``slots`` as :func:`.dp_kernel.extend_moves_cuda` returns
+    them for the 2B lanes of :func:`direction_lanes` (right first).  Each
+    direction keeps G = max(1, max(nsegs)) slots over its lanes (pulled in
+    one ``.tolist()``), exactly as many segments as its host loop runs, and
+    a slot past a lane's own end becomes the host loop's record of an
+    inactive lane: zero moves, r_end 0, w_end W/2, the lane's final qoff /
+    toff, ok False.  So every slot < G equals the host loop's, however the
+    unwritten slots were filled.
+    """
+    moves, r_end, w_end, qo, to, ok = slots
+    qoff, toff, nsegs = final[0], final[1], final[5]
+    dev = nsegs.device
+    N = nsegs.shape[0]
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    halves = (slice(0, B), slice(B, N))
+    Gs = [max(1, int(g)) for g in torch.stack(
+        [torch.cat([nsegs[h], zero]).max() for h in halves]).tolist()]
+    G2 = sum(Gs)
+    moves2 = torch.empty((G2, B) + tuple(moves.shape[2:]), dtype=torch.int32,
+                         device=dev)
+    r2, w2, qo2, to2 = (torch.empty((G2, B), dtype=torch.int32, device=dev)
+                        for _ in range(4))
+    ok2 = torch.empty((G2, B), dtype=torch.bool, device=dev)
+    at = 0
+    for G, h in zip(Gs, halves):
+        live = (torch.arange(G, dtype=torch.int32, device=dev)[:, None]
+                < nsegs[None, h])
+        out = slice(at, at + G)
+        torch.where(live[:, :, None, None], moves[:G, h], zero[0],
+                    out=moves2[out])
+        r2[out] = torch.where(live, r_end[:G, h], 0)
+        w2[out] = torch.where(live, w_end[:G, h], W // 2)
+        qo2[out] = torch.where(live, qo[:G, h], qoff[None, h])
+        to2[out] = torch.where(live, to[:G, h], toff[None, h])
+        ok2[out] = live & ok[:G, h]
+        at += G
+    right = ExtensionResult(*(x[:B] for x in final))
+    left = ExtensionResult(*(x[B:] for x in final))
+    return left, right, (moves2, r2, w2, qo2, to2, ok2), Gs[0]
+
+
 def _extend_both_with_moves(q, t, qlen, tlen, qseed, tseed, *, S, W,
                              max_segs, min_seg_identity, max_segs_left, dp):
     """Both directions, each with its own segment budget and its moves kept.
@@ -636,21 +728,31 @@ def _extend_both_with_moves(q, t, qlen, tlen, qseed, tseed, *, S, W,
     Returns (left, right, raw2, G): the two ExtensionResults, the raw
     per-segment outputs (moves, r_end, w_end, qoff, toff, ok) of both
     directions concatenated on the segment axis (right first), and the
-    number of right segments G.
+    number of right segments G.  On CUDA tensors with ``dp`` left at
+    :func:`dp_segment_best` both directions are one launch of the
+    move-writing segment loop over the 2B lanes of :func:`direction_lanes`
+    (:func:`.dp_kernel.extend_moves_cuda`), cut to the host loop's segments
+    by :func:`slots_to_raw`; otherwise each direction runs the host loop,
+    the plain version.
     """
-    Lq, Lt = q.shape[1], t.shape[1]
-    qm = _masked(q, qlen, Q_SENTINEL)
-    tm = _masked(t, tlen, T_SENTINEL)
+    B = q.shape[0]
+    lanes = direction_lanes(q, t, qlen, tlen, qseed, tseed, S, W)
+    max_left = max_segs_left or max_segs
+    if dp is dp_segment_best and q.device.type == "cuda":
+        from .dp_kernel import extend_moves_cuda
+
+        loop = extend_moves_cuda(
+            *(x.contiguous() for x in lanes[:2]),
+            *(x.to(torch.int32).contiguous() for x in lanes[2:]),
+            S=S, W=W, max_segs=max_segs, min_seg_identity=min_seg_identity,
+            split=B, max_segs_b=max_left)
+        return slots_to_raw(*loop, B, W)
     kw = dict(S=S, W=W, min_seg_identity=min_seg_identity, dp=dp,
               collect_ops=True)
     right, right_raw = _extend_direction_impl(
-        _pad(qm, S, Q_SENTINEL), _pad(tm, S + W, T_SENTINEL, prefix=W // 2),
-        qseed, tseed, qlen - qseed, tlen - tseed, max_segs=max_segs, **kw)
+        *(x[:B] for x in lanes), max_segs=max_segs, **kw)
     left, left_raw = _extend_direction_impl(
-        _pad(torch.flip(qm, dims=[1]), S, Q_SENTINEL),
-        _pad(torch.flip(tm, dims=[1]), S + W, T_SENTINEL, prefix=W // 2),
-        Lq - qseed, Lt - tseed, qseed, tseed,
-        max_segs=max_segs_left or max_segs, **kw)
+        *(x[B:] for x in lanes), max_segs=max_left, **kw)
     raw2 = tuple(torch.cat([r, l]) for r, l in zip(right_raw, left_raw))
     return left, right, raw2, right_raw[0].shape[0]
 
@@ -665,8 +767,8 @@ def extend_pair_batch_rows(q: torch.Tensor, t: torch.Tensor,
                            dp: Callable = dp_segment_best):
     """Extend both directions and trace every segment back row by row.
 
-    The two directions run separately with their own segment budgets
-    (``max_segs`` right, ``max_segs_left`` left, 0 = the same), then ONE
+    The two directions run with their own segment budgets (``max_segs``
+    right, ``max_segs_left`` left, 0 = the same), then ONE
     :func:`traceback_rows` walks every (segment, pair) lane of both.
     Returns (pa, right_rows, left_rows); each rows tuple is (mv, h, wo
     [G, B, S], w0 [G, B], qoff, toff, ok [G, B]) in the direction's local
@@ -674,10 +776,17 @@ def extend_pair_batch_rows(q: torch.Tensor, t: torch.Tensor,
     of segments the direction ran (see :func:`_extend_direction_impl`);
     entries where ``ok`` is False are unspecified.
     """
-    B = q.shape[0]
-    left, right, (moves2, r2, w2, qo2, to2, ok2), G = _extend_both_with_moves(
+    return rows_from_moves(qseed, tseed, S, W, *_extend_both_with_moves(
         q, t, qlen, tlen, qseed, tseed, S=S, W=W, max_segs=max_segs,
-        min_seg_identity=min_seg_identity, max_segs_left=max_segs_left, dp=dp)
+        min_seg_identity=min_seg_identity, max_segs_left=max_segs_left,
+        dp=dp))
+
+
+def rows_from_moves(qseed, tseed, S: int, W: int, left, right, raw2, G):
+    """The results of :func:`extend_pair_batch_rows` from those of
+    :func:`_extend_both_with_moves`."""
+    B = qseed.shape[0]
+    moves2, r2, w2, qo2, to2, ok2 = raw2
     G2 = moves2.shape[0]
     mv2, h2, wo2, w02 = traceback_rows(
         moves2.reshape(G2 * B, S, -1), r2.reshape(-1), w2.reshape(-1), W)
@@ -711,10 +820,19 @@ def extend_pair_batch_with_ops(q: torch.Tensor, t: torch.Tensor,
     (the reference always scans its whole budget; the segments it scans
     past that are all unapplied, with ``n_cols`` 0).
     """
-    B = q.shape[0]
-    left, right, (moves2, r2, w2, qo2, to2, ok2), G = _extend_both_with_moves(
-        q, t, qlen, tlen, qseed, tseed, S=S, W=W, max_segs=max_segs,
-        min_seg_identity=min_seg_identity, max_segs_left=max_segs_left, dp=dp)
+    return ops_from_moves(
+        qseed, tseed, S, W, min_seg_identity, *_extend_both_with_moves(
+            q, t, qlen, tlen, qseed, tseed, S=S, W=W, max_segs=max_segs,
+            min_seg_identity=min_seg_identity, max_segs_left=max_segs_left,
+            dp=dp))
+
+
+def ops_from_moves(qseed, tseed, S: int, W: int, min_seg_identity: float,
+                   left, right, raw2, G):
+    """The results of :func:`extend_pair_batch_with_ops` from those of
+    :func:`_extend_both_with_moves`."""
+    B = qseed.shape[0]
+    moves2, r2, w2, qo2, to2, ok2 = raw2
     G2 = moves2.shape[0]
     TC = max_tape_cols(S, W, min_seg_identity)
     ops2, qi2, tj2, nc2 = traceback_ops(

@@ -2,20 +2,25 @@
 
 The source replaces ``mecat_tpu/ops/pallas_dp.py:_dp_kernel`` in both forms:
 counts only (:func:`dp_segment_best_cuda`) and move-writing
-(:func:`dp_segment_best_moves_cuda`), and the reference's device loop
-around the counts form, the ``while_loop`` of
-``mecat_tpu/ops/align.py:_extend_direction_impl`` (:func:`extend_counts_cuda`:
-every lane's whole segment loop in one launch; its plain version is the
-host loop of :func:`..ops.align._extend_direction_impl` on
-:func:`..ops.align.dp_segment_best_plain`).  :mod:`.cuda_build` compiles
+(:func:`dp_segment_best_moves_cuda`), and the reference's device loops
+around them in ``mecat_tpu/ops/align.py:_extend_direction_impl``: the
+counts ``while_loop`` (:func:`extend_counts_cuda`) and the move-writing
+``scan`` (:func:`extend_moves_cuda`), each lane's whole segment loop in one
+launch.  Their plain version is the host loop of
+:func:`..ops.align._extend_direction_impl` on
+:func:`..ops.align.dp_segment_best_plain`;
+:func:`..ops.align.extend_moves_plain` fills the move loop's slots lane by
+lane as the kernel does.  Every kernel
+takes the band widths of :func:`check_band`.  :mod:`.cuda_build` compiles
 the source with ``nvcc`` for ``sm_90a`` into a shared library with plain C
 entry points at first CUDA use, and it is called through ``ctypes`` on
 PyTorch's current stream.  Nothing here runs at import: CPU-only machines
 import this module freely.
 
-``LAUNCHES``, ``LAUNCHES_MOVES`` and ``LAUNCHES_EXTEND`` count the launches
-of the three kernels, so a run can show that its DP went through them;
-:func:`launches` reads them under the keys the metrics summaries print.
+``LAUNCHES``, ``LAUNCHES_MOVES``, ``LAUNCHES_EXTEND`` and
+``LAUNCHES_EXTEND_MOVES`` count the launches of the four kernels, so a run
+can show that its DP went through them; :func:`launches` reads them under
+the keys the metrics summaries print.
 """
 from __future__ import annotations
 
@@ -39,6 +44,12 @@ LAUNCHES = 0
 LAUNCHES_MOVES = 0
 #: launches of the counts-only segment-loop kernel
 LAUNCHES_EXTEND = 0
+#: launches of the move-writing segment-loop kernel
+LAUNCHES_EXTEND_MOVES = 0
+
+#: the band widths the kernels take: multiples of 16 in [BAND_MIN, BAND_MAX]
+BAND_MIN = 16
+BAND_MAX = 256
 
 _lib = None
 
@@ -57,14 +68,29 @@ def _load():
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_void_p])
         lib.mecat_extend_counts.restype = ctypes.c_int
+        lib.mecat_extend_moves.argtypes = (
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.mecat_extend_moves.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def check_band(W: int) -> None:
+    """Raise ValueError unless the kernels take band width ``W``: every
+    multiple of 16 from BAND_MIN to BAND_MAX (the reference computes any
+    multiple of 16; wider bands are not built for the card)."""
+    if W % 16 or not BAND_MIN <= W <= BAND_MAX:
+        raise ValueError(f"the CUDA kernels take band widths W that are "
+                         f"multiples of 16 in [{BAND_MIN}, {BAND_MAX}], "
+                         f"got W={W}")
+
+
 def launches() -> dict:
-    """The three launch counters, by the keys of the metrics summaries."""
+    """The four launch counters, by the keys of the metrics summaries."""
     return {"dp_launches": LAUNCHES, "dp_launches_moves": LAUNCHES_MOVES,
-            "dp_launches_extend": LAUNCHES_EXTEND}
+            "dp_launches_extend": LAUNCHES_EXTEND,
+            "dp_launches_extend_moves": LAUNCHES_EXTEND_MOVES}
 
 
 def launches_since(before: dict) -> dict:
@@ -85,12 +111,13 @@ def _launch(q_seg, tpad, tmax, seg_q, active, S: int, W: int,
     _check("tmax", tmax, torch.int32, (B,), dev)
     _check("seg_q", seg_q, torch.int32, (B,), dev)
     _check("active", active, torch.bool, (B,), dev)
+    check_band(W)
     lib = _load()
     r = torch.empty(B, dtype=torch.int32, device=dev)
     w = torch.empty(B, dtype=torch.int32, device=dev)
     v = torch.empty(B, dtype=torch.int32, device=dev)
     # the kernel writes every word: zeros in the rows it does not compute
-    moves = (torch.empty((B, S, max(W // 16, 1)), dtype=torch.int32,
+    moves = (torch.empty((B, S, W // 16), dtype=torch.int32,
                          device=dev) if with_moves else None)
     if B == 0:
         return r, w, v, moves
@@ -145,6 +172,34 @@ def dp_segment_best_moves_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
     return moves, r, w, v
 
 
+def _extend_inputs(q_pad, t_pad, q0, t0, qlen, tlen, W: int, what: str):
+    """Check the segment-loop kernels' inputs; returns (device, N, Lq, Lt)."""
+    if q_pad.device.type != "cuda":
+        raise ValueError(f"the {what} kernel needs CUDA tensors, got "
+                         f"{q_pad.device}")
+    if q_pad.dim() != 2 or t_pad.dim() != 2:
+        raise ValueError(f"q_pad and t_pad must be [N, L], got "
+                         f"{tuple(q_pad.shape)} and {tuple(t_pad.shape)}")
+    N, Lq = q_pad.shape
+    Lt = t_pad.shape[1]
+    dev = q_pad.device
+    _check("q_pad", q_pad, torch.uint8, (N, Lq), dev)
+    _check("t_pad", t_pad, torch.uint8, (N, Lt), dev)
+    for name, t in (("q0", q0), ("t0", t0), ("qlen", qlen), ("tlen", tlen)):
+        _check(name, t, torch.int32, (N,), dev)
+    check_band(W)
+    return dev, N, Lq, Lt
+
+
+def _extend_rc(rc: int, what: str, S: int, W: int, Lq: int, Lt: int):
+    if rc == _INVALID_VALUE:
+        raise ValueError(f"the {what} kernel does not take S={S}, W={W}, "
+                         f"rows of {Lq} and {Lt} bytes (see "
+                         "mecat_tpu_torch/csrc/dp_segment.cu)")
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
 def extend_counts_cuda(q_pad: torch.Tensor, t_pad: torch.Tensor,
                        q0: torch.Tensor, t0: torch.Tensor,
                        qlen: torch.Tensor, tlen: torch.Tensor, *, S: int,
@@ -157,24 +212,13 @@ def extend_counts_cuda(q_pad: torch.Tensor, t_pad: torch.Tensor,
     [N, Lt] target rows with W/2 leading sentinels; q0, t0, qlen, tlen int32
     [N] as :func:`..ops.align._extend_direction_impl` takes them.  The
     identity threshold is rounded to float32 here, as the plain version's
-    comparison rounds it.  Raises ValueError on CPU tensors (before
-    anything is built) and on what the kernel does not take, RuntimeError
-    on a CUDA error.
+    comparison rounds it.  Raises ValueError on CPU tensors and on a band
+    the kernel does not take (before anything is built) and on what else
+    the kernel does not take, RuntimeError on a CUDA error.
     """
     global LAUNCHES_EXTEND
-    if q_pad.device.type != "cuda":
-        raise ValueError(f"the segment-loop kernel needs CUDA tensors, got "
-                         f"{q_pad.device}")
-    if q_pad.dim() != 2 or t_pad.dim() != 2:
-        raise ValueError(f"q_pad and t_pad must be [N, L], got "
-                         f"{tuple(q_pad.shape)} and {tuple(t_pad.shape)}")
-    N, Lq = q_pad.shape
-    Lt = t_pad.shape[1]
-    dev = q_pad.device
-    _check("q_pad", q_pad, torch.uint8, (N, Lq), dev)
-    _check("t_pad", t_pad, torch.uint8, (N, Lt), dev)
-    for name, t in (("q0", q0), ("t0", t0), ("qlen", qlen), ("tlen", tlen)):
-        _check(name, t, torch.int32, (N,), dev)
+    dev, N, Lq, Lt = _extend_inputs(q_pad, t_pad, q0, t0, qlen, tlen, W,
+                                    "segment-loop")
     out = torch.empty((6, N), dtype=torch.int32, device=dev)
     if N:
         lib = _load()
@@ -187,12 +231,52 @@ def extend_counts_cuda(q_pad: torch.Tensor, t_pad: torch.Tensor,
                 N, S, W, Lq, Lt, max_segs,
                 float(np.float32(min_seg_identity)),
                 torch.cuda.current_stream().cuda_stream)
-        if rc == _INVALID_VALUE:
-            raise ValueError(f"the segment-loop kernel does not take S={S}, "
-                             f"W={W}, rows of {Lq} and {Lt} bytes (see "
-                             "mecat_tpu_torch/csrc/dp_segment.cu)")
-        if rc != 0:
-            raise RuntimeError(f"segment-loop kernel launch failed: CUDA "
-                               f"error {rc}")
+        _extend_rc(rc, "segment-loop", S, W, Lq, Lt)
         LAUNCHES_EXTEND += 1
     return tuple(out.unbind(0))
+
+
+def extend_moves_cuda(q_pad: torch.Tensor, t_pad: torch.Tensor,
+                      q0: torch.Tensor, t0: torch.Tensor,
+                      qlen: torch.Tensor, tlen: torch.Tensor, *, S: int,
+                      W: int, max_segs: int, min_seg_identity: float,
+                      split: int | None = None,
+                      max_segs_b: int | None = None):
+    """Launch the move-writing segment loop: every lane's segments in one
+    launch, each segment kept in its slot.  Lanes below ``split`` (default
+    N) run at most ``max_segs`` segments, the others ``max_segs_b``
+    (default ``max_segs``).
+
+    Inputs as :func:`extend_counts_cuda`.  Returns (final, slots): final
+    the six int32 [N] fields of :class:`..ops.align.ExtensionResult`;
+    slots (moves int32 [G, N, S, W/16], r_end, w_end, qoff_before,
+    toff_before int32 [G, N], ok bool [G, N]) with G = max(max_segs,
+    max_segs_b), written for the slots k < nsegs[b] of each lane b only
+    (the rest is uninitialised; :func:`..ops.align.slots_to_raw` fills it).
+    Raises as :func:`extend_counts_cuda`.
+    """
+    global LAUNCHES_EXTEND_MOVES
+    dev, N, Lq, Lt = _extend_inputs(q_pad, t_pad, q0, t0, qlen, tlen, W,
+                                    "move-loop")
+    split = N if split is None else split
+    max_segs_b = max_segs if max_segs_b is None else max_segs_b
+    G = max(max_segs, max_segs_b, 1)
+    out = torch.empty((6, N), dtype=torch.int32, device=dev)
+    moves = torch.empty((G, N, S, W // 16), dtype=torch.int32, device=dev)
+    small = [torch.empty((G, N), dtype=torch.int32, device=dev)
+             for _ in range(4)]
+    ok = torch.empty((G, N), dtype=torch.bool, device=dev)
+    if N:
+        lib = _load()
+        next_lane = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.mecat_extend_moves(
+                *(t.data_ptr() for t in (q_pad, t_pad, q0, t0, qlen, tlen,
+                                         out, moves, *small, ok,
+                                         next_lane)),
+                N, S, W, Lq, Lt, max_segs, split, max_segs_b,
+                float(np.float32(min_seg_identity)),
+                torch.cuda.current_stream().cuda_stream)
+        _extend_rc(rc, "move-loop", S, W, Lq, Lt)
+        LAUNCHES_EXTEND_MOVES += 1
+    return tuple(out.unbind(0)), (moves, *small, ok)

@@ -30,6 +30,7 @@ import torch
 
 from . import cuda_build
 from .cuda_build import check_tensor as _check
+from .dp_kernel import check_band
 
 LIBRARY = "mecat_walk"
 #: the C entry points' answer to a shape the kernels do not take
@@ -100,6 +101,7 @@ def _walk_inputs(moves, seg_qlen, w_end, W: int):
     _check("seg_qlen", seg_qlen, torch.int32, (N,), dev)
     _check("w_end", w_end, torch.int32, (N,), dev)
     if moves.data_ptr() % 16:        # the row walk reads rows as 16-byte words
+                                     # where a row is a whole number of them
         raise ValueError("moves is not 16-byte aligned")
     return dev, N, S
 
@@ -109,11 +111,13 @@ def traceback_rows_cuda(moves: torch.Tensor, seg_qlen: torch.Tensor,
     """Launch the row walk; returns (mv, h, w_out) int32 [N, S] and w0
     int32 [N] as :func:`..ops.align.traceback_rows_plain`.
 
-    moves int32 [N, S, W/16]; seg_qlen, w_end int32 [N]; W in 32, 64, 128,
-    256.  Raises on anything the kernel does not take.
+    moves int32 [N, S, W/16]; seg_qlen, w_end int32 [N]; W a multiple of 16
+    in [16, 256] (:func:`.dp_kernel.check_band`, checked before anything is
+    built).  Raises on anything the kernel does not take.
     """
     global LAUNCHES_ROWS
     dev, N, S = _walk_inputs(moves, seg_qlen, w_end, W)
+    check_band(W)
     mv, h, wo = (torch.empty((N, S), dtype=torch.int32, device=dev)
                  for _ in range(3))
     w0 = torch.empty(N, dtype=torch.int32, device=dev)

@@ -209,12 +209,13 @@ def main(argv=None) -> int:
         found["seconds"] = round(time.time() - t0, 3)
         walks = walk_kernel.launches()
         mine = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES,
-                dp_kernel.LAUNCHES_EXTEND, sharded.EXCHANGE_BYTES,
-                *walks.values())
+                dp_kernel.LAUNCHES_EXTEND, dp_kernel.LAUNCHES_EXTEND_MOVES,
+                sharded.EXCHANGE_BYTES, *walks.values())
         found["launches_by_rank"] = all_gather_rows(torch.tensor(
             [mine], dtype=torch.int64, device=device)).tolist()
         for i, key in enumerate(("launches", "launches_moves",
-                                 "launches_extend", "exchange_bytes",
+                                 "launches_extend", "launches_extend_moves",
+                                 "exchange_bytes",
                                  *walks)):
             found[key] = global_sum(mine[i], device)
         if args.rank == 0:

@@ -962,7 +962,7 @@ def run_cns(input_path: str, reads_path: str, out_path: str,
     opts = opts or CnsOptions()
     device = torch.device(device)
     t0 = time.time()
-    launches0 = dp_kernel.LAUNCHES_MOVES
+    dp0 = dp_kernel.launches()
     walk0 = walk_kernel.launches()
     if db is None:
         db = PackedDB.from_fasta(reads_path)
@@ -1015,7 +1015,8 @@ def run_cns(input_path: str, reads_path: str, out_path: str,
                                       3))
     met.set("dp_gcells_useful", round(stats.dp_lane_segs_useful * S * W / 1e9,
                                       3))
-    met.set("dp_launches", dp_kernel.LAUNCHES_MOVES - launches0)
+    for name, n in dp_kernel.launches_since(dp0).items():
+        met.set(name, n)
     for name, n in walk_kernel.launches_since(walk0).items():
         met.set(name, n)
     if device.type == "cuda":

@@ -4,21 +4,24 @@ Port of ``mecat_tpu.pipeline.pw.run_pw``.  Volume i's k-mer table is built
 on the device; query reads of every volume j >= i are scanned in
 length-sorted batches through the DDF filter.  Two routes:
 
-* ``staged`` (the default): candidates are merged across strands (top n a
-  read), and with ``-j 1`` the surviving pairs are extended in fixed-size
-  batches built on the host.  ``-j 0`` merges on the device
+* ``staged`` (``-j 0`` everywhere, ``-j 1`` off the card, or when asked):
+  candidates are merged across strands (top n a read), and with ``-j 1``
+  the surviving pairs are extended in fixed-size batches built on the
+  host.  ``-j 0`` merges on the device
   (``ops.ddf.merge_strand_candidates_device``), pulls the kept prefix and
   emits the candidates with their seed points; ``-j 1`` merges on the
   host (``_merge_strand_candidates``), as the original's staged route
   does.
-* ``fused`` (``-j 1`` only): each batch is scanned and every candidate
-  probed by one DP segment on the device (``device_step.probe_step``); the
-  survivors (top n per strand) are extended against seed-centred target
-  windows gathered on the device (``device_step.extend_selected``), and
-  the overlaps are deduplicated and sorted per batch.  Batch k + 1 is
-  dispatched before batch k is collected.  The sharded driver
-  (``parallel.dist.run_pw_dist``) shares its batch plan, survivor filter
-  and M4 columns, so both give the same records.
+* ``fused`` (``-j 1`` only; the default for ``-j 1`` on a ``cuda``
+  device, as the reference takes it on its accelerator): each batch is
+  scanned and every candidate probed by one DP segment on the device
+  (``device_step.probe_step``); the survivors (top n per strand) are
+  extended against seed-centred target windows gathered on the device
+  (``device_step.extend_selected``), and the overlaps are deduplicated and
+  sorted per batch.  Batch k + 1 is dispatched before batch k is
+  collected.  The sharded driver (``parallel.dist.run_pw_dist``) shares
+  its batch plan, survivor filter and M4 columns, so both give the same
+  records.
 
 Each volume pair writes an idempotent shard ``<wrk>/pw_v{i}_v{j}.txt``
 (atomic rename); a rerun skips the shards that exist.
@@ -255,6 +258,14 @@ FLAT_BYTES = 1 << 30
 #: survivor lists longer than this are extended in two score-sorted halves
 _SPLIT_MIN = 768
 ROUTES = ("staged", "fused")
+
+
+def default_route(task: int, device) -> str:
+    """The route ``run_pw`` takes when the caller names none: ``fused`` for
+    ``-j 1`` on a ``cuda`` device, ``staged`` otherwise, as the reference's
+    ``_use_fused`` picks it for its accelerator."""
+    return ("fused" if task == 1 and torch.device(device).type == "cuda"
+            else "staged")
 
 
 def _bucket_k(n: int, minimum: int = 256) -> int:
@@ -523,16 +534,19 @@ def process_query_batch_fused(db: PackedDB, vol_base: int,
 
 def run_pw(reads_path: str, out_path: str, wrk_dir: str,
            opts: Optional[PwOptions] = None, db: Optional[PackedDB] = None,
-           *, device, route: str = "staged") -> PwStats:
+           *, device, route: Optional[str] = None) -> PwStats:
     """Full mecat2pw run on ``device``: volumes x volumes, M4/candidates out.
 
-    ``route`` is ``"staged"`` or ``"fused"`` (see the module text); the
-    fused route computes ``-j 1`` only and raises ValueError for ``-j 0``.
+    ``route`` is ``"staged"`` or ``"fused"`` (see the module text), or None
+    for :func:`default_route`; the fused route computes ``-j 1`` only and
+    raises ValueError for ``-j 0``.
     The summary line names the route and its phase split: ``staged_prep_s``,
     ``_scan_s``, ``_pull_s``, ``_emit_s``, ``_extend_s``; ``fused_prep_s``,
     ``_scan_s`` (scan and probe), ``_extend_s`` (survivors, extension, M4).
     """
     opts = opts or PwOptions()
+    if route is None:
+        route = default_route(opts.task, device)
     if route not in ROUTES:
         raise ValueError(f"unknown pw route {route!r}; one of {ROUTES}")
     if route == "fused" and opts.task != 1:

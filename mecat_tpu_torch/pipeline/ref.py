@@ -92,11 +92,12 @@ class RefStats:
     count_s: float = 0.0     # phase A counts-only extension + pulls
     ops_s: float = 0.0       # phase B winner extension + op streams
     emit_s: float = 0.0      # host record formatting
-    #: launches of the per-segment counts-only, the move-writing and the
-    #: segment-loop DP kernel (0 on CPU)
+    #: launches of the per-segment counts-only and move-writing DP kernels
+    #: and of the counts and the move-writing segment loop (0 on CPU)
     dp_launches: int = 0
     dp_launches_moves: int = 0
     dp_launches_extend: int = 0
+    dp_launches_extend_moves: int = 0
     #: DP lane-segments launched (lanes x segments run, both directions and
     #: both phases) and those of them a still-extending lane needed
     dp_lane_segs_issued: int = 0
@@ -126,22 +127,6 @@ def _ref_gather_qt(fwd, rev, ref_codes, rowi, strand, g0, wlen, L_win: int):
     return q, t
 
 
-class _DpTally:
-    """The DP segment function handed to the move-writing aligner of phase
-    B: :func:`dp_segment_best` itself, counting the lanes of every segment
-    it is asked for.  The counts-only extension takes no such wrapper (on
-    the card it is one launch of the segment-loop kernel, which a wrapper
-    would route around); :func:`_ref_count_chunk` counts its lane-segments
-    from the result."""
-
-    def __init__(self):
-        self.lane_segs = 0
-
-    def __call__(self, q_seg, *args, **kwargs):
-        self.lane_segs += int(q_seg.shape[0])
-        return dp_segment_best(q_seg, *args, **kwargs)
-
-
 def _ref_count_chunk(fwd, rev, ref_codes, rowi, strand, g0, wlen, qlen,
                      qs, ts, *, L_win, S, W, max_segs, dp=dp_segment_best):
     """Phase-A device chunk: score every candidate locus, no op tapes.
@@ -160,14 +145,17 @@ def _ref_extend_chunk(fwd, rev, ref_codes, rowi, strand, g0, wlen, qlen,
                       qs, ts, *, L_win, L_q, S, W, max_segs,
                       dp=dp_segment_best):
     """Phase-B device chunk (winners only): extend with ops and compact the
-    CIGAR stream.  Returns (PairAlignment, ops int8 [P, CW], n_ops [P])."""
+    CIGAR stream.  Returns (PairAlignment, ops int8 [P, CW], n_ops [P],
+    issued): issued is the lane-segments the plain host loop issues for the
+    chunk, P lanes times the segments each direction ran."""
     q, t = _ref_gather_qt(fwd, rev, ref_codes, rowi, strand, g0, wlen, L_win)
     pa, right_t, left_t = extend_pair_batch_with_ops(
         q, t, qlen, wlen, qs, ts, S=S, W=W, max_segs=max_segs, dp=dp)
+    issued = qs.shape[0] * (right_t[0].shape[0] + left_t[0].shape[0])
     CW = -(-(L_q + L_win + 2) // 128) * 128
     ops8 = ops_stream(right_t, left_t, qs, ts, CW=CW)
     n_ops = (ops8 >= 0).sum(dim=1, dtype=torch.int32)
-    return pa, ops8, n_ops
+    return pa, ops8, n_ops, issued
 
 
 def _pull_pa(pa, n: int):
@@ -319,7 +307,6 @@ def map_batch(db: PackedDB, read_ids: List[int], ref_db: PackedDB,
     # Phase B: selected alignments only (primary + up to best_n-1
     # secondary).
     t_ph = time.time()
-    dp = _DpTally()
     payloads = {}  # row -> [payload tuple] in rank order
     sel_pis = []
     for r in sorted(best):
@@ -332,9 +319,10 @@ def map_batch(db: PackedDB, read_ids: List[int], ref_db: PackedDB,
         n = len(sel)
         args = chunk_args(chunk_arr[sel], g_start[sel])
         if need_ops:
-            pa, ops_dev, n_ops_dev = _ref_extend_chunk(
+            pa, ops_dev, n_ops_dev, issued = _ref_extend_chunk(
                 bases_dev[0], bases_dev[1], ref_codes, *args,
-                L_win=L_win, L_q=L_q, S=S, W=W, max_segs=msegs, dp=dp)
+                L_win=L_win, L_q=L_q, S=S, W=W, max_segs=msegs)
+            stats.dp_lane_segs_issued += issued
             n_ops = n_ops_dev.cpu().numpy().astype(np.int64)
             # pull only the columns the longest stream of the chunk fills
             ops_np = ops_dev[:n, :int(n_ops[:n].max(initial=0))].cpu().numpy()
@@ -356,7 +344,6 @@ def map_batch(db: PackedDB, read_ids: List[int], ref_db: PackedDB,
                 int(strand), int(contig), int(win0), int(qbeg[i]),
                 int(qend[i]), int(tbeg[i]), int(tend[i]), float(ident[i]),
                 int(score), row_ops))
-    stats.dp_lane_segs_issued += dp.lane_segs
     stats.ops_s += time.time() - t_ph
 
     # emit records: primary first, then secondaries (FLAG 256 / extra lines)
@@ -457,7 +444,8 @@ def run_ref(reads_path: str, ref_path: str, out_path: str, wrk_dir: str,
              stats.emit_s, stats.seconds)
     S, W = opts.align_segment, opts.align_band
     for name in ("reads", "mapped", "dp_launches", "dp_launches_moves",
-                 "dp_launches_extend", "dp_lane_segs_issued",
+                 "dp_launches_extend", "dp_launches_extend_moves",
+                 "dp_lane_segs_issued",
                  "dp_lane_segs_useful"):
         met.set(name, getattr(stats, name))
     met.set("seconds", round(stats.seconds, 3))

@@ -4,8 +4,9 @@
 ``pair_inputs`` query/target pairs with seeds for the segmented extension,
 ``roll_micro_inputs`` lanes for the row-update micro-benchmark family;
 ``dp_segment_best_wavefront`` evaluates a DP segment in the order of the
-Hopper kernel (``csrc/dp_segment.cu``), so the CPU tests can hold that order
-against the plain version;
+Hopper kernel (``csrc/dp_segment.cu``), padded band and move ring
+(``move_rows_ring``) included, so the CPU tests can hold that order against
+the plain version;
 ``GOLDEN_J1`` / ``GOLDEN_J0`` are the ``PwOptions`` that produced
 ``tests/golden/overlaps.m4`` and ``tests/golden/candidates.txt``, and
 ``GOLDEN_CNS`` the ``CnsOptions`` of ``tests/golden/corrected.fasta``.
@@ -441,6 +442,111 @@ def roll_micro_inputs(S: int, W: int, n: int, seed: int):
     return q, t, tmax, segq
 
 
+def band_cells(W: int):
+    """(C, Wp) of ``csrc/dp_segment.cu`` for a band of W: band cells a
+    thread (even) and the band cells the warp holds, Wp = 32 * C >= W."""
+    C = 2 * -(-W // 64)
+    return C, 32 * C
+
+
+def move_rows_ring(codes: np.ndarray, last: int, S: int, W: int):
+    """The move words [S, W/16] int32 of one lane as ``csrc/dp_segment.cu``
+    assembles them, from the codes [S, W] of its rows (row i - 1, cell w;
+    only rows 1..last are read).
+
+    Iteration k of the kernel puts the band's cell pair g on row k - g.
+    Thread ``lane`` holds pairs lane * P .. lane * P + P - 1 (P = C/2); the
+    thread holding an odd pair g joins that pair's nibble with pair g - 1's
+    of the iteration before (its own, or from the thread to its left) into
+    byte g // 2 of row k - g in a ring of 128 rows (160 at C = 8), and every
+    32 iterations the 32 rows that have become whole are copied out; the
+    rows left in the ring follow at the end, then zeros.  A nibble of a cell
+    off its rows is poison (0xA), the ring and the output start as poison,
+    and an iteration the kernel runs unpredicated asserts that every byte it
+    writes lies on a row of the lane.
+    """
+    C, Wp = band_cells(W)
+    P = C // 2
+    R = 128 if Wp // 2 + 32 <= 128 else 160
+    half, rb = W // 2, W // 4
+    ring = np.full(R * rb, 0xEE, np.uint8)
+    out = np.full(S * rb, 0xDD, np.uint8)
+    codes = np.asarray(codes, np.int64)
+    lanes = np.arange(32)
+    g = lanes[:, None] * P + np.arange(P)[None, :]
+    prev = np.zeros((32, P), np.int64)
+    flushed = 0
+    k_end = last + half - 1 if last > 0 else 0
+    for k in range(1, k_end + 1):
+        edge = k <= half - 1 or k > last
+        row = k - g
+        on = (row >= 1) & (row <= last) & (2 * g + 1 < W)
+        rr = np.clip(row - 1, 0, S - 1)
+        gg = np.clip(g, 0, W // 2 - 1)
+        nib = np.where(on, codes[rr, 2 * gg] | (codes[rr, 2 * gg + 1] << 2),
+                       0xA)
+        left = np.concatenate([prev[:1, P - 1], prev[:-1, P - 1]])
+        for p in range(P):
+            odd = ((lanes * P + p) & 1) == 1
+            low = prev[:, p - 1] if p > 0 else left
+            m = g[:, p] >> 1
+            mine = odd & (4 * m < W)
+            in_rows = (row[:, p] >= 1) & (row[:, p] <= last)
+            if edge:
+                mine &= in_rows
+            else:
+                assert in_rows[mine].all(), (k, p)
+            slot = ((row[:, p] - 1) % R) * rb + m
+            ring[slot[mine]] = ((low | (nib[:, p] << 4)) & 0xFF)[mine]
+        prev = nib
+        if k - half + 1 - flushed >= 32:
+            s0 = (flushed % R) * rb
+            out[flushed * rb:(flushed + 32) * rb] = ring[s0:s0 + 32 * rb]
+            flushed += 32
+    s0 = (flushed % R) * rb
+    out[flushed * rb:last * rb] = ring[s0:s0 + (last - flushed) * rb]
+    out[last * rb:] = 0
+    return out.view("<i4").reshape(S, W // 16)
+
+
+class DpTally:
+    """A DP segment function for the host loop: ``ops.align.
+    dp_segment_best`` itself, counting the lanes of every segment it is
+    asked for.  Handing it to an extension routes the loop through the
+    host (a wrapper is not ``dp_segment_best``), so the tests hold the
+    lane-segments a path counts from its results against it."""
+
+    def __init__(self):
+        self.lane_segs = 0
+
+    def __call__(self, q_seg, *args, **kwargs):
+        from .ops.align import dp_segment_best
+
+        self.lane_segs += int(q_seg.shape[0])
+        return dp_segment_best(q_seg, *args, **kwargs)
+
+
+def moves_as_the_kernels_leave_them(raw2, G: int, qlen2, tlen2, S: int,
+                                    W: int):
+    """The raw tuple of ``ops.align._extend_both_with_moves`` run on the
+    plain DP, with each segment's move rows past the last row the kernels
+    compute, min(seg_q, S, rem_t + W/2), set to zero as the kernels leave
+    them (no walk reads them).  ``qlen2`` / ``tlen2`` are the 2B lanes'
+    lengths of ``ops.align.direction_lanes``; the first G segments are the
+    right direction's."""
+    moves2, r2, w2, qo2, to2, ok2 = raw2
+    B = moves2.shape[1]
+    right = torch.arange(moves2.shape[0], device=moves2.device)[:, None] < G
+    qlen = torch.where(right, qlen2[None, :B], qlen2[None, B:])
+    tlen = torch.where(right, tlen2[None, :B], tlen2[None, B:])
+    seg_q = (qlen - qo2).clamp(0, S)
+    rem_t = (tlen - to2).clamp(0, S + W // 2)
+    last = torch.minimum(seg_q, rem_t + W // 2)
+    row = torch.arange(1, S + 1, device=moves2.device)[None, None, :, None]
+    moves = torch.where(row <= last[:, :, None, None], moves2, 0)
+    return (moves, r2, w2, qo2, to2, ok2)
+
+
 def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
                               tmax: torch.Tensor, seg_q: torch.Tensor,
                               active: torch.Tensor, S: int, W: int,
@@ -452,11 +558,15 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
     Its diagonal input is the cell's own value (made at tau - 2), the
     vertical and the horizontal input are the right and the left neighbour
     as they stand (made at tau - 1), and the horizontal closure is the
-    sequential ``min(cand, left + 4097)``: no scan.  Moves are attributed
-    from the values, the best cell is kept per band cell with a strict
-    ``>`` and reduced once on (score desc, r*W + w asc).  The steps whose
-    cells all lie inside the target skip the validity select and the clamp,
-    as the kernel's fast iterations do.  Rows run to
+    sequential ``min(cand, left + 4097)``: no scan.  The band holds Wp =
+    :func:`band_cells` cells; the cells w >= W are padding, whose target
+    index is pushed out of [0, tmax] so that they stay at VINF.  Moves are
+    attributed from the values and assembled into words by
+    :func:`move_rows_ring`; the best cell is kept per band cell with a
+    strict ``>`` (padding cells start below every real one) and reduced
+    once on (score desc, r*W + w asc).  The steps whose cells all lie inside
+    the target skip the validity select and the clamp, as the kernel's fast
+    iterations do, which it runs only without padding.  Rows run to
     ``min(seg_q, S, tmax + W/2)`` (0 for a negative tmax): no later row
     holds a cell that can score.  Same arguments and results as
     ``ops.align.dp_segment_best_plain``, except that the move rows past the
@@ -464,46 +574,55 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
     """
     B = q_seg.shape[0]
     half = W // 2
+    _, Wp = band_cells(W)
+    padded = W < Wp
     K1 = IND_K + 1
-    w_all = torch.arange(W, dtype=torch.int32)
+    w_all = torch.arange(Wp, dtype=torch.int32)
+    real = w_all < W
     tm = tmax[:, None]
-    j0 = w_all - half
-    ok0 = (j0[None, :] >= 0) & (j0[None, :] <= tm)
-    val = torch.where(ok0, (j0.clamp(min=0) * K1)[None, :], VINF).to(
-        torch.int32)
+    jo = torch.where(real, w_all - half, 1 << 30)
+    ok0 = (jo[None, :] >= 0) & (jo[None, :] <= tm)
+    val = torch.where(ok0, (torch.where(real, jo, 0).clamp(min=0)
+                            * K1)[None, :], VINF).to(torch.int32)
     last_row = torch.minimum(seg_q.clamp(max=S), tmax + half)
     last_row = torch.where(tmax < 0, 0, last_row).clamp(min=0)[:, None]
     best_s = torch.where(ok0 & (seg_q[:, None] >= 0),
-                         j0[None, :] - 4 * (val >> 12), _NEG)
-    best_r = torch.zeros((B, W), dtype=torch.int32)
+                         jo[None, :] - 4 * (val >> 12),
+                         torch.where(real, _NEG, _NEG - 1)[None, :])
+    best_r = torch.zeros((B, Wp), dtype=torch.int32)
     best_v = val.clone()
     codes = torch.zeros((B, S, W), dtype=torch.int64)
     vinf_col = torch.full((B, 1), VINF, dtype=torch.int32)
     for tau in range(2, 2 * S + W):
-        ws = torch.arange(tau & 1, W, 2)
+        ws = torch.arange(tau & 1, Wp, 2)
         i = (tau - ws) // 2                           # the row of each cell
         in_range = (i[None, :] >= 1) & (i[None, :] <= last_row)
         ic = i.clamp(1, S)
-        sub = (q_seg[:, ic - 1] != tpad[:, ic - 1 + ws]).to(torch.int32)
-        padded = torch.cat([vinf_col, val, vinf_col], dim=1)
+        tcol = (ic - 1 + ws).clamp(max=S + W - 1)     # padding: any byte
+        sub = (q_seg[:, ic - 1] != tpad[:, tcol]).to(torch.int32)
+        padded_row = torch.cat([vinf_col, val, vinf_col], dim=1)
         diag = val[:, ws] + sub * IND_K
-        vert = padded[:, ws + 2] + K1                 # cell w + 1, row i - 1
-        hor = padded[:, ws] + K1                      # cell w - 1, row i
-        j = (i - half + ws).to(torch.int32)[None, :]
+        vert = padded_row[:, ws + 2] + K1             # cell w + 1, row i - 1
+        hor = padded_row[:, ws] + K1                  # cell w - 1, row i
+        j = (i + jo[ws]).to(torch.int32)[None, :]
         valid = (j >= 0) & (j <= tm)
         cur = torch.minimum(torch.minimum(diag, vert), hor)
         # iterations k = tau // 2 in [W - 1, min(tmax - W/2 + 1, last)] hold
         # valid cells only, and those are finite: the kernel drops the
-        # validity select, the clamp and the VINF test there
+        # validity select, the clamp and the VINF test there (not where the
+        # band has padding)
         k = tau // 2
-        fast = (k >= W - 1) & (k <= torch.minimum(tm - half + 1, last_row))
+        fast = ((k >= W - 1) & (k <= torch.minimum(tm - half + 1, last_row))
+                & (not padded))
         cur = torch.where(fast, cur,
                           torch.where(valid, cur.clamp(max=VINF), VINF))
         move = torch.where(cur == diag, sub,
                            torch.where(cur == vert, 2, 3)).long()
         val[:, ws] = torch.where(in_range, cur, val[:, ws])
-        codes[:, ic - 1, ws] = torch.where(in_range, move,
-                                           codes[:, ic - 1, ws])
+        keep = ws < W
+        wr, ir = ws[keep], ic[keep]
+        codes[:, ir - 1, wr] = torch.where(in_range[:, keep], move[:, keep],
+                                           codes[:, ir - 1, wr])
         score = i.to(torch.int32)[None, :] + j - 4 * (cur >> 12)
         better = (in_range & (fast | (cur < VINF))
                   & (score > best_s[:, ws]))
@@ -521,12 +640,12 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
     best = _unpack_best(r.to(torch.int32), w.to(torch.int32), v, W)
     if not want_moves:
         return best
-    pack_w = torch.ones(16, dtype=torch.int64) << (
-        2 * torch.arange(16, dtype=torch.int64))
-    packed = (codes.reshape(B, S, W // 16, 16) * pack_w).sum(3)
-    packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
-    packed = torch.where(active[:, None, None], packed, 0)
-    return (packed.to(torch.int32), *best)
+    packed = torch.zeros((B, S, W // 16), dtype=torch.int32)
+    for b in range(B):
+        if bool(active[b]):
+            packed[b] = torch.as_tensor(move_rows_ring(
+                codes[b].numpy(), int(last_row[b, 0]), S, W))
+    return (packed, *best)
 
 
 def valid_set(out, row0: int = 0) -> set:
@@ -676,7 +795,8 @@ def rank_main(argv=None) -> int:
     try:
         for task in args.tasks:
             l0 = (dp_kernel.LAUNCHES, dp_kernel.LAUNCHES_MOVES,
-                  dp_kernel.LAUNCHES_EXTEND, sharded.EXCHANGE_BYTES)
+                  dp_kernel.LAUNCHES_EXTEND, dp_kernel.LAUNCHES_EXTEND_MOVES,
+                  sharded.EXCHANGE_BYTES)
             walk0 = walk_kernel.launches()
             t0 = time.time()
             rec = _rank_task(task, args.rank, inputs, out_dir, device)
@@ -684,7 +804,9 @@ def rank_main(argv=None) -> int:
                        launches=dp_kernel.LAUNCHES - l0[0],
                        launches_moves=dp_kernel.LAUNCHES_MOVES - l0[1],
                        launches_extend=dp_kernel.LAUNCHES_EXTEND - l0[2],
-                       exchange_bytes=sharded.EXCHANGE_BYTES - l0[3],
+                       launches_extend_moves=(dp_kernel.LAUNCHES_EXTEND_MOVES
+                                              - l0[3]),
+                       exchange_bytes=sharded.EXCHANGE_BYTES - l0[4],
                        **walk_kernel.launches_since(walk0))
             with open(os.path.join(out_dir, f"{task}.r{args.rank}.json"),
                       "w") as fh:

@@ -24,7 +24,8 @@ KEYS = {"metric", "value", "unit", "vs_baseline",
         "cns_corrected_reads", "cns_corrected_reads_per_s", "cns_steady_s",
         "cns_first_pass_s", "backend", "device", "overlaps",
         "useful_segments", "batches", "reads", "dp_launches",
-        "dp_launches_extend", "cns_dp_launches_moves", "cns_walk_launches_rows",
+        "dp_launches_extend", "cns_dp_launches_moves",
+        "cns_dp_launches_extend_moves", "cns_walk_launches_rows",
         "cns_walk_launches_deposit", "cns_walk_launches_cols"}
 
 _REFERENCE = r'''
@@ -68,6 +69,7 @@ def test_bench_line_matches_reference_bench():
     assert line["batches"] == SIZE["batches"]
     assert line["dp_launches"] == line["cns_dp_launches_moves"] == 0
     assert line["dp_launches_extend"] == 0
+    assert line["cns_dp_launches_extend_moves"] == 0
     assert line["cns_walk_launches_rows"] == 0
     assert line["cns_walk_launches_deposit"] == 0
     assert line["cns_walk_launches_cols"] == 0

@@ -22,6 +22,7 @@ from mecat_tpu_torch.pipeline.device_step import overlap_step
 from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
 from mecat_tpu_torch.testing import (GOLDEN_J1, deposit_inputs, dp_inputs,
                                      dp_inputs_full, extend_inputs,
+                                     moves_as_the_kernels_leave_them,
                                      roll_micro_inputs, walk_inputs)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -167,9 +168,9 @@ def test_dp_moves_kernel_rejects_what_it_does_not_take(cuda):
     S, W = 128, 64
     q, tpad, tmax, seg_q, active = (torch.as_tensor(a, device=cuda)
                                     for a in dp_inputs(S, W, 64, seed=2))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):                 # a band it does not take
         dp_kernel.dp_segment_best_moves_cuda(
-            q, tpad.new_zeros(64, S + 96), tmax, seg_q, active, S, 96)
+            q, tpad.new_zeros(64, S + 272), tmax, seg_q, active, S, 272)
     with pytest.raises(TypeError):
         dp_kernel.dp_segment_best_moves_cuda(q, tpad, tmax.long(), seg_q,
                                              active, S, W)
@@ -181,11 +182,13 @@ def test_run_cns_golden_bytes_on_cuda(cuda):
 
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "corrected.fasta")
-        before = dp_kernel.LAUNCHES_MOVES
+        before = dp_kernel.launches()
         run_cns(os.path.join(GOLDEN, "candidates.txt"),
                 os.path.join(GOLDEN, "reads.fasta"), out,
                 CnsOptions(**GOLDEN_CNS), device=cuda)
-        assert dp_kernel.LAUNCHES_MOVES > before
+        launched = dp_kernel.launches_since(before)
+        assert launched["dp_launches_extend_moves"] > 0
+        assert launched["dp_launches_moves"] == 0
         with open(out, "rb") as fh, \
                 open(os.path.join(GOLDEN, "corrected.fasta"), "rb") as gh:
             assert fh.read() == gh.read()
@@ -198,9 +201,10 @@ def test_dp_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         dp_kernel.dp_segment_best_cuda(q.int(), tpad, tmax, seg_q, active,
                                        S, W)
-    with pytest.raises(ValueError):
-        dp_kernel.dp_segment_best_cuda(q, tpad, tmax, seg_q, active, S, 96)
-    S_big = 8192             # 4 lanes of q and t overflow 48 KB of smem
+    with pytest.raises(ValueError):                 # a band it does not take
+        dp_kernel.dp_segment_best_cuda(q, tpad.new_zeros(64, S + 272), tmax,
+                                       seg_q, active, S, 272)
+    S_big = 32768            # 4 lanes of q and t overflow 227 KB of smem
     with pytest.raises(ValueError):
         dp_kernel.dp_segment_best_cuda(
             q.new_zeros(64, S_big), tpad.new_zeros(64, S_big + W), tmax,
@@ -210,11 +214,10 @@ def test_dp_kernel_rejects_what_it_does_not_take(cuda):
                                        active, S, W)
 
 
-def _extend_lanes(cuda, S, W, source, n=512):
-    """Direction lanes on the card: 2n lanes of ``extend_inputs`` pairs
-    (rows of 20 S bases at 12 % noise, with its edge lanes), or the
-    ``dp_inputs`` lanes as pairs seeded at 0 (lanes with nothing to extend
-    among them)."""
+def _pairs(cuda, S, W, source, n=512):
+    """Pairs on the card: ``extend_inputs`` pairs (rows of 20 S bases at
+    12 % noise, with its edge lanes), or the ``dp_inputs`` lanes as pairs
+    seeded at 0 (lanes with nothing to extend among them)."""
     if source == "pairs":
         pairs = extend_inputs(n, 20 * S, S, seed=S + W)
     else:
@@ -222,8 +225,13 @@ def _extend_lanes(cuda, S, W, source, n=512):
         zeros = np.zeros(n, np.int32)
         pairs = (q, np.ascontiguousarray(tpad[:, W // 2:]), seg_q, tmax,
                  zeros, zeros)
+    return [torch.as_tensor(a, device=cuda) for a in pairs]
+
+
+def _extend_lanes(cuda, S, W, source, n=512):
+    """The 2n direction lanes of :func:`_pairs`."""
     return [x.contiguous() for x in align.direction_lanes(
-        *(torch.as_tensor(a, device=cuda) for a in pairs), S, W)]
+        *_pairs(cuda, S, W, source, n), S, W)]
 
 
 @pytest.mark.parametrize("max_segs", [1, 16])
@@ -237,7 +245,8 @@ def test_extend_loop_kernel_matches_plain(cuda, S, W, source, max_segs):
     before = dp_kernel.launches()
     got, _ = align._extend_direction_impl(*lanes, **kw)
     assert dp_kernel.launches_since(before) == {
-        "dp_launches": 0, "dp_launches_moves": 0, "dp_launches_extend": 1}
+        "dp_launches": 0, "dp_launches_moves": 0, "dp_launches_extend": 1,
+        "dp_launches_extend_moves": 0}
     want, _ = align._extend_direction_impl(
         *lanes, **kw, dp=align.dp_segment_best_plain)
     torch.cuda.synchronize()
@@ -272,7 +281,7 @@ def test_extend_loop_kernel_rejects_what_it_does_not_take(cuda):
     kw = dict(S=S, max_segs=4, min_seg_identity=0.65)
     fn = dp_kernel.extend_counts_cuda
     with pytest.raises(ValueError):                 # a band it does not take
-        fn(*lanes, W=96, **kw)
+        fn(*lanes, W=272, **kw)
     with pytest.raises(ValueError):                 # rows narrower than S + W
         fn(lanes[0], lanes[1][:, :S + W - 1].contiguous(), *lanes[2:], W=W,
            **kw)
@@ -280,11 +289,130 @@ def test_extend_loop_kernel_rejects_what_it_does_not_take(cuda):
         fn(*lanes[:2], lanes[2].long(), *lanes[3:], W=W, **kw)
     with pytest.raises(ValueError):                 # shape
         fn(*lanes[:5], lanes[5][:-1], W=W, **kw)
-    S_big = 8192              # 4 lanes of windows overflow 48 KB of smem
+    S_big = 32768             # 4 lanes of windows overflow 227 KB of smem
     with pytest.raises(ValueError):
         fn(lanes[0].new_zeros(32, S_big), lanes[1].new_zeros(32, 2 * S_big),
            *(x[:32] for x in lanes[2:]), W=W, S=S_big, max_segs=4,
            min_seg_identity=0.65)
+
+
+def _assert_move_loop_matches_plain(pairs, S, W, max_segs, max_left):
+    """The move loop (one launch for both directions) against the host
+    loop on the plain DP: both ExtensionResults and every element of the
+    six raw arrays of every slot < G, the plain moves past each segment's
+    last row set to zero as the kernels leave them."""
+    kw = dict(S=S, W=W, max_segs=max_segs, min_seg_identity=0.65,
+              max_segs_left=max_left)
+    before = dp_kernel.launches()
+    got = align._extend_both_with_moves(*pairs, **kw, dp=align.dp_segment_best)
+    assert dp_kernel.launches_since(before) == {
+        "dp_launches": 0, "dp_launches_moves": 0, "dp_launches_extend": 0,
+        "dp_launches_extend_moves": 1}
+    want = align._extend_both_with_moves(*pairs, **kw,
+                                         dp=align.dp_segment_best_plain)
+    torch.cuda.synchronize()
+    for side, g_res, w_res in zip(("left", "right"), got[:2], want[:2]):
+        for name, g, w in zip(align.ExtensionResult._fields, g_res, w_res):
+            assert torch.equal(g, w), (side, name)
+    assert got[3] == want[3]
+    lanes = align.direction_lanes(*pairs, S, W)
+    want_raw = moves_as_the_kernels_leave_them(want[2], want[3], lanes[4],
+                                               lanes[5], S, W)
+    for i, (g, w) in enumerate(zip(got[2], want_raw)):
+        assert g.shape == w.shape and torch.equal(g, w), i
+    return got
+
+
+@pytest.mark.parametrize("max_segs", [1, 16])
+@pytest.mark.parametrize("source", ["pairs", "dp"])
+@pytest.mark.parametrize("S,W", [(128, 64), (512, 128)])
+def test_extend_moves_kernel_matches_plain(cuda, S, W, source, max_segs):
+    pairs = _pairs(cuda, S, W, source)
+    got = _assert_move_loop_matches_plain(pairs, S, W, max_segs,
+                                          max(1, max_segs // 3))
+    assert int(got[1].n_segs.max()) == max_segs or source == "dp"
+
+
+def test_extend_moves_kernel_writes_every_slot_it_reaches(cuda,
+                                                          monkeypatch):
+    """Slots k < nsegs[b] of an uninitialised buffer are all written; the
+    rest are filled by the cut, whatever the buffer held."""
+    S, W = 128, 64
+    pairs = _pairs(cuda, S, W, "pairs", n=64)
+    real_empty = torch.empty
+
+    def ones_empty(*size, **kwargs):
+        return real_empty(*size, **kwargs).fill_(1)
+
+    monkeypatch.setattr(torch, "empty", ones_empty)
+    lanes = [x.contiguous() for x in align.direction_lanes(*pairs, S, W)]
+    final, slots = dp_kernel.extend_moves_cuda(
+        *lanes, S=S, W=W, max_segs=16, min_seg_identity=0.65, split=64,
+        max_segs_b=7)
+    monkeypatch.undo()
+    plain_final, plain_slots = align.extend_moves_plain(
+        *lanes, S=S, W=W, max_segs=16, min_seg_identity=0.65, split=64,
+        max_segs_b=7)
+    torch.cuda.synchronize()
+    for name, g, w in zip(align.ExtensionResult._fields, final, plain_final):
+        assert torch.equal(g, w), name
+    got = align.slots_to_raw(final, slots, 64, W)
+    plain = align.slots_to_raw(plain_final, plain_slots, 64, W)
+    want_raw = moves_as_the_kernels_leave_them(
+        plain[2], plain[3], lanes[4], lanes[5], S, W)
+    for g, w in zip(got[2], want_raw):
+        assert torch.equal(g, w)
+
+
+def test_extend_moves_kernel_rejects_what_it_does_not_take(cuda):
+    S, W = 128, 64
+    lanes = _extend_lanes(cuda, S, W, "pairs", n=16)
+    kw = dict(S=S, max_segs=4, min_seg_identity=0.65)
+    fn = dp_kernel.extend_moves_cuda
+    with pytest.raises(ValueError):                 # a band it does not take
+        fn(*lanes, W=272, **kw)
+    with pytest.raises(ValueError):                 # rows narrower than S + W
+        fn(lanes[0], lanes[1][:, :S + W - 1].contiguous(), *lanes[2:], W=W,
+           **kw)
+    with pytest.raises(TypeError):                  # dtype
+        fn(*lanes[:2], lanes[2].long(), *lanes[3:], W=W, **kw)
+
+
+@pytest.mark.parametrize("W", [32, 48, 96, 160, 256])
+def test_dp_family_kernels_match_plain_at_every_band(cuda, W):
+    """Each band width the reference computes: the two per-segment DP
+    kernels, the counts and the move loop, and the row and the column walk
+    on the move kernel's words, each against its plain version."""
+    S = 128
+    args = [torch.as_tensor(a, device=cuda)
+            for a in dp_inputs(S, W, 256, seed=W)]
+    got = align.dp_segment_best(*args, S, W)
+    want = align.dp_segment_best_plain(*args, S, W, want_moves=True)
+    for g, w in zip(got, want[1:]):
+        assert torch.equal(g, w)
+    moves, r_best, w_best = align.dp_segment_best(*args, S, W,
+                                                  want_moves=True)[:3]
+    last = torch.minimum(args[3].clamp(max=S), args[2] + W // 2)
+    last = torch.where(args[2] < 0, 0, last).clamp(min=0)
+    row = torch.arange(1, S + 1, device=cuda)[None, :, None]
+    assert torch.equal(moves, torch.where(
+        (row <= last[:, None, None]) & args[4][:, None, None], want[0], 0))
+    for g, w in zip(align.traceback_rows(moves, r_best, w_best, W),
+                    align.traceback_rows_plain(moves, r_best, w_best, W)):
+        assert torch.equal(g, w)
+    TC = align.max_tape_cols(S, W, 0.65)
+    for g, w in zip(align.traceback_ops(moves, r_best, w_best, W, TC),
+                    align.traceback_ops_plain(moves, r_best, w_best, W, TC)):
+        assert torch.equal(g, w)
+    lanes = _extend_lanes(cuda, S, W, "pairs", n=128)
+    kw = dict(S=S, W=W, max_segs=8, min_seg_identity=0.65)
+    got, _ = align._extend_direction_impl(*lanes, **kw)
+    want, _ = align._extend_direction_impl(*lanes, **kw,
+                                           dp=align.dp_segment_best_plain)
+    for name, g, w in zip(align.ExtensionResult._fields, got, want):
+        assert torch.equal(g, w), name
+    _assert_move_loop_matches_plain(_pairs(cuda, S, W, "pairs", n=128), S, W,
+                                    8, 3)
 
 
 def test_overlap_step_kernel_matches_plain(cuda):
@@ -310,8 +438,10 @@ def test_run_pw_golden_bytes_on_cuda(cuda):
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "out.m4")
         before = dp_kernel.launches()
+        # the golden bytes are the staged route's; -j 1 on cuda takes the
+        # fused route unless asked
         run_pw(os.path.join(GOLDEN, "reads.fasta"), out, os.path.join(d, "w"),
-               PwOptions(**GOLDEN_J1), device=cuda)
+               PwOptions(**GOLDEN_J1), device=cuda, route="staged")
         launched = dp_kernel.launches_since(before)
         assert launched["dp_launches_extend"] > 0
         assert launched["dp_launches"] == 0
@@ -442,8 +572,9 @@ def test_run_ref_on_cuda_matches_cpu_bytes(cuda):
                     outs[dev] = fh.read()
                 if dev == "cuda":
                     assert stats.dp_launches_extend > 0
-                    assert stats.dp_launches == 0
-                    assert (stats.dp_launches_moves > 0) == (fmt == "sam")
+                    assert stats.dp_launches == stats.dp_launches_moves == 0
+                    assert ((stats.dp_launches_extend_moves > 0)
+                            == (fmt == "sam"))
                     assert stats.mapped == db.n_reads
             assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 200
 
@@ -460,10 +591,13 @@ def test_run_cns_rounds_on_cuda_match_cpu_bytes(cuda, rounds):
         outs, aligned = {}, {}
         for dev in ("cuda", "cpu"):
             out = os.path.join(d, f"{dev}.fasta")
-            before = dp_kernel.LAUNCHES_MOVES
+            before = dp_kernel.launches()
             stats = run_cns(cand, reads, out,
                             CnsOptions(rounds=rounds, **PILE_CNS), device=dev)
-            assert (dp_kernel.LAUNCHES_MOVES > before) == (dev == "cuda")
+            launched = dp_kernel.launches_since(before)
+            assert ((launched["dp_launches_extend_moves"] > 0)
+                    == (dev == "cuda"))
+            assert launched["dp_launches_moves"] == 0
             aligned[dev] = stats.supports_aligned
             with open(out, "rb") as fh:
                 outs[dev] = fh.read()
@@ -488,9 +622,11 @@ def test_polish_on_cuda_matches_cpu_and_the_host_route(cuda, monkeypatch,
                                 align_band=64)
     with tempfile.TemporaryDirectory() as d:
         db, tig, backbone = polish_case(d, genome_len, n, seed=77)
-    before = dp_kernel.LAUNCHES_MOVES
+    before = dp_kernel.launches()
     got = ctgcns._polish_contig_device(db, tig, backbone, opts, device=cuda)
-    assert dp_kernel.LAUNCHES_MOVES > before
+    launched = dp_kernel.launches_since(before)
+    assert launched["dp_launches_extend_moves"] > 0
+    assert launched["dp_launches_moves"] == 0
     assert not np.array_equal(got, backbone)
     for other in (
             ctgcns._polish_contig_device(db, tig, backbone, opts,
@@ -601,7 +737,7 @@ def test_walk_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         dep_fn(rows[0][:, :-1], *rows[1:], W)
     with pytest.raises(ValueError):                 # a W the kernel refuses
-        rows_fn(moves.new_zeros(64, S, 3), seg_qlen, w_end, 48)
+        rows_fn(moves.new_zeros(64, S, 17), seg_qlen, w_end, 272)
     with pytest.raises(ValueError):                 # device
         rows_fn(moves, seg_qlen.cpu(), w_end, W)
     with pytest.raises(ValueError):

@@ -16,7 +16,8 @@ torch.set_num_threads(1)
 
 from mecat_tpu_torch.ops import align as port
 from mecat_tpu_torch.testing import (dp_inputs, dp_inputs_full,
-                                     dp_segment_best_wavefront)
+                                     dp_segment_best_wavefront,
+                                     move_rows_ring)
 
 NAMES = ("r", "w", "j", "d", "ind")
 
@@ -26,7 +27,9 @@ def _readable(moves, r_best, S):
     return torch.where(row <= r_best[:, None, None], moves, 0)
 
 
-@pytest.mark.parametrize("S,W", [(64, 64), (128, 64), (256, 128)])
+@pytest.mark.parametrize("S,W", [(64, 64), (128, 64), (256, 128), (64, 16),
+                                 (96, 48), (128, 96), (128, 160),
+                                 (128, 208), (128, 256)])
 def test_wavefront_matches_plain(S, W):
     """dp_inputs carries the edge lanes: tmax / seg_q of 0 and -1, inactive
     lanes; lane 4 has its endpoint restricted to early rows."""
@@ -43,6 +46,12 @@ def test_wavefront_matches_plain(S, W):
     assert torch.equal(_readable(got[0], r_best, S),
                        _readable(want[0], r_best, S))
     assert not bool(got[0][~args[4]].any())   # an inactive lane writes none
+    # every row up to the last computed equals the plain version's
+    last = torch.minimum(args[3].clamp(max=S), args[2] + W // 2)
+    last = torch.where(args[2] < 0, 0, last).clamp(min=0)
+    row = torch.arange(1, S + 1)[None, :, None]
+    assert torch.equal(got[0], torch.where(
+        (row <= last[:, None, None]) & args[4][:, None, None], want[0], 0))
     for g, w in zip(port.traceback_rows(got[0], r_best, got[2], W),
                     port.traceback_rows(want[0], r_best, got[2], W)):
         assert torch.equal(g, w)
@@ -96,3 +105,26 @@ def test_wavefront_matches_jax():
     want_moves = torch.as_tensor(np.array(moves)).permute(2, 0, 1)
     assert torch.equal(_readable(got[0], got[1], S),
                        _readable(want_moves, got[1], S))
+
+
+def _packed(codes, last, W):
+    words = np.zeros((codes.shape[0], W // 16), np.int64)
+    for c in range(16):
+        words |= codes[:, c::16] << (2 * c)
+    words[last:] = 0
+    return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("W", list(range(16, 257, 16)))
+def test_move_ring_assembles_every_row_at_every_band(W):
+    """The kernel's move bytes: nibbles joined across iterations and
+    threads, a ring of 128 rows (160 at W > 192) flushed every 32 rows,
+    the rest after the last row and zeros past it, for each band width the
+    kernels take, at lasts around the flush and ring boundaries."""
+    S = 512
+    rng = np.random.default_rng(W)
+    for last in (0, 1, 31, 32, 33, 127, 160, 161, 300, S):
+        codes = rng.integers(0, 4, (S, W))
+        np.testing.assert_array_equal(move_rows_ring(codes, last, S, W),
+                                      _packed(codes, last, W),
+                                      err_msg=f"last={last}")

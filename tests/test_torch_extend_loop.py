@@ -24,7 +24,7 @@ from mecat_tpu.ops import align as ref
 from mecat_tpu_torch.ops import align as port
 from mecat_tpu_torch.ops import cuda_build, dp_kernel
 from mecat_tpu_torch.pipeline import ref as port_ref
-from mecat_tpu_torch.testing import extend_inputs
+from mecat_tpu_torch.testing import DpTally, extend_inputs
 
 #: (S, W) -> the pairs' row width: at (128, 64) lanes run 16 segments
 ROW = {(128, 64): 2560, (512, 128): 2048}
@@ -77,7 +77,7 @@ def test_issued_lane_segments_equal_the_tally(S, W, max_segs):
     phase A takes from the result equals what a wrapper of the segment
     function counts on the same call."""
     pairs = _pairs(S, W, max_segs)
-    tally = port_ref._DpTally()
+    tally = DpTally()
     both = port.extend_both_directions(*pairs, S=S, W=W, max_segs=max_segs,
                                        dp=tally)
     assert tally.lane_segs == both.n_segs.numel() * int(both.n_segs.max())
@@ -100,11 +100,20 @@ def test_issued_lane_segments_equal_the_tally(S, W, max_segs):
         fwd, rev, genome, np.arange(P, dtype=np.int32), np.zeros(P, np.int32),
         g0, np.full(P, L_win, np.int32), qlen, qs, qs + 100)]
     kw = dict(L_win=L_win, S=S, W=W, max_segs=max_segs)
-    tally = port_ref._DpTally()
+    tally = DpTally()
     pa_t, issued_t = port_ref._ref_count_chunk(*args, **kw, dp=tally)
     pa, issued = port_ref._ref_count_chunk(*args, **kw)
     assert int(issued) == int(issued_t) == tally.lane_segs > 0
     for name, g, w in zip(pa._fields, pa, pa_t):
+        assert torch.equal(g, w), name
+
+    # phase B (the move-writing extension of the winners): what the chunk
+    # counts from its result is what the host loop issues
+    tally = DpTally()
+    got_t = port_ref._ref_extend_chunk(*args, **kw, L_q=L_q, dp=tally)
+    got = port_ref._ref_extend_chunk(*args, **kw, L_q=L_q)
+    assert got[3] == got_t[3] == tally.lane_segs > 0
+    for name, g, w in zip(got[0]._fields, got[0], got_t[0]):
         assert torch.equal(g, w), name
 
 

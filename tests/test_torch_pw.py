@@ -19,7 +19,9 @@ from mecat_tpu.pipeline import device_step as ref_step
 from mecat_tpu.pipeline import pw as ref_pw
 from mecat_tpu_torch.index.kmer_index import index_from_numpy
 from mecat_tpu_torch.pipeline import device_step as port_step
-from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
+from mecat_tpu_torch.cli import mecat2pw as port_cli
+from mecat_tpu_torch.pipeline.pw import (PwOptions, PwStats, default_route,
+                                         run_pw)
 from mecat_tpu_torch.testing import GOLDEN_J0, GOLDEN_J1
 
 HERE = os.path.join(os.path.dirname(__file__), "golden")
@@ -87,3 +89,41 @@ def test_multi_volume_run_matches_jax_and_resumes(tmp_path):
     stats = run_pw(READS, got, wrk, PwOptions(**opts), device="cpu")
     assert stats.candidates == 0
     assert _read(got) == _read(want)
+
+
+@pytest.mark.parametrize("task,device,route", [
+    (1, "cuda", "fused"), (1, "cuda:0", "fused"), (0, "cuda", "staged"),
+    (1, "cpu", "staged"), (0, "cpu", "staged")])
+def test_default_route_is_the_references_choice(monkeypatch, task, device,
+                                                route):
+    """The reference runs -j 1 through the fused route on its accelerator
+    and the staged one elsewhere (``_use_fused``); the port's accelerator is
+    a cuda device."""
+    import jax
+
+    assert default_route(task, device) == route
+    assert default_route(task, torch.device(device)) == route
+    monkeypatch.delenv("MECAT_TPU_FORCE_FUSED", raising=False)
+    monkeypatch.delenv("MECAT_TPU_HOST_PW", raising=False)
+    backend = "tpu" if device.startswith("cuda") else "cpu"
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    fused = ref_pw._use_fused(ref_pw.PwOptions(task=task))
+    assert ("fused" if fused else "staged") == route
+
+
+def test_cli_leaves_the_route_to_the_choice_unless_given(monkeypatch,
+                                                         tmp_path):
+    seen = []
+
+    def fake_run_pw(*args, device, route):
+        seen.append((device, route))
+        return PwStats()
+
+    monkeypatch.setattr(port_cli, "run_pw", fake_run_pw)
+    argv = ["-j", "1", "-d", READS, "-o", str(tmp_path / "o.m4"), "-w",
+            str(tmp_path / "w"), "--device", "cpu"]
+    assert port_cli.build_parser().parse_args(argv).route is None
+    for extra, route in (([], None), (["--route", "staged"], "staged"),
+                         (["--route", "fused"], "fused")):
+        assert port_cli.main(argv + extra) == 0
+        assert seen[-1] == ("cpu", route)
