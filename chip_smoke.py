@@ -32,7 +32,9 @@ non-zero exit and no result line:
    slot < G, one launch a call and none of the other DP kernels; at (512,
    128) the wrapper alone as for the counts loop.  Every DP-family kernel
    (both per-segment kernels, both loops, the row and the column walk) at
-   the band widths 32, 48, 96, 160 and 256 against its plain version.
+   the band widths 32, 48, 96, 160, 256, 272, 384 and 512 against its
+   plain version, and the deposit scan on the rows of that row walk and on
+   random rows.
    Then both DP wrappers alone
    (``ops/dp_kernel``, nothing around them) at the shapes the paths
    launch: (512, 128), full-length segments, 64 / 256 / 1,024 / 4,096 live
@@ -57,6 +59,10 @@ non-zero exit and no result line:
    (-j 1, the staged route's bytes) and ``candidates.txt`` (-j 0), and
    ``run_cns(device="cuda")`` on the candidates reproduces
    ``tests/golden/corrected.fasta``, byte for byte, through the move loop;
+   then the CLI ``mecat2cns -i 0 -a 300 -l 500 --extend-batch 32
+   --align-band 384`` on the same pile with ``--device cuda`` and with
+   ``--device cpu``: byte-equal corrected reads, and the CUDA run's summary
+   must show the move loop and both correction walks;
 4. the bench workload (500 kb genome, 15x, mean 5 kb, 12 % error, seeds
    91/92; k 13, stride 10, N 16, S 512, W 128, 30 segments, B 128, L 8192)
    through ``overlap_step``: a warm-up batch, then ``--passes`` (default 3)
@@ -252,9 +258,13 @@ WALK_OPS = dict(row_chunk=20, row=12, deposit_row=24, gap_cell=3,
                 deposit_char=6, col_step=16)
 
 #: band widths held in phase 2 besides the paths' 64 and 128: every other
-#: kernel instance (C = 2, 4, 6, 8 cells a thread), with and without
-#: padding cells, and the row walk's odd word counts
-BAND_SWEEP = (32, 48, 96, 160, 256)
+#: DP kernel instance (C = 2, 4, ..., 16 cells a thread) with and without
+#: padding cells, the row walk's odd word counts and each of its thread
+#: groups (1-32 threads a lane)
+BAND_SWEEP = (32, 48, 96, 160, 256, 272, 384, 512)
+#: the band of phase 3's wide CLI run: a width past the paths' 64 and 128
+#: that the reference takes (C = 12 cells a thread, 32 threads a row walk)
+WIDE_BAND = 384
 #: the four DP kernels' launch counters: record key -> summary key
 DP_KEYS = (("counts", "dp_launches"), ("moves", "dp_launches_moves"),
            ("extend", "dp_launches_extend"),
@@ -789,20 +799,22 @@ def phase_widths() -> dict:
     the two per-segment kernels on 256 ``dp_inputs`` lanes (the endpoints
     on every lane, the move words on every row: the plain version's up to
     the last row computed, zeros after), the row and the column walk on the
-    move kernel's words, the counts loop on 256 direction lanes of
+    move kernel's words, the deposit scan on the rows of that row walk and
+    on random rows, the counts loop on 256 direction lanes of
     ``extend_inputs`` pairs and the move loop on the same pairs, each
     against its plain version.  Returns {kernel: largest difference}."""
     import torch
 
     from mecat_tpu_torch import constants as C
-    from mecat_tpu_torch.ops import align
-    from mecat_tpu_torch.testing import dp_inputs, extend_inputs
+    from mecat_tpu_torch.ops import align, consensus_banded
+    from mecat_tpu_torch.testing import (deposit_inputs, dp_inputs,
+                                         extend_inputs)
 
     dev = torch.device("cuda")
     S = 128
     err = dict.fromkeys(("dp_segment_best", "dp_segment_best_moves",
                          "extend_counts", "extend_moves", "traceback_rows",
-                         "traceback_ops"), 0)
+                         "traceback_ops", "deposit_scan"), 0)
 
     def check(name, got, want, W):
         for g, w in zip(got, want):
@@ -824,8 +836,15 @@ def phase_widths() -> dict:
             (row <= last[:, None, None]) & args[4][:, None, None], want[0],
             0), *want[1:]), W)
         moves, r_best, w_best = got[:3]
-        check("traceback_rows", align.traceback_rows(moves, r_best, w_best, W),
+        rows = align.traceback_rows(moves, r_best, w_best, W)
+        check("traceback_rows", rows,
               align.traceback_rows_plain(moves, r_best, w_best, W), W)
+        walk = [a.cpu().numpy() for a in rows[:3]]
+        for dep in (deposit_inputs(S, W, 256, seed=231 + W, walk=walk),
+                    deposit_inputs(S, W, 256, seed=232 + W)):
+            dep = [torch.as_tensor(a, device=dev) for a in dep]
+            check("deposit_scan", consensus_banded._deposit_scan(*dep, W),
+                  consensus_banded.deposit_scan_plain(*dep, W), W)
         TC = align.max_tape_cols(S, W, C.MIN_SEGMENT_IDENTITY)
         check("traceback_ops",
               align.traceback_ops(moves, r_best, w_best, W, TC),
@@ -849,8 +868,9 @@ def phase_widths() -> dict:
         torch.cuda.synchronize()
         say(f"phase 2: band W={W} (S={S}): both per-segment DP kernels (256 "
             f"lanes, every move word), the row and the column walk on their "
-            f"words, the counts loop and the move loop (256 direction lanes, "
-            f"16 / 9 segments) == their plain versions")
+            f"words, the deposit on that walk's rows and on random rows, "
+            f"the counts loop and the move loop (256 direction lanes, 16 / 9 "
+            f"segments) == their plain versions")
     return err
 
 
@@ -1094,6 +1114,41 @@ def phase_golden(work: str) -> dict:
     say(f"phase 3: golden corrected.fasta (mecat2cns -i 0) byte-equal on the "
         f"card ({time.time() - t0:.2f} s; DP launches {launches})")
     return launches
+
+
+def phase_golden_wide(work: str) -> dict:
+    """The golden pile through the cns CLI at ``--align-band`` WIDE_BAND,
+    on the card and on the CPU (each a process of its own): byte-equal
+    corrected reads; the CUDA run must take the move loop and both
+    correction walks.  Returns its walk and DP launches."""
+    golden = os.path.join(ROOT, "tests", "golden")
+    outs, summaries = {}, {}
+    for device in ("cuda", "cpu"):
+        outs[device] = os.path.join(work, f"corrected_w{WIDE_BAND}_{device}"
+                                          ".fasta")
+        wall, summaries[device] = run_cli(
+            "mecat2cns", ["-i", "0", "-a", "300", "-l", "500",
+                          "--extend-batch", "32", "--align-band",
+                          str(WIDE_BAND), "--device", device,
+                          os.path.join(golden, "candidates.txt"),
+                          os.path.join(golden, "reads.fasta"),
+                          outs[device]], "cns")
+        say(f"phase 3: CLI mecat2cns --align-band {WIDE_BAND} --device "
+            f"{device} on the golden pile: exit 0, "
+            f"{summaries[device].get('corrected_reads')} corrected reads, "
+            f"wall {wall:.2f} s")
+    with open(outs["cuda"], "rb") as fh, open(outs["cpu"], "rb") as gh:
+        cuda_bytes, cpu_bytes = fh.read(), gh.read()
+    if not cuda_bytes or cuda_bytes != cpu_bytes:
+        raise AssertionError(f"mecat2cns --align-band {WIDE_BAND}: the card's "
+                             "corrected reads differ from the CPU's (or are "
+                             "empty)")
+    launches = dp_launches_of(summaries["cuda"])
+    need_moves_loop(f"the cns CLI at W={WIDE_BAND}", launches)
+    walks = need_walks(f"the cns CLI at W={WIDE_BAND}", summaries["cuda"])
+    say(f"phase 3: W={WIDE_BAND}: {len(cuda_bytes)} bytes of corrected reads, "
+        f"CUDA == CPU; DP launches {launches}, walk launches {walks}")
+    return dict(walks=walks, launches=launches)
 
 
 def bench_reads():
@@ -2658,6 +2713,7 @@ def main(argv=None) -> int:
         db, truths, genome = bench_reads()
         say(f"bench reads simulated in {time.time() - t0:.2f} s")
         golden_cns = phase_golden(work)
+        golden_wide = phase_golden_wide(work)
         bench = phase_bench(db, args.passes, args.profile)
         from mecat_tpu_torch.io.fasta import write_fasta
 
@@ -2696,7 +2752,8 @@ def main(argv=None) -> int:
     # each DP kernel's launches on every path: phase 4's bench passes
     # (counts, the main path of the counts kernels) or phase 6's cns pass
     # (moves, the main path of the move-writing kernels); the golden cns
-    # run of phase 3; the pw CLI of phase 5; the cns CLI of phase 7; the
+    # run of phase 3 and phase 3's cns CLI at WIDE_BAND (the CUDA run's own
+    # count); the pw CLI of phase 5; the cns CLI of phase 7; the
     # mapping pass (phase 8's CUDA SAM run in this process, and the CLI's
     # own count of phase 9); phase 10's timed two-round pass in this
     # process, and the counts the CLIs of phases 11 and 12 report; phase 13:
@@ -2711,6 +2768,7 @@ def main(argv=None) -> int:
             launches=(cns["launches"][key] if "moves" in key
                       else bench_launches[key]),
             launches_golden_cns=golden_cns[key],
+            launches_cns_cli_wide=golden_wide["launches"][key],
             launches_pw_cli=staged_cli["summary"].get(cli_key, 0),
             launches_cns_cli=cli_cns["launches"][key],
             launches_mapping=ref_small[key],
@@ -2772,12 +2830,14 @@ def main(argv=None) -> int:
                          launches_mapping_cli=ref_cli[f"walk_launches_{short}"])
         else:
             # the correction paths: phase 6's cns pass (the main path), the
-            # cns CLI of phase 7, phase 10's two rounds, the CLIs of phases
+            # cns CLIs of phase 7 and of phase 3 at WIDE_BAND, phase 10's two
+            # rounds, the CLIs of phases
             # 11 and 12, run_cns_dist on one NCCL rank (13c) and summed over
             # four gloo ranks (13d), the 8-rank dry run, the bench's cns leg
             paths = dict(
                 launches=cns["walks"][short],
                 launches_cns_cli=cli_cns["walks"][short],
+                launches_cns_cli_wide=golden_wide["walks"][short],
                 launches_rounds=rounds["walks"][short],
                 launches_pipeline_cli=pipeline["walks"][short],
                 launches_assembly_cli=assembly["walks"][short],

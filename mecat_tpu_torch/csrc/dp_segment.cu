@@ -29,9 +29,9 @@
 //     inactive lane are written as zeros, so the caller allocates the
 //     buffer uninitialised; no traceback reads a row above its r_best.
 //
-// Band widths: every W with W % 16 == 0 and 16 <= W <= 256, as the
+// Band widths: every W with W % 16 == 0 and 16 <= W <= 512, as the
 // reference computes them.  The warp holds Wp = 32 * C band cells, C = 2,
-// 4, 6 or 8 cells a thread (Wp = 64, 128, 192, 256, the least that covers
+// 4, ..., 16 cells a thread (Wp = 64, 128, ..., 512, the least that covers
 // W); the real W comes at run time, except in the instances of the paths'
 // widths, 64 and 128, which fix it, so that their code folds as a
 // compile-time band allows (a runtime W cost the counts loop 12 % and the
@@ -86,12 +86,12 @@
 //     2m + 1.  So in each iteration the thread holding an odd pair joins
 //     its nibble with pair 2m's of the iteration before: kept in a register
 //     when the thread holds pair 2m too, else fetched from the thread to
-//     its left with one __shfl_up_sync (C = 2 and 6), which no DP value
-//     waits on.  The byte goes into a ring of move rows in shared memory
-//     (128 rows, 160 at C = 8: W/2 rows are being filled while 32 wait to
-//     be written), and every 32 iterations the warp writes the 32 rows that
-//     have become whole, with 16-byte stores where the lane's rows are
-//     16-byte aligned;
+//     its left with one __shfl_up_sync (C = 2, 6, 10 and 14), which no DP
+//     value waits on.  The byte goes into a ring of move rows in shared
+//     memory (W/2 rows are being filled while 32 wait to be written: 128
+//     rows up to C = 6, 16 * C + 32 from C = 8 on, 288 at C = 16), and
+//     every 32 iterations the warp writes the 32 rows that have become
+//     whole, with 16-byte stores where the lane's rows are 16-byte aligned;
 //   * lanes are handed out at run time: the grid is two warps for every
 //     scheduler of the card, and a warp takes the next lane from a counter
 //     until none is left, so the live lanes of a launch spread over the
@@ -120,7 +120,7 @@ constexpr int kNeg = -(1 << 26);        // pick_end_local's masked score
 constexpr int kTwoPenalty = 4;          // 2 * constants.ALIGN_TRIM_PENALTY
 constexpr int kFar = 1 << 30;           // target offset of a padding cell
 constexpr int kMinW = 16;               // band widths taken: multiples of 16
-constexpr int kMaxW = 256;              //   in [kMinW, kMaxW]
+constexpr int kMaxW = 512;              //   in [kMinW, kMaxW]
 constexpr int kWarps = 4;               // warps per block
 // Blocks per SM, so warps per scheduler.  On an H100 with 1,024 live lanes
 // scattered over 4,096, 2 / 3 / 4 / 6 took 0.075 / 0.104 / 0.134 / 0.181 ms
@@ -151,9 +151,11 @@ __host__ __device__ constexpr int cells_for(int W) {
 }
 
 // Move rows in a lane's ring: the W/2 rows being filled and the kFlush
-// whole ones waiting to be written must fit.
+// whole ones waiting to be written must fit, and a multiple of kFlush, so
+// that a flush never wraps: 128 up to C = 6, then 16 * C + 32 (288 at
+// C = 16, 39 KB a lane at S = W = 512 with moves).
 __host__ __device__ constexpr int ring_rows(int C) {
-  return 32 * C / 2 + kFlush <= 128 ? 128 : 160;
+  return 32 * C / 2 + kFlush <= 128 ? 128 : 32 * C / 2 + kFlush;
 }
 
 // Bytes of shared memory one lane takes: the query with Wp/2 bytes of
@@ -207,8 +209,9 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
                                         const int W_rt, const int lane,
                                         uint8_t* ring,
                                         uint32_t* __restrict__ mv_out) {
-  static_assert(C == 2 || C == 4 || C == 6 || C == 8,
-                "a thread holds whole cell pairs of a band up to 256");
+  static_assert(C % 2 == 0 && C >= 2 && C <= 16,
+                "a thread holds whole cell pairs of a band up to 512");
+  static_assert(ring_rows(C) % kFlush == 0, "a flush never wraps the ring");
   constexpr int Wp = 32 * C;
   constexpr int P = C / 2;              // cell pairs per thread
   constexpr int kRing = ring_rows(C);
@@ -776,7 +779,11 @@ int dispatch(const void* q, const void* tpad, const void* tmax,
     case 2: MECAT_LAUNCH(2, 0);
     case 4: MECAT_LAUNCH(4, 0);
     case 6: MECAT_LAUNCH(6, 0);
-    default: MECAT_LAUNCH(8, 0);
+    case 8: MECAT_LAUNCH(8, 0);
+    case 10: MECAT_LAUNCH(10, 0);
+    case 12: MECAT_LAUNCH(12, 0);
+    case 14: MECAT_LAUNCH(14, 0);
+    default: MECAT_LAUNCH(16, 0);
   }
 #undef MECAT_LAUNCH
 }
@@ -797,7 +804,11 @@ int dispatch_extend(const ExtendArgs& a, void* stream) {
     case 2: MECAT_LAUNCH(2, 0);
     case 4: MECAT_LAUNCH(4, 0);
     case 6: MECAT_LAUNCH(6, 0);
-    default: MECAT_LAUNCH(8, 0);
+    case 8: MECAT_LAUNCH(8, 0);
+    case 10: MECAT_LAUNCH(10, 0);
+    case 12: MECAT_LAUNCH(12, 0);
+    case 14: MECAT_LAUNCH(14, 0);
+    default: MECAT_LAUNCH(16, 0);
   }
 #undef MECAT_LAUNCH
 }
@@ -810,7 +821,7 @@ int dispatch_extend(const ExtendArgs& a, void* stream) {
 // call zeroes and the kernel counts lanes in.  All device pointers,
 // row-major, contiguous.  Returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue, without a launch, for a W that is not
-// a multiple of 16 in [16, 256], an S below 1 or an S whose staging does not
+// a multiple of 16 in [16, 512], an S below 1 or an S whose staging does not
 // fit the block's shared memory.
 extern "C" int mecat_dp_segment_best(const void* q, const void* tpad,
                                      const void* tmax, const void* segq,
@@ -840,7 +851,7 @@ extern "C" int mecat_dp_segment_best_moves(const void* q, const void* tpad,
 // of scratch.  All device pointers, row-major, contiguous.  Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue, without a launch, for a W that is not a multiple
-// of 16 in [16, 256], rows narrower than a window, or an S whose staging
+// of 16 in [16, 512], rows narrower than a window, or an S whose staging
 // does not fit the block's shared memory.
 extern "C" int mecat_extend_counts(const void* q_pad, const void* t_pad,
                                    const void* q0, const void* t0,

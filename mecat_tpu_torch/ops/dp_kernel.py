@@ -49,7 +49,7 @@ LAUNCHES_EXTEND_MOVES = 0
 
 #: the band widths the kernels take: multiples of 16 in [BAND_MIN, BAND_MAX]
 BAND_MIN = 16
-BAND_MAX = 256
+BAND_MAX = 512
 
 _lib = None
 
@@ -79,7 +79,9 @@ def _load():
 def check_band(W: int) -> None:
     """Raise ValueError unless the kernels take band width ``W``: every
     multiple of 16 from BAND_MIN to BAND_MAX (the reference computes any
-    multiple of 16; wider bands are not built for the card)."""
+    multiple of 16; a wider band would need more than 16 cells a thread of
+    the DP kernels' warp, or two warps a lane, and is not built for the
+    card)."""
     if W % 16 or not BAND_MIN <= W <= BAND_MAX:
         raise ValueError(f"the CUDA kernels take band widths W that are "
                          f"multiples of 16 in [{BAND_MIN}, {BAND_MAX}], "

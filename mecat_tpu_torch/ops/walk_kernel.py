@@ -100,9 +100,6 @@ def _walk_inputs(moves, seg_qlen, w_end, W: int):
     _check("moves", moves, torch.int32, (N, S, W // 16), dev)
     _check("seg_qlen", seg_qlen, torch.int32, (N,), dev)
     _check("w_end", w_end, torch.int32, (N,), dev)
-    if moves.data_ptr() % 16:        # the row walk reads rows as 16-byte words
-                                     # where a row is a whole number of them
-        raise ValueError("moves is not 16-byte aligned")
     return dev, N, S
 
 
@@ -112,7 +109,7 @@ def traceback_rows_cuda(moves: torch.Tensor, seg_qlen: torch.Tensor,
     int32 [N] as :func:`..ops.align.traceback_rows_plain`.
 
     moves int32 [N, S, W/16]; seg_qlen, w_end int32 [N]; W a multiple of 16
-    in [16, 256] (:func:`.dp_kernel.check_band`, checked before anything is
+    in [16, 512] (:func:`.dp_kernel.check_band`, checked before anything is
     built).  Raises on anything the kernel does not take.
     """
     global LAUNCHES_ROWS

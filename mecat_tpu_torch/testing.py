@@ -5,8 +5,9 @@
 ``roll_micro_inputs`` lanes for the row-update micro-benchmark family;
 ``dp_segment_best_wavefront`` evaluates a DP segment in the order of the
 Hopper kernel (``csrc/dp_segment.cu``), padded band and move ring
-(``move_rows_ring``) included, so the CPU tests can hold that order against
-the plain version;
+(``move_rows_ring``) included, and ``walk_rows_words`` /
+``deposit_scan_warp`` the row walk and the deposit as ``csrc/cns_walk.cu``
+does, so the CPU tests can hold each order against the plain version;
 ``GOLDEN_J1`` / ``GOLDEN_J0`` are the ``PwOptions`` that produced
 ``tests/golden/overlaps.m4`` and ``tests/golden/candidates.txt``, and
 ``GOLDEN_CNS`` the ``CnsOptions`` of ``tests/golden/corrected.fasta``.
@@ -458,16 +459,17 @@ def move_rows_ring(codes: np.ndarray, last: int, S: int, W: int):
     Thread ``lane`` holds pairs lane * P .. lane * P + P - 1 (P = C/2); the
     thread holding an odd pair g joins that pair's nibble with pair g - 1's
     of the iteration before (its own, or from the thread to its left) into
-    byte g // 2 of row k - g in a ring of 128 rows (160 at C = 8), and every
-    32 iterations the 32 rows that have become whole are copied out; the
-    rows left in the ring follow at the end, then zeros.  A nibble of a cell
+    byte g // 2 of row k - g in a ring of max(128, Wp / 2 + 32) rows (160
+    at C = 8, 288 at C = 16), and every 32 iterations the 32 rows that have
+    become whole are copied out; the rows left in the ring follow at the
+    end, then zeros.  A nibble of a cell
     off its rows is poison (0xA), the ring and the output start as poison,
     and an iteration the kernel runs unpredicated asserts that every byte it
     writes lies on a row of the lane.
     """
     C, Wp = band_cells(W)
     P = C // 2
-    R = 128 if Wp // 2 + 32 <= 128 else 160
+    R = max(128, Wp // 2 + 32)
     half, rb = W // 2, W // 4
     ring = np.full(R * rb, 0xEE, np.uint8)
     out = np.full(S * rb, 0xDD, np.uint8)
@@ -507,6 +509,120 @@ def move_rows_ring(codes: np.ndarray, last: int, S: int, W: int):
     out[flushed * rb:last * rb] = ring[s0:s0 + (last - flushed) * rb]
     out[last * rb:] = 0
     return out.view("<i4").reshape(S, W // 16)
+
+
+def walk_rows_words(moves: np.ndarray, seg_qlen: np.ndarray,
+                    w_end: np.ndarray, W: int):
+    """The row walk as ``csrc/cns_walk.cu``'s ``walk_rows_kernel`` takes a
+    step, on numpy arrays: a row's exit is the highest non-horizontal cell
+    of word j = w >> 4 at or left of w (the word masked by 0xffffffff >> (30
+    - 2 (w & 15))), else the highest of word j - 1, else that of the first
+    word below with one, searched downwards (none: the path broke); packed
+    as column 16q + bit/2 and the code at that bit.  Same arguments and
+    results as ``ops.align.traceback_rows_plain``, as numpy int32.
+    """
+    words = np.asarray(moves).view(np.uint32).astype(np.int64)
+    n, S, _ = words.shape
+    lanes = np.arange(n)
+    nh = lambda x: ~(x & (x >> 1)) & 0x55555555
+    rows = np.clip(np.asarray(seg_qlen, np.int64), 0, S)
+    w = np.asarray(w_end, np.int64)
+    w = np.where((w >= 0) & (w < W), w, 0)
+    mv = np.full((n, S), -1, np.int32)
+    h = np.zeros((n, S), np.int32)
+    wo = np.full((n, S), -1, np.int32)
+    alive = np.ones(n, bool)
+    for i in range(S - 1, -1, -1):
+        r = words[:, i, :]
+        j = w >> 4
+        x1 = r[lanes, j]
+        x0 = r[lanes, np.maximum(j - 1, 0)]
+        y1 = nh(x1) & (0xFFFFFFFF >> (30 - 2 * (w & 15)))
+        y0 = np.where(j > 0, nh(x0), 0)
+        x = np.where(y1 != 0, x1, x0)
+        y = np.where(y1 != 0, y1, y0)
+        q = np.where(y1 != 0, j, j - 1)
+        act = alive & (i < rows)
+        for k in np.flatnonzero(act & (y == 0)):     # the search down
+            for u in range(j[k] - 2, -1, -1):
+                if nh(r[k, u]):
+                    x[k], y[k], q[k] = r[k, u], nh(r[k, u]), u
+                    break
+        bit = np.where(y > 0, np.floor(np.log2(np.maximum(y, 1))), 0
+                       ).astype(np.int64)
+        col, code = 16 * q + (bit >> 1), (x >> bit) & 3
+        found = act & (y != 0)
+        mv[found, i] = code[found]
+        h[found, i] = (w - col)[found]
+        wo[found, i] = col[found]
+        w_next = np.where(code == 2, np.where(col + 1 < W, col + 1, 0), col)
+        w = np.where(found, w_next, w)
+        alive &= ~(act & (y == 0))
+    return mv, h, wo, w.astype(np.int32)
+
+
+def deposit_scan_warp(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
+    """The deposit as ``csrc/cns_walk.cu``'s ``walk_deposit_kernel`` makes
+    it, on numpy arrays: each lane's rows in passes of 32; a base at char c
+    keeps the least key ``(2*row + 1) << 8 | (vbase & 0xff)``, a gap mark
+    ``(2*row) << 8``; the pass's gap cells are numbered by a prefix sum of
+    the 32 rows' counts and cell c finds its row by the kernel's binary
+    search over the sums; the insertion pack and count take OR and max.
+    Same arguments and results as ``ops.consensus_banded.
+    deposit_scan_plain``, as numpy.
+    """
+    wo, aw, h, mv, vbase, delta = (np.asarray(a, np.int64) for a in
+                                   (wo, aw, h, mv, vbase, delta))
+    keep_ins = np.asarray(keep_ins, bool)
+    n, S = wo.shape
+    half = W // 2
+    LP = S + half - 1
+    none = 0x7FFFFFFF
+    key = np.full((n, LP), none, np.int64)
+    ap = np.zeros((n, LP), np.int64)
+    ac = np.zeros((n, LP), np.int64)
+    lanes = np.arange(n)[:, None]
+    for i0 in range(0, S, 32):
+        i = np.arange(i0, i0 + 32)[None, :].repeat(n, 0)
+        ok = i < S
+        ic = np.minimum(i, S - 1)
+        take = lambda a: np.take_along_axis(a, ic, 1)
+        o, a, hh, m, vb, d = (take(x) for x in (wo, aw, h, mv, vbase, delta))
+        kp = take(keep_ins) & ok
+        off = i - half
+        base = ok & ((m == 0) | (m == 1)) & (o >= 0) & (o < W) & (off + o >= 0)
+        np.minimum.at(key, (lanes.repeat(32, 1)[base], (off + o)[base]),
+                      (((2 * i + 1) << 8) | (vb & 0xFF))[base])
+        hi = (o + hh + 2 ** 31) % 2 ** 32 - 2 ** 31     # int32 wrap
+        lo = np.maximum(np.maximum(o + 1, -off), 0)
+        top = np.minimum(hi, W - 1)
+        gaps = ok & (m >= 0) & (o < W - 1) & (top >= lo)
+        cnt = np.where(gaps, top - lo + 1, 0)
+        incl = np.cumsum(cnt, axis=1)
+        first = np.where(gaps, off + lo, 0) - (incl - cnt)
+        gap_key = np.where(gaps, (2 * i) << 8, 0)
+        total = incl[:, -1]
+        for c0 in range(0, int(total.max(initial=0)), 32):
+            c = c0 + np.arange(32)[None, :].repeat(n, 0)
+            row = np.zeros((n, 32), np.int64)
+            for step in (16, 8, 4, 2, 1):
+                row += np.where(np.take_along_axis(incl, row + step - 1, 1)
+                                <= c, step, 0)
+            row &= 31
+            ch = np.take_along_axis(first, row, 1) + c
+            live = c < total[:, None]
+            np.minimum.at(key, (lanes.repeat(32, 1)[live], ch[live]),
+                          np.take_along_axis(gap_key, row, 1)[live])
+        ins = kp & (d >= 1) & (a >= 0) & (a < W) & (off + a >= 0)
+        pack = ins & (d <= 15)
+        shifted = (vb << (2 * np.clip(d - 1, 0, 14))) & 0xFFFFFFFF
+        np.bitwise_or.at(ap, (lanes.repeat(32, 1)[pack], (off + a)[pack]),
+                         shifted[pack])
+        np.maximum.at(ac, (lanes.repeat(32, 1)[ins], (off + a)[ins]), d[ins])
+    val0 = np.where(key == none, -1, np.where(
+        (key >> 8) & 1, (key & 0xFF).astype(np.uint8).view(np.int8), 4))
+    return (val0.astype(np.int8), ap.astype(np.uint32).view(np.int32),
+            ac.astype(np.int32))
 
 
 class DpTally:

@@ -170,7 +170,7 @@ def test_dp_moves_kernel_rejects_what_it_does_not_take(cuda):
                                     for a in dp_inputs(S, W, 64, seed=2))
     with pytest.raises(ValueError):                 # a band it does not take
         dp_kernel.dp_segment_best_moves_cuda(
-            q, tpad.new_zeros(64, S + 272), tmax, seg_q, active, S, 272)
+            q, tpad.new_zeros(64, S + 528), tmax, seg_q, active, S, 528)
     with pytest.raises(TypeError):
         dp_kernel.dp_segment_best_moves_cuda(q, tpad, tmax.long(), seg_q,
                                              active, S, W)
@@ -202,8 +202,8 @@ def test_dp_kernel_rejects_what_it_does_not_take(cuda):
         dp_kernel.dp_segment_best_cuda(q.int(), tpad, tmax, seg_q, active,
                                        S, W)
     with pytest.raises(ValueError):                 # a band it does not take
-        dp_kernel.dp_segment_best_cuda(q, tpad.new_zeros(64, S + 272), tmax,
-                                       seg_q, active, S, 272)
+        dp_kernel.dp_segment_best_cuda(q, tpad.new_zeros(64, S + 528), tmax,
+                                       seg_q, active, S, 528)
     S_big = 32768            # 4 lanes of q and t overflow 227 KB of smem
     with pytest.raises(ValueError):
         dp_kernel.dp_segment_best_cuda(
@@ -281,7 +281,7 @@ def test_extend_loop_kernel_rejects_what_it_does_not_take(cuda):
     kw = dict(S=S, max_segs=4, min_seg_identity=0.65)
     fn = dp_kernel.extend_counts_cuda
     with pytest.raises(ValueError):                 # a band it does not take
-        fn(*lanes, W=272, **kw)
+        fn(*lanes, W=528, **kw)
     with pytest.raises(ValueError):                 # rows narrower than S + W
         fn(lanes[0], lanes[1][:, :S + W - 1].contiguous(), *lanes[2:], W=W,
            **kw)
@@ -370,7 +370,7 @@ def test_extend_moves_kernel_rejects_what_it_does_not_take(cuda):
     kw = dict(S=S, max_segs=4, min_seg_identity=0.65)
     fn = dp_kernel.extend_moves_cuda
     with pytest.raises(ValueError):                 # a band it does not take
-        fn(*lanes, W=272, **kw)
+        fn(*lanes, W=528, **kw)
     with pytest.raises(ValueError):                 # rows narrower than S + W
         fn(lanes[0], lanes[1][:, :S + W - 1].contiguous(), *lanes[2:], W=W,
            **kw)
@@ -378,11 +378,12 @@ def test_extend_moves_kernel_rejects_what_it_does_not_take(cuda):
         fn(*lanes[:2], lanes[2].long(), *lanes[3:], W=W, **kw)
 
 
-@pytest.mark.parametrize("W", [32, 48, 96, 160, 256])
+@pytest.mark.parametrize("W", [32, 48, 96, 160, 256, 272, 384, 512])
 def test_dp_family_kernels_match_plain_at_every_band(cuda, W):
     """Each band width the reference computes: the two per-segment DP
-    kernels, the counts and the move loop, and the row and the column walk
-    on the move kernel's words, each against its plain version."""
+    kernels, the counts and the move loop, the row and the column walk on
+    the move kernel's words and the deposit on the rows of that walk and on
+    random rows, each against its plain version."""
     S = 128
     args = [torch.as_tensor(a, device=cuda)
             for a in dp_inputs(S, W, 256, seed=W)]
@@ -397,9 +398,17 @@ def test_dp_family_kernels_match_plain_at_every_band(cuda, W):
     row = torch.arange(1, S + 1, device=cuda)[None, :, None]
     assert torch.equal(moves, torch.where(
         (row <= last[:, None, None]) & args[4][:, None, None], want[0], 0))
-    for g, w in zip(align.traceback_rows(moves, r_best, w_best, W),
-                    align.traceback_rows_plain(moves, r_best, w_best, W)):
+    rows = align.traceback_rows(moves, r_best, w_best, W)
+    for g, w in zip(rows, align.traceback_rows_plain(moves, r_best, w_best,
+                                                     W)):
         assert torch.equal(g, w)
+    walk = [a.cpu().numpy() for a in rows[:3]]
+    for dep in (deposit_inputs(S, W, 256, seed=W, walk=walk),
+                deposit_inputs(S, W, 256, seed=W + 1)):
+        dep = [torch.as_tensor(a, device=cuda) for a in dep]
+        for g, w in zip(consensus_banded._deposit_scan(*dep, W),
+                        consensus_banded.deposit_scan_plain(*dep, W)):
+            assert torch.equal(g, w)
     TC = align.max_tape_cols(S, W, 0.65)
     for g, w in zip(align.traceback_ops(moves, r_best, w_best, W, TC),
                     align.traceback_ops_plain(moves, r_best, w_best, W, TC)):
@@ -652,7 +661,8 @@ def _walk_case(cuda, S, W, source, n=1024):
 
 
 @pytest.mark.parametrize("source", ["dp", "random"])
-@pytest.mark.parametrize("S,W", [(128, 64), (512, 128)])
+@pytest.mark.parametrize("S,W", [(128, 64), (512, 128), (512, 512),
+                                 (100, 48)])
 def test_walk_kernels_match_plain(cuda, S, W, source):
     """The row walk, the column walk (at the mapping path's MAXC and at the
     unconditional 2S + W) and the deposit scan on the rows of the kernel's
@@ -686,12 +696,14 @@ def test_walk_kernels_match_plain(cuda, S, W, source):
         "walk_launches_cols": 2}
 
 
+@pytest.mark.parametrize("S,W", [(512, 128), (100, 48)])
 def test_walk_kernels_write_every_element_of_uninitialised_buffers(
-        cuda, monkeypatch):
+        cuda, monkeypatch, S, W):
     """The wrappers allocate their outputs with torch.empty; here
     torch.empty hands out buffers full of ones, and each kernel's outputs
-    must still equal the plain version's everywhere."""
-    S, W = 512, 128
+    must still equal the plain version's everywhere (at S = 100 the row
+    walk stores its rows word by word, and the deposit's planes start off
+    16-byte words)."""
     moves, seg_qlen, w_end = _walk_case(cuda, S, W, "random", n=256)
     rows = [torch.as_tensor(a, device=cuda)
             for a in deposit_inputs(S, W, 256, seed=5)]
@@ -737,7 +749,7 @@ def test_walk_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         dep_fn(rows[0][:, :-1], *rows[1:], W)
     with pytest.raises(ValueError):                 # a W the kernel refuses
-        rows_fn(moves.new_zeros(64, S, 17), seg_qlen, w_end, 272)
+        rows_fn(moves.new_zeros(64, S, 33), seg_qlen, w_end, 528)
     with pytest.raises(ValueError):                 # device
         rows_fn(moves, seg_qlen.cpu(), w_end, W)
     with pytest.raises(ValueError):
@@ -752,6 +764,10 @@ def test_walk_kernels_reject_what_they_do_not_take(cuda):
                 192)
     with pytest.raises(ValueError):
         dep_fn(rows[0], rows[1].t().contiguous().t(), *rows[2:], W)
-    with pytest.raises(ValueError):                 # misaligned moves
-        rows_fn(moves.reshape(-1)[1:1 + moves.numel() - moves[0].numel()]
-                .view(63, S, W // 16), seg_qlen[:63], w_end[:63], W)
+    # moves that start off a 16-byte boundary: taken, word by word
+    odd = moves.reshape(-1)[1:1 + moves.numel() - moves[0].numel()].view(
+        63, S, W // 16)
+    for g, w in zip(rows_fn(odd, seg_qlen[:63], w_end[:63], W),
+                    align.traceback_rows_plain(odd, seg_qlen[:63],
+                                               w_end[:63], W)):
+        assert torch.equal(g, w)

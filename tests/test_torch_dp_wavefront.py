@@ -29,7 +29,8 @@ def _readable(moves, r_best, S):
 
 @pytest.mark.parametrize("S,W", [(64, 64), (128, 64), (256, 128), (64, 16),
                                  (96, 48), (128, 96), (128, 160),
-                                 (128, 208), (128, 256)])
+                                 (128, 208), (128, 256), (64, 272),
+                                 (64, 384), (48, 512)])
 def test_wavefront_matches_plain(S, W):
     """dp_inputs carries the edge lanes: tmax / seg_q of 0 and -1, inactive
     lanes; lane 4 has its endpoint restricted to early rows."""
@@ -115,15 +116,16 @@ def _packed(codes, last, W):
     return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
-@pytest.mark.parametrize("W", list(range(16, 257, 16)))
+@pytest.mark.parametrize("W", list(range(16, 513, 16)))
 def test_move_ring_assembles_every_row_at_every_band(W):
     """The kernel's move bytes: nibbles joined across iterations and
-    threads, a ring of 128 rows (160 at W > 192) flushed every 32 rows,
-    the rest after the last row and zeros past it, for each band width the
-    kernels take, at lasts around the flush and ring boundaries."""
+    threads, a ring of 128 rows (160 at W > 192, up to 288 at W > 448)
+    flushed every 32 rows, the rest after the last row and zeros past it,
+    for each band width the kernels take, at lasts around the flush and
+    ring boundaries."""
     S = 512
     rng = np.random.default_rng(W)
-    for last in (0, 1, 31, 32, 33, 127, 160, 161, 300, S):
+    for last in (0, 1, 31, 32, 33, 127, 160, 161, 287, 288, 289, 300, S):
         codes = rng.integers(0, 4, (S, W))
         np.testing.assert_array_equal(move_rows_ring(codes, last, S, W),
                                       _packed(codes, last, W),

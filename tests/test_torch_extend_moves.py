@@ -17,8 +17,8 @@ to what the host loop of each direction gives.  Here, on the CPU:
 * ``rows_from_moves`` / ``ops_from_moves`` on those slots give the JAX
   ``extend_pair_batch_rows`` / ``_with_ops`` results;
 * the plain row extension equals the JAX package at band widths 32, 48, 96,
-  160 and 256, and the kernels' width check takes exactly the multiples of
-  16 in [16, 256];
+  160, 256, 384 and 512, and the kernels' width check takes exactly the
+  multiples of 16 in [16, 512];
 * the move loop's wrapper refuses CPU tensors before anything is built.
 
 The kernel is held against the host loop on the card in
@@ -166,9 +166,9 @@ def test_rows_and_tapes_from_the_slots_equal_jax(form):
     _assert_like_jax(got, want, 12)
 
 
-@pytest.mark.parametrize("W", [32, 48, 96, 160, 256])
+@pytest.mark.parametrize("W", [32, 48, 96, 160, 256, 384, 512])
 def test_plain_rows_equal_jax_at_every_band(W):
-    S = 128
+    S = 128 if W <= 256 else 64
     args = pair_inputs(12, 1024, seed=W)
     kw = dict(S=S, W=W, max_segs=10)
     got = port.extend_pair_batch_rows(*(torch.as_tensor(a) for a in args),
@@ -177,11 +177,11 @@ def test_plain_rows_equal_jax_at_every_band(W):
     _assert_like_jax(got, want, 6)
 
 
-def test_band_check_takes_the_multiples_of_16_up_to_256():
-    for W in range(16, 257, 16):
+def test_band_check_takes_the_multiples_of_16_up_to_512():
+    for W in range(16, 513, 16):
         dp_kernel.check_band(W)
-    for W in (0, -16, 8, 24, 40, 100, 255, 272, 512):
-        with pytest.raises(ValueError, match="256"):
+    for W in (0, -16, 8, 24, 40, 100, 255, 520, 528, 1024):
+        with pytest.raises(ValueError, match="512"):
             dp_kernel.check_band(W)
 
 

@@ -23,9 +23,10 @@ from mecat_tpu.ops import align as ref_align
 from mecat_tpu.ops import consensus_banded as ref_cb
 from mecat_tpu_torch.ops import align, walk_kernel
 from mecat_tpu_torch.ops import consensus_banded as cb
-from mecat_tpu_torch.testing import deposit_inputs, walk_inputs
+from mecat_tpu_torch.testing import (deposit_inputs, deposit_scan_warp,
+                                     walk_inputs, walk_rows_words)
 
-SHAPES = [(24, 32), (40, 64), (32, 128)]
+SHAPES = [(24, 32), (40, 64), (32, 128), (24, 384), (16, 512)]
 
 
 def _t(*arrays):
@@ -74,7 +75,7 @@ def test_traceback_ops_plain_matches_jax_on_random_words(S, W, max_cols):
     assert n_cols[0] == 0 and (n_cols == maxc).any() and (n_cols < maxc).any()
 
 
-@pytest.mark.parametrize("S,W", [(40, 64), (32, 128)])
+@pytest.mark.parametrize("S,W", [(40, 64), (32, 128), (24, 384), (16, 512)])
 @pytest.mark.parametrize("rows_from", ["walk", "random"])
 def test_deposit_scan_plain_matches_jax(S, W, rows_from):
     walk = None
@@ -94,6 +95,44 @@ def test_deposit_scan_plain_matches_jax(S, W, rows_from):
         assert (ipack < 0).any()               # vbase << 28 wrapped
         wo, aw, h, mv = args[:4]
         assert ((wo + h >= W) & (mv >= 0)).any() and (aw == W).any()
+
+
+@pytest.mark.parametrize("S,W", SHAPES + [(40, 16), (40, 48), (40, 80),
+                                          (72, 160), (24, 272)])
+def test_row_walk_kernel_model_matches_plain(S, W):
+    """The row-walk kernel's step (w's own word masked at w, else the word
+    below it, else a search down the lower words) on random words with the
+    edge lanes, which break paths and run them sideways across words, at
+    row widths of 1 to 32 words."""
+    args = walk_inputs(S, W, 48, seed=5 * S + W)
+    got = walk_rows_words(*args, W)
+    want = align.traceback_rows_plain(*_t(*args), W)
+    for name, g, w in zip(("mv", "h", "w_out", "w0"), got, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    assert (got[0] == align.MOVE_VERT).any()
+
+
+@pytest.mark.parametrize("S,W", [(40, 64), (100, 64), (72, 128), (24, 384)])
+@pytest.mark.parametrize("rows_from", ["walk", "random"])
+def test_deposit_kernel_model_matches_plain(S, W, rows_from):
+    """The deposit kernel's order (passes of 32 rows, keys with the base's
+    byte below them, gap cells shared out over the warp by a prefix sum and
+    a binary search) on the rows of real walks and on random rows."""
+    walk = None
+    if rows_from == "walk":
+        moves, seg_qlen, w_end = walk_inputs(S, W, 24, seed=S + W)
+        walk = walk_rows_words(moves, seg_qlen, w_end, W)[:3]
+    args = deposit_inputs(S, W, 24, seed=3 * S + W, walk=walk)
+    got = deposit_scan_warp(*args, W)
+    want = cb.deposit_scan_plain(*_t(*args), W)
+    for name, g, w in zip(("val0", "ipack", "icnt"), got, want):
+        assert g.dtype == w.numpy().dtype, name
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    if rows_from == "random":              # some pass had over 32 gap cells
+        wo, _, h, mv = args[:4]
+        cells = np.where(mv >= 0, np.clip(np.minimum(wo + h, W - 1) - wo, 0,
+                                          None), 0)
+        assert cells[:, :32].sum(axis=1).max() > 32
 
 
 SCANS = {
