@@ -32,9 +32,10 @@ non-zero exit and no result line:
    slot < G, one launch a call and none of the other DP kernels; at (512,
    128) the wrapper alone as for the counts loop.  Every DP-family kernel
    (both per-segment kernels, both loops, the row and the column walk) at
-   the band widths 32, 48, 96, 160, 256, 272, 384 and 512 against its
-   plain version, and the deposit scan on the rows of that row walk and on
-   random rows.
+   the band widths 32, 48, 96, 160, 256, 272, 384, 512, 528, 1024 and 2048
+   (past 512 a DP lane of several warps) against its plain version, and
+   the deposit scan on the rows of that row walk and on random rows; at
+   512, 1024 and 2048 each wrapper's ms of one launch from the host.
    Then both DP wrappers alone
    (``ops/dp_kernel``, nothing around them) at the shapes the paths
    launch: (512, 128), full-length segments, 64 / 256 / 1,024 / 4,096 live
@@ -48,7 +49,8 @@ non-zero exit and no result line:
    ``testing.walk_inputs``; the deposit on the rows of each walk and on
    random rows.  Each wrapper alone on the first set: ms of one launch from
    the host and from a CUDA graph, the plain version's ms, the bound, ns a
-   dependent step of the longest lane (``--kernels-only`` stops here).
+   dependent step of the longest lane (for the column walk a row step,
+   its columns beside it) (``--kernels-only`` stops here).
    The ``roll_micro`` family, 2048
    lanes (the tool's own lanes plus lanes with varied tmax and segq): all 8
    output rows of each of the five variants equal on every lane; then the
@@ -93,7 +95,10 @@ non-zero exit and no result line:
 8. mapping exactness: a 30 kb + 20 kb reference and 21 reads (one of them
    junk), ``run_ref(device="cuda")`` and ``run_ref(device="cpu")`` in this
    process give byte-equal SAM and byte-equal M4-format output; the junk
-   read is FLAG 4; both DP kernels were launched by the CUDA SAM run;
+   read is FLAG 4; both DP kernels were launched by the CUDA SAM run; then
+   the same SAM run at ``align_band`` 1024 (two warps a DP lane) on cuda
+   and cpu, byte-equal, the CUDA run through the counts loop, the move loop
+   and the column walk at that width;
 9. mapping at a real reference size: one 46 Mb contig (seed 301), 2,000
    simulated reads of mean 10 kb at 12 % error (seed 302), default
    ``RefOptions``, SAM out, through ``python -m
@@ -177,7 +182,7 @@ card of its own, ``gloo`` on the CPU or where ranks share a card.
 
 Each kernel's launch counter is zeroed just before the timed run of its
 path (phase 4's steady passes, phase 6's timed pass, the tool's run in
-phase 2, the CUDA SAM run of phase 8, phase 10's timed pass, phase 13c;
+phase 2, the CUDA SAM runs of phase 8, phase 10's timed pass, phase 13c;
 around phase 3's cns run and each two-round and polish check)
 and read just after (the DP counters all together), so the reported
 launches are those of the main paths only; the CLIs of phases 7, 9, 11, 12
@@ -187,7 +192,7 @@ report their own counts (the dry run's and the scaling report's summed
 over their ranks; the bench's of its timed overlap window and its steady
 cns pass).  The row walk and the deposit scan must launch on every
 correction path (phases 6, 7, 10, 11, 12, 13c, 13d, 14c), the column walk
-on both mapping runs (8, 9); every counts path (phases 4, 5, 8, 9, 11, 12,
+on every mapping run (both of 8, and 9); every counts path (phases 4, 5, 8, 9, 11, 12,
 13b-13d, 14c, 14d) must launch the segment-loop kernel and never the
 per-segment counts kernel, whose body runs inside it; every correction,
 rounds, polish and mapping phase-B path (phases 3, 6, 7, 8, 9, 10, 11,
@@ -260,8 +265,14 @@ WALK_OPS = dict(row_chunk=20, row=12, deposit_row=24, gap_cell=3,
 #: band widths held in phase 2 besides the paths' 64 and 128: every other
 #: DP kernel instance (C = 2, 4, ..., 16 cells a thread) with and without
 #: padding cells, the row walk's odd word counts and each of its thread
-#: groups (1-32 threads a lane)
-BAND_SWEEP = (32, 48, 96, 160, 256, 272, 384, 512)
+#: groups (1-32 threads a lane); past 512 a DP lane of several warps (528:
+#: a second warp of one real thread; 1024, 2048: two and four whole
+#: slices) and walks of 16 and 8 lanes a block
+BAND_SWEEP = (32, 48, 96, 160, 256, 272, 384, 512, 528, 1024, 2048)
+#: widths at which phase 2 times every DP-family kernel (S = 128, 256 lanes)
+BAND_TIMED = (512, 1024, 2048)
+#: the band of phase 8's wide mapping run (a DP lane of two warps)
+REF_WIDE_BAND = 1024
 #: the band of phase 3's wide CLI run: a width past the paths' 64 and 128
 #: that the reference takes (C = 12 cells a thread, 32 threads a row walk)
 WIDE_BAND = 384
@@ -794,7 +805,7 @@ def phase_extend_moves(S: int, W: int, time_it: bool) -> dict:
                 lane_segments=lane_segs, **b)
 
 
-def phase_widths() -> dict:
+def phase_widths() -> tuple:
     """Every DP-family kernel at the band widths of BAND_SWEEP (S = 128):
     the two per-segment kernels on 256 ``dp_inputs`` lanes (the endpoints
     on every lane, the move words on every row: the plain version's up to
@@ -802,7 +813,9 @@ def phase_widths() -> dict:
     move kernel's words, the deposit scan on the rows of that row walk and
     on random rows, the counts loop on 256 direction lanes of
     ``extend_inputs`` pairs and the move loop on the same pairs, each
-    against its plain version.  Returns {kernel: largest difference}."""
+    against its plain version.  At the widths of BAND_TIMED each kernel's
+    wrapper alone on those inputs, ms of one launch from the host (median
+    of 11).  Returns ({kernel: largest difference}, {W: {kernel: ms}})."""
     import torch
 
     from mecat_tpu_torch import constants as C
@@ -822,6 +835,7 @@ def phase_widths() -> dict:
             if not torch.equal(g, w):
                 raise AssertionError(f"{name} kernel != plain at S={S} W={W}")
 
+    timed = {}
     for W in BAND_SWEEP:
         args = [torch.as_tensor(a, device=dev)
                 for a in dp_inputs(S, W, 256, seed=211 + W)]
@@ -866,12 +880,36 @@ def phase_widths() -> dict:
                                           dp=align.dp_segment_best_plain),
             pairs, S, W, f"S={S} W={W}"))
         torch.cuda.synchronize()
+        if W in BAND_TIMED:
+            from mecat_tpu_torch.ops import dp_kernel
+            from mecat_tpu_torch.ops import walk_kernel as wk
+
+            mk = dict(S=S, W=W, min_seg_identity=C.MIN_SEGMENT_IDENTITY)
+            runs = {
+                "dp_segment_best": lambda: dp_kernel.dp_segment_best_cuda(
+                    *args, S, W),
+                "dp_segment_best_moves":
+                    lambda: dp_kernel.dp_segment_best_moves_cuda(*args, S, W),
+                "extend_counts": lambda: dp_kernel.extend_counts_cuda(
+                    *lanes, max_segs=16, **mk),
+                "extend_moves": lambda: dp_kernel.extend_moves_cuda(
+                    *lanes, max_segs=16, **mk),
+                "traceback_rows": lambda: wk.traceback_rows_cuda(
+                    moves, r_best, w_best, W),
+                "traceback_ops": lambda: wk.traceback_ops_cuda(
+                    moves, r_best, w_best, W, TC),
+                "deposit_scan": lambda: wk.deposit_scan_cuda(*dep, W)}
+            timed[W] = {name: cuda_median_ms(fn, 11)
+                        for name, fn in runs.items()}
+            say(f"phase 2: band W={W} (S={S}, 256 lanes), ms of one launch "
+                f"from the host: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in timed[W].items()))
         say(f"phase 2: band W={W} (S={S}): both per-segment DP kernels (256 "
             f"lanes, every move word), the row and the column walk on their "
             f"words, the deposit on that walk's rows and on random rows, "
             f"the counts loop and the move loop (256 direction lanes, 16 / 9 "
             f"segments) == their plain versions")
-    return err
+    return err, timed
 
 
 def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
@@ -882,7 +920,8 @@ def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
     visits, and one more where its path broke) and the column walk one
     word a row it visits; operations as the source's header counts them
     (``WALK_OPS``), over the rows, gap cells and tape columns this data
-    needs."""
+    needs.  The column walk's chain is counted in row steps: one a
+    non-horizontal code of its tape."""
     import torch
 
     N = int(seg_qlen.shape[0])
@@ -906,10 +945,11 @@ def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
         N * S * WALK_OPS["deposit_row"] + gap_cells * WALK_OPS["gap_cell"]
         + N * LP * WALK_OPS["deposit_char"]), S)
     tape, n_cols = ops[0], ops[3]
-    col_rows = int(((tape >= 0) & (tape != 3)).sum())
+    row_steps = ((tape >= 0) & (tape != 3)).sum(dim=1)
+    col_rows = int(row_steps.sum())
     out["traceback_ops"] = (card_bound(
         col_rows * 4 + N * (maxc + 4 + 8),
-        int(n_cols.sum()) * WALK_OPS["col_step"]), int(n_cols.max()))
+        int(n_cols.sum()) * WALK_OPS["col_step"]), int(row_steps.max()))
     return out
 
 
@@ -923,7 +963,8 @@ def phase_walks(S: int, W: int) -> dict:
     of their walk, each wrapper alone: ms of one launch from the host
     between two events (``ms``) and a launch replayed from a CUDA graph
     (``graph_ms``), the plain version's ms, the bound, and ns a dependent
-    step of the longest lane.  Returns {kernel: numbers}."""
+    step of the longest lane (a row step of the column walk, whose longest
+    lane's columns are given beside it).  Returns {kernel: numbers}."""
     import torch
 
     from mecat_tpu_torch import constants as C
@@ -999,14 +1040,21 @@ def phase_walks(S: int, W: int) -> dict:
         graph_ms = cuda_graph_ms(fn)
         plain_ms = cuda_median_ms(plain, 3)
         b, steps = bounds[name]
+        what = "step"
+        extra = {}
+        if name == "traceback_ops":
+            what = "row step"
+            extra = dict(chain_cols=int(ops_plain[3].max()))
         say(f"phase 2: {name} kernel alone at S={S} W={W}, {DP_LANES} "
             f"lanes: one launch from the host {ms:.4f} ms, replayed from a "
             f"CUDA graph {graph_ms:.4f} ms ({1e6 * graph_ms / steps:.1f} ns "
-            f"a step of the longest lane's {steps}); plain {plain_ms:.2f} "
-            f"ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+            f"a {what} of the longest lane's {steps}"
+            + (f", {extra['chain_cols']} columns" if extra else "")
+            + f"); plain {plain_ms:.2f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}")
         out[name] = dict(max_abs_err=err[name], ms=ms, graph_ms=graph_ms,
                          plain_ms=plain_ms, chain_steps=steps,
-                         ns_step=1e6 * graph_ms / steps, **b)
+                         ns_step=1e6 * graph_ms / steps, **extra, **b)
     return out
 
 
@@ -1582,13 +1630,11 @@ def phase_cli_cns(reads: str, n_reads: int, work: str) -> dict:
     return dict(walks=need_walks("the cns CLI", summary), launches=launches)
 
 
-def phase_ref_small(work: str) -> dict:
-    """Mapping exactness on the card: CUDA and CPU runs give the same
-    bytes.  Returns the launches of the two DP kernels on the CUDA SAM
-    run."""
+def small_mapping_case(work: str):
+    """Phase 8's files: a 30 kb + 20 kb reference and 21 reads (20
+    simulated at 8 % error, one junk).  Returns (reference, reads, read
+    count)."""
     from mecat_tpu_torch.io.fasta import write_fasta
-    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
-    from mecat_tpu_torch.pipeline.ref import RefOptions, run_ref
     from mecat_tpu_torch.utils.sim import random_genome, simulate_reads
 
     g1 = random_genome(30000, seed=81)
@@ -1604,7 +1650,17 @@ def phase_ref_small(work: str) -> dict:
     seqs.append(("junk", random_genome(1500, seed=99)))
     reads = os.path.join(work, "small_reads.fasta")
     write_fasta(reads, seqs)
+    return ref, reads, len(seqs)
 
+
+def phase_ref_small(work: str) -> dict:
+    """Mapping exactness on the card: CUDA and CPU runs give the same
+    bytes.  Returns the launches of the two DP kernels on the CUDA SAM
+    run."""
+    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
+    from mecat_tpu_torch.pipeline.ref import RefOptions, run_ref
+
+    ref, reads, n_seqs = small_mapping_case(work)
     launches = {}
     for fmt in ("sam", "m4"):
         outs = {}
@@ -1626,9 +1682,9 @@ def phase_ref_small(work: str) -> dict:
                                                  ("cols",)))
             with open(out, "rb") as fh:
                 outs[dev] = fh.read()
-            if stats.mapped != len(seqs) - 1:
+            if stats.mapped != n_seqs - 1:
                 raise AssertionError(f"small mapping ({fmt}, {dev}): "
-                                     f"{stats.mapped} of {len(seqs)} mapped")
+                                     f"{stats.mapped} of {n_seqs} mapped")
             say(f"phase 8: run_ref {fmt} on {dev}: {stats.mapped}/"
                 f"{stats.reads} mapped in {dt:.2f} s")
         if outs["cuda"] != outs["cpu"] or len(outs["cpu"]) < 200:
@@ -1644,6 +1700,50 @@ def phase_ref_small(work: str) -> dict:
     need_moves_loop("the CUDA SAM run", launches)
     say(f"phase 8: SAM and M4 output byte-equal between cuda and cpu, junk "
         f"read FLAG 4, DP launches on the CUDA SAM run: {launches}")
+    return launches
+
+
+def phase_ref_wide(work: str) -> dict:
+    """Phase 8's mapping at ``--align-band`` REF_WIDE_BAND (a DP lane of two
+    warps, walks of 16 lanes a block): ``run_ref`` on cuda and on cpu give
+    byte-equal SAM; the CUDA run must launch the counts loop, the move loop
+    and the column walk at that width.  Returns the CUDA run's launches, as
+    phase_ref_small's."""
+    from mecat_tpu_torch.ops import dp_kernel, walk_kernel
+    from mecat_tpu_torch.pipeline.ref import RefOptions, run_ref
+
+    ref, reads, n_seqs = small_mapping_case(work)
+    opts = RefOptions(output_format="sam",
+                      **dict(REF_SMALL, align_band=REF_WIDE_BAND))
+    outs, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"wide_{dev}.sam")
+        if dev == "cuda":
+            zero_dp_counts()
+            zero_walk_counts()
+        t0 = time.time()
+        stats = run_ref(reads, ref, out, os.path.join(work, f"wide_w_{dev}"),
+                        opts, device=dev)
+        dt = time.time() - t0
+        if dev == "cuda":
+            launches = dict(dp_launches_of(dp_kernel.launches()),
+                            walks=need_walks("the wide CUDA SAM run",
+                                             walk_kernel.launches(),
+                                             ("cols",)))
+        with open(out, "rb") as fh:
+            outs[dev] = fh.read()
+        if stats.mapped != n_seqs - 1:
+            raise AssertionError(f"wide mapping ({dev}): {stats.mapped} of "
+                                 f"{n_seqs} mapped")
+        say(f"phase 8: run_ref sam at W={REF_WIDE_BAND} on {dev}: "
+            f"{stats.mapped}/{stats.reads} mapped in {dt:.2f} s")
+    if outs["cuda"] != outs["cpu"] or len(outs["cpu"]) < 200:
+        raise AssertionError(f"wide mapping: SAM bytes differ between cuda "
+                             f"and cpu at W={REF_WIDE_BAND}")
+    need_loop("the wide CUDA SAM run", launches["extend"], launches["counts"])
+    need_moves_loop("the wide CUDA SAM run", launches)
+    say(f"phase 8: SAM byte-equal between cuda and cpu at W={REF_WIDE_BAND} "
+        f"({len(outs['cpu'])} bytes), launches on the CUDA run: {launches}")
     return launches
 
 
@@ -2693,13 +2793,14 @@ def main(argv=None) -> int:
               for S, W in shapes}
     extend_moves = {(S, W): phase_extend_moves(S, W, (S, W) == main_sw)
                     for S, W in shapes}
-    widths = phase_widths()
+    widths, widths_ms = phase_widths()
     path_shapes = phase_kernel_path_shapes(*main_sw)
     walks = {(S, W): phase_walks(S, W) for S, W in shapes}
     if args.kernels_only:
         say(json.dumps({"extend": extend[main_sw],
                         "extend_moves": extend_moves[main_sw],
-                        "widths": widths, "path_shapes": {
+                        "widths": widths, "widths_ms": widths_ms,
+                        "path_shapes": {
             "moves" if m else "counts": v for m, v in path_shapes.items()},
             "walks": walks[main_sw]}))
         say(f"card: {card}")
@@ -2728,6 +2829,7 @@ def main(argv=None) -> int:
         write_fasta(reads_cut, [(db.name(i), db.read(i)) for i in cut])
         cli_cns = phase_cli_cns(reads_cut, len(cut), work)
         ref_small = phase_ref_small(work)
+        ref_wide = phase_ref_wide(work)
         ref_cli = phase_ref_genome(work, args.profile)
         phase_rounds_small(work)
         rounds = phase_rounds(db, bench["supports"], cns)
@@ -2772,6 +2874,7 @@ def main(argv=None) -> int:
             launches_pw_cli=staged_cli["summary"].get(cli_key, 0),
             launches_cns_cli=cli_cns["launches"][key],
             launches_mapping=ref_small[key],
+            launches_mapping_wide=ref_wide[key],
             launches_mapping_cli=ref_cli.get(cli_key, 0),
             launches_rounds=rounds["launches"][key],
             launches_pipeline_cli=pipeline["launches"][key],
@@ -2818,15 +2921,18 @@ def main(argv=None) -> int:
             "library_ms": None})
     for k in kernels:
         k["band_widths"] = [64, 128, *BAND_SWEEP]
+        k["ms_by_band"] = {W: t[k["name"]] for W, t in widths_ms.items()}
     # the walks of both main paths run S 512, W 128 (mapping's MAXC 704)
     walk_main = walks[(CFG["S"], CFG["W"])]
     for name, short in (("traceback_rows", "rows"),
                         ("deposit_scan", "deposit"),
                         ("traceback_ops", "cols")):
         if short == "cols":
-            # the mapping path: phase 8's CUDA SAM run in this process, and
-            # the CLI's own count of phase 9
+            # the mapping path: phase 8's CUDA SAM runs in this process (at
+            # W = 64 and at REF_WIDE_BAND), and the CLI's own count of
+            # phase 9
             paths = dict(launches=ref_small["walks"][short],
+                         launches_mapping_wide=ref_wide["walks"][short],
                          launches_mapping_cli=ref_cli[f"walk_launches_{short}"])
         else:
             # the correction paths: phase 6's cns pass (the main path), the
@@ -2853,7 +2959,14 @@ def main(argv=None) -> int:
                                + [widths.get(name, 0)]),
             **{k: walk_main[name][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                         "graph_ms", "chain_steps", "ns_step")},
+                         "graph_ms", "chain_steps", "ns_step", "chain_cols")
+               if k in walk_main[name]},
+            "band_widths": [64, 128, *BAND_SWEEP],
+            "ms_by_band": {W: t[name] for W, t in widths_ms.items()},
+            # the same wrapper at (S, W) = (128, 64)
+            "at_128_64": {k: walks[(128, 64)][name][k]
+                          for k in ("ms", "graph_ms", "chain_steps",
+                                    "ns_step", "bound_ms")},
             # no single PyTorch call computes a banded walk or deposit
             "library_ms": None})
     # the tool runs S 512, W 128; the family's headline numbers are `full`'s

@@ -19,7 +19,7 @@
 // contiguous (16 KiB at S = 512, W = 128).
 //
 // What bounds them on an H100.  Each lane is a chain of dependent steps (S
-// rows for the row walk and the deposit, up to MAXC tape columns for the
+// rows for the row walk and the deposit, up to seg_qlen row steps for the
 // column walk); lanes are independent.  The paths launch 2,300-9,000 lanes.
 // The bytes: the moves of the rows a lane walks (32 B a row at W = 128) and
 // 12 B a row of output for the row walk; 25 B a row in and 9 B a char out
@@ -57,9 +57,12 @@
 //     rows above that are written up front, and once every lane of the warp
 //     has broken (or never started) the rest is written without walking
 //     and the copying warp stops copying.  33 KB of shared memory a block
-//     at W = 128 (131 KB at W = 512), one block an SM at 4,096 lanes.  The
-//     work counted for the bound is the old one-thread design's, about 20
-//     int32 operations a 32-cell chunk and 12 a row.
+//     at W = 128 (131 KB at W = 512), one block an SM at 4,096 lanes.  A
+//     lane's ring is 32 rows of W/16 words, so past W = 512 a block walks
+//     fewer lanes (16 up to W = 1024, 8 up to 3072: 197 KB), the other
+//     threads of both warps idle.  The work counted for the bound is the
+//     old one-thread design's, about 20 int32 operations a 32-cell chunk
+//     and 12 a row.
 //   * walk_deposit, one warp a lane.  The reference slides a W-wide
 //     accumulator down the rows; indexed by target char instead of band
 //     column, it does not move, and the accumulator is the output row
@@ -82,25 +85,45 @@
 //     last pass writes 4 chars a thread (a 4-byte store of val0, 16-byte
 //     stores of ipack and icnt), the unaligned head and tail char by char.
 //     Up to 8 warps a block, 7 KB a warp at (512, 128): 32 lanes an SM, so
-//     4,096 lanes in one wave.  About 24 int32 operations a row, 3 a gap
-//     cell and 6 an output char.
-//   * walk_cols, one thread a lane.  Each step reads the word at its
-//     (row, column) through the read-only cache, flat and clipped over the
-//     lane as the reference's _read_move does (floor division and modulo
-//     by 16 are an arithmetic shift and a mask), and prefetches the word
-//     four rows up into L1, where the walk will be a few steps later.  A
-//     walk that has ended stays ended, so the thread leaves the loop there
-//     and fills the rest of the tape with -1.  Tape bytes are gathered into
-//     words and stored 4 at a time when MAXC is a multiple of 4.  About 16
-//     int32 operations a step.
+//     4,096 lanes in one wave (18 KB a warp at (512, 2048), 25 KB at (512,
+//     3072): 8 warps a block still).  About 24 int32 operations a row, 3 a
+//     gap cell and 6 an output char.
+//   * walk_cols, the row walk's machinery: a walking warp of 32 lanes, a
+//     thread a lane, and a copying warp that streams each lane's rows,
+//     descending, into the same ring.  The column walk visits its rows in
+//     the same order, one non-horizontal move a row, so it steps a row,
+//     not a column: at row i and column w the row's exit is the highest
+//     non-horizontal cell <= w (the row walk's two-word test and count of
+//     leading zeros), and the step emits the row's run of w - exit
+//     horizontal codes, then the exit code, into the lane's tape,
+//     backwards from column MAXC - 1.  The lanes walk in step, row by row,
+//     each on the rows below its seg_qlen, so a chain is at most seg_qlen
+//     row steps and its common step reads shared memory only.  The
+//     reference reads a lane's moves as one flat vector, clipped to the
+//     lane (_read_move), so a horizontal run past column 0 goes on into the
+//     row below from its top, a vertical move out of column W - 1 reads the
+//     next row's word 0, row 1 with w < 0 reads word 0 again and again, and
+//     seg_qlen > S starts on the lane's last word: each of those (rare on a
+//     DP's moves) is a slow step that reads the words from device memory,
+//     flat and clipped (floor division and modulo by 16 are an arithmetic
+//     shift and a mask).  Row 0 then emits its leading target deletions
+//     while w - W/2 > 0; the walk stops after exactly MAXC columns, in the
+//     middle of a row if it must.  The tape bytes are held in a register and
+//     stored as whole words (byte by byte only in a word shared with a
+//     neighbouring lane's tape, where MAXC % 4 != 0).  The common step (the
+//     exit in w's word or the one below, a run of at most 3, room on the
+//     tape) is branch-free; a lane whose step is another stops there, and
+//     after each group of 8 rows one vote sends such lanes through the full
+//     step for the rest of the group.  The work counted for the bound is
+//     the old one-thread design's, about 16 int32 operations a tape
+//     column.
 //
 // Every kernel writes every element of its outputs (the wrapper allocates
 // them with torch.empty), reads nothing outside its lane whatever the
 // lane's seg_qlen, w_end or row values, and is exact: integers throughout,
 // int32 wrap-around where the reference wraps (vbase << 2(d-1), (i-1)*W/16).
 //
-// Left for later: the column walk's redesign, and the row walk inside the
-// move-writing DP kernel.
+// Left for later: the row walk inside the move-writing DP kernel.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmecat_walk.so cns_walk.cu
@@ -115,9 +138,8 @@ constexpr int kVert = 2;                 // ops.align.MOVE_VERT
 constexpr int kHoriz = 3;                // ops.align.MOVE_HORIZ
 constexpr int kGap = 4;                  // ops.consensus.GAP
 constexpr int kMaxD = 15;                // constants.MAX_INS_DELTA
-constexpr int kMaxW = 512;               // the row walk's widest band
-constexpr int kWalkThreads = 32;         // column walk: one warp a block,
-                                         // lanes spread over every SM
+constexpr int kMaxW = 3072;              // the widest band (as the DP
+                                         // kernels', csrc/dp_segment.cu)
 constexpr int kRowRing = 32;             // rows of moves a row-walk thread
                                          // holds
 constexpr int kRowLoad = 8;              // rows a copy group, and rows of
@@ -214,11 +236,108 @@ __host__ __device__ constexpr int row_stride(int W) {
   return kRowRing * (W / 16) + 4;
 }
 
-// Bytes of shared memory a row-walk block takes: two mbarriers a stage of
-// the ring and the stop word (kRowHead), then the 32 lanes' rings.
+// Bytes of shared memory a row-walk (or column-walk) block of L lanes
+// takes: two mbarriers a stage of the ring and the stop word (kRowHead),
+// then the L lanes' rings.
 constexpr int kRowHead = 16 * kRowStages + 16;
-__host__ __device__ constexpr size_t row_smem(int W) {
-  return kRowHead + 4 * 32 * (size_t)row_stride(W);
+__host__ __device__ constexpr size_t row_smem(int W, int L) {
+  return kRowHead + 4 * (size_t)L * row_stride(W);
+}
+
+// Lanes a row-walk block walks at band W: 32 where their rings fit the
+// block's shared memory (W <= 512), else the most of 16, 8, ... that fit.
+int row_lanes(int W) {
+  int L = 32;
+  while (L > 1 && row_smem(W, L) > kSmemLimit) L >>= 1;
+  return L;
+}
+
+// The ring of a row-walk block, as both of its warps see it: an mbarrier
+// pair a stage, the stop word and thread t's lane's ring; groups of
+// kRowLoad rows c_hi .. 0, walked (and copied) descending.
+struct RowRing {
+  uint32_t bars;             // shared-window address of full[0]
+  volatile int* stop;        // set by the walking warp when it stops early
+  const uint32_t* ring;      // the ring of this thread's lane
+  int i_hi;                  // rows i_hi .. S - 1 are no lane's
+  int c_hi;
+  __device__ uint32_t full(int c) const {
+    return bars + 8 * (c & (kRowStages - 1));
+  }
+  __device__ uint32_t empty(int c) const {
+    return bars + 8 * kRowStages + 8 * (c & (kRowStages - 1));
+  }
+  // group c is the stage's use (c_hi - c) / kRowStages: its phase parity
+  __device__ uint32_t parity(int c) const {
+    return (uint32_t)((c_hi - c) / kRowStages) & 1u;
+  }
+};
+
+// Sets up the block's ring (a block barrier): `rows` is the number of rows
+// thread t's lane walks, t < L the block's lanes.
+__device__ __forceinline__ RowRing row_ring(uint4* smem, const int t,
+                                            const int L, const int W,
+                                            const int S, const int rows) {
+  RowRing rr;
+  rr.bars = (uint32_t)__cvta_generic_to_shared(smem);
+  rr.stop = reinterpret_cast<volatile int*>(reinterpret_cast<uint64_t*>(smem) +
+                                            2 * kRowStages);
+  // a thread past the block's lanes reads lane 0's ring, and nothing of it
+  // is used
+  rr.ring = reinterpret_cast<const uint32_t*>(smem) + kRowHead / 4 +
+            (t < L ? t : 0) * row_stride(W);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kRowStages; ++st) {
+      mbar_init(rr.full(st), 32);
+      mbar_init(rr.empty(st), 32);
+    }
+    *rr.stop = 0;
+  }
+  __syncthreads();
+  const int top = __reduce_max_sync(kFull, (unsigned)rows);
+  rr.i_hi = min(S, (top + kRowLoad - 1) / kRowLoad * kRowLoad);
+  rr.c_hi = (rr.i_hi + kRowLoad - 1) / kRowLoad - 1;
+  return rr;
+}
+
+// The copying warp: copy group c, the lane's rows 8c .. 8c + 7 (those below
+// S), one block of device memory, into the lane's ring once the walk has
+// left the stage's previous group: a bulk copy where the block is 16-byte
+// aligned, else 4-byte cp.async.  A lane that walks none of them, or any
+// once the walk has stopped, only arrives.
+__device__ __forceinline__ void copy_rows_ahead(const RowRing& rr,
+                                                const uint32_t* lm,
+                                                const int rows, const int S,
+                                                const int NW, bool bulk) {
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(rr.ring);
+  for (int c = rr.c_hi; c >= 0; --c) {
+    if (rr.c_hi - c >= kRowStages) mbar_wait(rr.empty(c), rr.parity(c) ^ 1u);
+    if (rows <= c * kRowLoad || *rr.stop) {
+      mbar_arrive(rr.full(c));
+      continue;
+    }
+    const int n = min(kRowLoad, S - c * kRowLoad) * NW;  // words
+    const uint32_t dst = ring_s + 4 * kRowLoad * NW * (c & (kRowStages - 1));
+    const uint32_t* src = lm + (size_t)c * kRowLoad * NW;
+    if (bulk) {
+      mbar_expect(rr.full(c), 4 * n);
+      copy_bulk(dst, src, 4 * n, rr.full(c));
+    } else {
+      for (int u = 0; u < n; ++u) copy_word(dst + 4 * u, src + u);
+      copy_words_arrive(rr.full(c));
+    }
+  }
+}
+
+// The walking warp stops before group c: the copying warp stops copying,
+// and the groups it has issued land before the block exits.
+__device__ __forceinline__ void stop_walking(const RowRing& rr, const int c,
+                                             const int t) {
+  if (t == 0) *rr.stop = 1;
+  for (int c2 = c - 1; c2 >= 0; --c2) {
+    mbar_wait(rr.full(c2), rr.parity(c2));
+    mbar_arrive(rr.empty(c2));
+  }
 }
 
 // (-1, 0, -1) at rows [lo, hi) of one lane's three outputs.
@@ -253,77 +372,35 @@ __device__ __forceinline__ uint32_t not_horizontal(uint32_t x) {
   return ~(x & (x >> 1)) & 0x55555555u;
 }
 
+// Whether a block of a lane's rows can be copied by the Tensor Memory
+// Accelerator: a lane's rows start on 16-byte boundaries.
+__device__ __forceinline__ bool bulk_rows(const uint32_t* moves, int S,
+                                          int NW) {
+  return (S * NW) % 4 == 0 && (reinterpret_cast<uintptr_t>(moves) & 15) == 0;
+}
+
 __global__ void __launch_bounds__(64)
 walk_rows_kernel(const uint32_t* __restrict__ moves,
                  const int32_t* __restrict__ seg_qlen,
                  const int32_t* __restrict__ w_end, int32_t* __restrict__ mv_out,
                  int32_t* __restrict__ h_out, int32_t* __restrict__ wo_out,
-                 int32_t* __restrict__ w0_out, int N, int S, int W) {
+                 int32_t* __restrict__ w0_out, int N, int S, int W, int L) {
   extern __shared__ uint4 smem_rows[];
   const int t = threadIdx.x & 31;
   const bool walker = threadIdx.x < 32;  // warp 0 walks, warp 1 copies
-  const int lane = blockIdx.x * 32 + t;  // of both warps' thread t
-  const bool live = lane < N;            // a lane past N walks nothing
+  const int lane = blockIdx.x * L + t;   // of both warps' thread t
+  const bool live = t < L && lane < N;   // a thread past them walks nothing
   const int NW = W >> 4;                 // words a row
-  // full[st], empty[st]: an mbarrier each a stage of the ring; then a word
-  // the walking warp sets when it stops early; then the 32 lanes' rings
-  const uint32_t bars = (uint32_t)__cvta_generic_to_shared(smem_rows);
-  auto full = [&](int c) { return bars + 8 * (c & (kRowStages - 1)); };
-  auto empty = [&](int c) {
-    return bars + 8 * kRowStages + 8 * (c & (kRowStages - 1));
-  };
-  volatile int* stop = reinterpret_cast<volatile int*>(
-      reinterpret_cast<uint64_t*>(smem_rows) + 2 * kRowStages);
-  const uint32_t* ring = reinterpret_cast<const uint32_t*>(smem_rows) +
-                         kRowHead / 4 + t * row_stride(W);
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kRowStages; ++st) {
-      mbar_init(full(st), 32);
-      mbar_init(empty(st), 32);
-    }
-    *stop = 0;
-  }
-  __syncthreads();
   const size_t o0 = (size_t)(live ? lane : 0) * S;
   const int rows = live ? min(max(seg_qlen[lane], 0), S) : 0;  // walked
   // the warps walk (and copy) rows i_hi - 1 .. 0 in groups of 8; rows above
   // are no lane's
-  const int top = __reduce_max_sync(kFull, (unsigned)rows);
-  const int i_hi = min(S, (top + kRowLoad - 1) / kRowLoad * kRowLoad);
-  const int c_hi = (i_hi + kRowLoad - 1) / kRowLoad - 1;
-  // group c is the stage's use (c_hi - c) / kRowStages: its phase parity
-  auto parity = [&](int c) {
-    return (uint32_t)((c_hi - c) / kRowStages) & 1u;
-  };
+  const RowRing rr = row_ring(smem_rows, t, L, W, S, rows);
+  const int i_hi = rr.i_hi, c_hi = rr.c_hi;
 
   if (!walker) {
-    // Copy group c: the lane's rows 8c .. 8c + 7 (those below S), one block
-    // of device memory, into lane t's ring once the walk has left the
-    // stage's previous group: a bulk copy where the block is 16-byte
-    // aligned, else 4-byte cp.async.  A lane that walks none of them, or
-    // any once the walk has stopped, only arrives.
-    const uint32_t* lm = moves + o0 * NW;
-    const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
-    const bool bulk = (S * NW) % 4 == 0 &&
-                      (reinterpret_cast<uintptr_t>(moves) & 15) == 0;
-    for (int c = c_hi; c >= 0; --c) {
-      if (c_hi - c >= kRowStages) mbar_wait(empty(c), parity(c) ^ 1u);
-      if (rows <= c * kRowLoad || *stop) {
-        mbar_arrive(full(c));
-        continue;
-      }
-      const int n = min(kRowLoad, S - c * kRowLoad) * NW;  // words
-      const uint32_t dst =
-          ring_s + 4 * kRowLoad * NW * (c & (kRowStages - 1));
-      const uint32_t* src = lm + (size_t)c * kRowLoad * NW;
-      if (bulk) {
-        mbar_expect(full(c), 4 * n);
-        copy_bulk(dst, src, 4 * n, full(c));
-      } else {
-        for (int u = 0; u < n; ++u) copy_word(dst + 4 * u, src + u);
-        copy_words_arrive(full(c));
-      }
-    }
+    copy_rows_ahead(rr, moves + o0 * NW, rows, S, NW,
+                    bulk_rows(moves, S, NW));
     return;
   }
 
@@ -340,7 +417,7 @@ walk_rows_kernel(const uint32_t* __restrict__ moves,
                       reinterpret_cast<uintptr_t>(wo_out)) & 15) == 0;
   bool alive = true;
   for (int c = c_hi; c >= 0; --c) {
-    mbar_wait(full(c), parity(c));       // group c has landed
+    mbar_wait(rr.full(c), rr.parity(c));  // group c has landed
     // Rows past S (the top group where S % 8 != 0) and rows at or above the
     // lane's seg_qlen are walked on whatever the ring holds and written as
     // unvisited.
@@ -348,7 +425,7 @@ walk_rows_kernel(const uint32_t* __restrict__ moves,
 #pragma unroll
     for (int k = kRowLoad - 1; k >= 0; --k) {
       const int i = c * kRowLoad + k;
-      const uint32_t* r = ring + NW * (i & (kRowRing - 1));
+      const uint32_t* r = rr.ring + NW * (i & (kRowRing - 1));
       // The exit is the highest non-horizontal cell <= w: in w's own word
       // j up to w, else in word j - 1, both read at once; else (horizontal
       // moves through the whole of word j - 1, or a broken path) a search
@@ -387,7 +464,7 @@ walk_rows_kernel(const uint32_t* __restrict__ moves,
       w = found ? w_next : w;
       alive = alive && !(act && !y);     // the path broke
     }
-    mbar_arrive(empty(c));               // the stage is free again
+    mbar_arrive(rr.empty(c));            // the stage is free again
     const int lo = c * kRowLoad;
     if (live) {
       const int n = min(kRowLoad, i_hi - lo);
@@ -396,14 +473,9 @@ walk_rows_kernel(const uint32_t* __restrict__ moves,
     }
     if (lo > 0 && !__any_sync(kFull, live && alive && rows > 0)) {
       // Every lane of the warp has broken or never started: the rest is
-      // unvisited.  The copying warp stops copying; the groups it has
-      // issued land before the block exits.
-      if (t == 0) *stop = 1;
+      // unvisited.
       if (live) rows_unvisited(out[0], out[1], out[2], 0, lo);
-      for (int c2 = c - 1; c2 >= 0; --c2) {
-        mbar_wait(full(c2), parity(c2));
-        mbar_arrive(empty(c2));
-      }
+      stop_walking(rr, c, t);
       break;
     }
   }
@@ -562,60 +634,255 @@ walk_deposit_kernel(const int32_t* __restrict__ wo,
 
 // ---------------------------------------------------------------- col walk
 
-template <bool kAligned>
-__global__ void __launch_bounds__(kWalkThreads)
+// The bytes of columns [lo, maxc) of a tape word whose first column is lo,
+// one at a time: the part of the top word that is the lane's where the
+// word reaches into the next lane's tape.
+__device__ __noinline__ void store_top_bytes(uint8_t* out, const int lo,
+                                             const int maxc,
+                                             const uint32_t word) {
+  for (int u = max(lo, 0); u < maxc; ++u)
+    out[u] = (uint8_t)(word >> (8 * (u - lo)));
+}
+
+// One lane's tape, written backwards from column maxc - 1.  The bytes go
+// into a 64-bit register, the newest (lowest column) at its low end; an
+// emission of k <= 4 bytes completes at most one word of the tape, which is
+// then stored whole, byte by byte only where it reaches into a neighbouring
+// lane's tape (the top word where MAXC % 4 != 0; the bottom word is written
+// by finish()).
+struct Tape {
+  uint8_t* out;     // column 0 of the lane's tape
+  int maxc;
+  int col;          // the next column to write
+  int sh0;          // the byte of its word that column 0 is
+  uint64_t pack;    // the bytes written last: column col + 1 at bits 0-7
+
+  __device__ __forceinline__ void init(uint8_t* o, const int m) {
+    out = o;
+    maxc = m;
+    col = m - 1;
+    sh0 = (int)(reinterpret_cast<uintptr_t>(o) & 3);
+    pack = 0;
+  }
+  // k (1..4) bytes at columns col .. col - k + 1: `bytes` holds them with
+  // the one of the lowest column at bits 0-7
+  __device__ __forceinline__ void emit(const uint32_t bytes, const int k) {
+    pack = (pack << (8 * k)) | bytes;
+    const int hi = col;
+    col -= k;
+    const int zc = hi - ((sh0 + hi) & 3);  // the word's first column
+    // the word, once its bytes are all in (zc > col)
+    const uint32_t word = (uint32_t)(pack >> (8 * ((zc - col - 1) & 7)));
+    if (zc > col && zc + 3 < maxc)
+      *reinterpret_cast<uint32_t*>(out + zc) = word;
+    else if (zc > col)
+      store_top_bytes(out, zc, maxc, word);
+  }
+  // n copies of v
+  __device__ __forceinline__ void run(const uint32_t v, int n) {
+    const uint32_t word = (v & 0xffu) * 0x01010101u;
+    for (; n >= 4; n -= 4) emit(word, 4);
+    if (n > 0) emit(word >> (8 * (4 - n)), n);
+  }
+  // once col is -1: the bytes of a word that starts before column 0
+  __device__ __forceinline__ void finish() {
+    for (int u = 0; u < 3 - ((sh0 + 3) & 3) && u < maxc; ++u)
+      out[u] = (uint8_t)(pack >> (8 * u));
+  }
+};
+
+// The slow step's search, in device memory: the highest non-horizontal cell
+// at or below (row i, column w) as the reference reads a lane's moves (one
+// flat vector, word (i-1)*W/16 + floor(w/16) clipped to [0, last], cell
+// w mod 16; a run goes on down the flat cells).  Returns the horizontal
+// cells passed before it and sets *code, or returns `budget` where none lies
+// within `budget` cells (word 0 read again and again below the lane, all
+// horizontal, has none at all).
+__device__ __forceinline__ int search_flat(const uint32_t* __restrict__ lm,
+                                           const int last, const int NW,
+                                           const int i, const int w,
+                                           const int budget, int* code) {
+  // int32 as the reference computes it
+  int idx = (int)((uint32_t)(i - 1) * (uint32_t)NW + (uint32_t)(w >> 4));
+  int b = w & 15;                       // the cell in the word: floor mod
+  int h = 0;
+  while (h < budget) {
+    const int ci = idx < 0 ? 0 : (idx > last ? last : idx);
+    const uint32_t x = __ldg(lm + ci);
+    const uint32_t y = not_horizontal(x) & (0xffffffffu >> (30 - 2 * b));
+    if (y) {
+      const int bit = 31 - __clz(y);
+      *code = (int)((x >> bit) & 3u);
+      return h + b - (bit >> 1);
+    }
+    h += b + 1;
+    if (idx < 0 && b == 15) return budget;
+    b = 15;
+    --idx;
+  }
+  return budget;
+}
+
+// The exit of any row step, as a lane takes it where the common step does
+// not (a run that leaves the row at column 0, a column outside [0, W), a
+// row above S, which has no ring row: rw null, a run of more than 3, the
+// cut, the tape's top word) and for the rest of that group: (h, code), h
+// horizontal codes then the exit's code, or h = rem where none lies within
+// `rem`.
+__device__ __noinline__ int2 slow_exit(const uint32_t* rw,
+                                       const uint32_t* __restrict__ lm,
+                                       const int last, const int NW,
+                                       const int W, const int i, const int w,
+                                       const int rem) {
+  int code = 0;
+  if (rw != nullptr && (unsigned)w < (unsigned)W) {
+    // down the row's words in shared memory
+    const int j = w >> 4;
+    uint32_t y = not_horizontal(rw[j]) & (0xffffffffu >> (30 - 2 * (w & 15)));
+    int q = j;
+    for (int u = j - 1; !y && u >= 0; --u) {
+      y = not_horizontal(rw[u]);
+      q = u;
+    }
+    if (y) {
+      const int bit = 31 - __clz(y);
+      return make_int2(w - (16 * q + (bit >> 1)), (int)((rw[q] >> bit) & 3u));
+    }
+    // the run leaves the row at column 0: on down the rows below
+    const int h = search_flat(lm, last, NW, i, -1, rem - (w + 1), &code);
+    return make_int2(w + 1 + h, code);
+  }
+  const int h = search_flat(lm, last, NW, i, w, rem, &code);
+  return make_int2(h, code);
+}
+
+// A row step in full, at row i and column w, `rw` its ring row (null above
+// S): h horizontal codes, then the exit, or horizontal codes to the cut
+// where they do not fit.  Inlined, so the walk's state stays in registers.
+__device__ __forceinline__ void full_step(const uint32_t* rw,
+                                          const uint32_t* __restrict__ lm,
+                                          const int last, const int NW,
+                                          const int W, int& i, int& w, int& s,
+                                          bool& walking, Tape& tape) {
+  const int rem = tape.maxc - s;
+  const int2 e = slow_exit(rw, lm, last, NW, W, i, w, rem);
+  if (e.x >= rem) {
+    tape.run(kHoriz, rem);
+    s = tape.maxc;
+    walking = false;
+    return;
+  }
+  tape.run(kHoriz, e.x);
+  tape.emit((uint32_t)e.y, 1);
+  s += e.x + 1;
+  --i;
+  w += (e.y == kVert ? 1 : 0) - e.x;
+  walking = s < tape.maxc;
+}
+
+__global__ void __launch_bounds__(64)
 walk_cols_kernel(const uint32_t* __restrict__ moves,
                  const int32_t* __restrict__ seg_qlen,
                  const int32_t* __restrict__ w_end, uint8_t* __restrict__ ops,
-                 int32_t* __restrict__ n_cols, int N, int S, int Wp, int half,
+                 int32_t* __restrict__ n_cols, int N, int S, int W, int L,
                  int maxc) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= N) return;
-  const uint32_t* lm = moves + (size_t)lane * S * Wp;
-  const int last = S * Wp - 1;
-  uint8_t* out = ops + (size_t)lane * maxc;
-  int i = seg_qlen[lane];
-  int w = w_end[lane];
-  uint32_t pack = 0;
-  // step s emits tape column maxc - 1 - s (the tape is right-aligned)
-  auto emit = [&](int s, int v) {
-    const int col = maxc - 1 - s;
-    if constexpr (kAligned) {
-      pack = (pack << 8) | (uint8_t)v;
-      if ((col & 3) == 0) *reinterpret_cast<uint32_t*>(out + col) = pack;
-    } else {
-      out[col] = (uint8_t)v;
-    }
-  };
-  int s = 0;
-  for (; s < maxc; ++s) {
-    int mv;
-    if (i > 0) {
-      // flat word index (i-1)*W/16 + floor(w/16), int32 as the reference
-      // computes it, clipped to the lane
-      int idx = (int)((uint32_t)(i - 1) * (uint32_t)Wp + (uint32_t)(w >> 4));
-      idx = idx < 0 ? 0 : (idx > last ? last : idx);
-      int ahead = idx - 4 * Wp;
-      ahead = ahead < 0 ? 0 : ahead;
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(lm + ahead));
-      mv = (int)((__ldg(lm + idx) >> (2 * (w & 15))) & 3u);
-    } else {
-      // leading target deletions at row 0
-      mv = (i == 0 && w - half > 0) ? kHoriz : -1;
-    }
-    if (mv < 0) break;                   // ended, and stays so
-    emit(s, mv);
-    if (i > 0 && mv != kHoriz) --i;
-    w += mv == kVert ? 1 : (mv == kHoriz ? -1 : 0);
+  extern __shared__ uint4 smem_cols[];
+  const int t = threadIdx.x & 31;
+  const bool walker = threadIdx.x < 32;  // warp 0 walks, warp 1 copies
+  const int lane = blockIdx.x * L + t;   // of both warps' thread t
+  const bool live = t < L && lane < N;
+  const int NW = W >> 4;                 // words a row
+  const uint32_t* lm = moves + (size_t)(live ? lane : 0) * S * NW;
+  // rows 0 .. min(seg_qlen, S) - 1 are the lane's, walked descending
+  const int rows = live ? min(max(seg_qlen[lane], 0), S) : 0;
+  const RowRing rr = row_ring(smem_cols, t, L, W, S, rows);
+
+  if (!walker) {
+    copy_rows_ahead(rr, lm, rows, S, NW, bulk_rows(moves, S, NW));
+    return;
   }
-  n_cols[lane] = s;
-  if constexpr (kAligned) {
-    for (; s < maxc && ((maxc - 1 - s) & 3) != 3; ++s) emit(s, -1);
-    // tape columns 0 .. maxc-1-s are left: whole words
-    for (int c = 0; c < maxc - s; c += 4)
-      *reinterpret_cast<uint32_t*>(out + c) = 0xffffffffu;
-  } else {
-    for (; s < maxc; ++s) emit(s, -1);
+
+  const int last = S * NW - 1;
+  int i = live ? seg_qlen[lane] : -1;    // the row (1-based) and the column
+  int w = live ? w_end[lane] : 0;
+  int s = 0;                             // tape columns emitted
+  bool walking = live && i >= 0;         // i = 0: row 0's deletions only
+  Tape tape;
+  tape.init(ops + (size_t)(live ? lane : 0) * maxc, maxc);
+  // rows above S (seg_qlen > S) read the lane's last word, clipped
+  while (walking && i > S)
+    full_step(nullptr, lm, last, NW, W, i, w, s, walking, tape);
+  for (int c = rr.c_hi; c >= 0; --c) {
+    mbar_wait(rr.full(c), rr.parity(c));  // group c has landed
+    // The common step, branch-free: the exit in w's own word j up to w,
+    // else in word j - 1, both read at once, a run of at most 3 horizontal
+    // codes, room for it on the tape, and no word of it shared with the
+    // next lane's tape.  A lane whose step is another stops at that row
+    // for the rest of the group (its i no longer matches).
+#pragma unroll
+    for (int k = kRowLoad - 1; k >= 0; --k) {
+      const int r = c * kRowLoad + k;     // the step of the lanes at i = r + 1
+      const uint32_t* rw = rr.ring + NW * (r & (kRowRing - 1));
+      const int wc = (unsigned)w < (unsigned)W ? w : 0;
+      const int j = wc >> 4;
+      const uint32_t x1 = rw[j];
+      const uint32_t x0 = rw[j > 0 ? j - 1 : 0];
+      const uint32_t y1 =
+          not_horizontal(x1) & (0xffffffffu >> (30 - 2 * (wc & 15)));
+      const uint32_t y0 = j > 0 ? not_horizontal(x0) : 0u;
+      const uint32_t x = y1 ? x1 : x0;
+      const uint32_t y = y1 ? y1 : y0;
+      const int q = y1 ? j : j - 1;
+      const int bit = (31 - __clz(y)) & 31;
+      const int col = 16 * q + (bit >> 1);
+      const int code = (int)((x >> bit) & 3u);
+      const int h = (w - col) & 3;        // the run, where it is at most 3
+      const int n = h + 1;                // tape columns of the step
+      // its h horizontal codes above the exit's code, and the word they
+      // complete, if any
+      const uint64_t pk =
+          (tape.pack << (8 * n)) |
+          ((uint32_t)code | ((0x030303u >> (8 * (3 - h))) << 8));
+      const int lo = tape.col - n;        // the tape's next column after it
+      const int zc = tape.col - ((tape.sh0 + tape.col) & 3);
+      const bool whole = zc > lo;
+      const bool common = walking && i == r + 1 && w == wc && y != 0u &&
+                          w - col <= 3 && n <= maxc - s &&
+                          !(whole && zc + 3 >= maxc);
+      if (common && whole)
+        *reinterpret_cast<uint32_t*>(tape.out + zc) =
+            (uint32_t)(pk >> (8 * ((zc - lo - 1) & 7)));
+      tape.pack = common ? pk : tape.pack;
+      tape.col = common ? lo : tape.col;
+      walking = common ? s + n < maxc : walking;
+      s = common ? s + n : s;
+      i = common ? i - 1 : i;
+      w = common ? col + (code == kVert ? 1 : 0) : w;
+    }
+    // the lanes that stopped in the group: the rest of their rows of it,
+    // each step as it comes
+    const int lo_row = c * kRowLoad;
+    if (__any_sync(kFull, walking && i - 1 >= lo_row)) {
+      while (walking && i - 1 >= lo_row)
+        full_step(rr.ring + NW * ((i - 1) & (kRowRing - 1)), lm, last, NW, W,
+                  i, w, s, walking, tape);
+    }
+    mbar_arrive(rr.empty(c));            // the stage is free again
+    if (c > 0 && !__any_sync(kFull, walking && i > 0)) {
+      stop_walking(rr, c, t);            // every lane of the warp is past
+      break;                             // its rows
+    }
+  }
+  if (live) {
+    // row 0: the leading target deletions while w - W/2 > 0, to the cut
+    if (walking && i == 0) {
+      const int n = min(max(w - W / 2, 0), maxc - s);
+      tape.run(kHoriz, n);
+      s += n;
+    }
+    tape.run(0xffu, tape.col + 1);       // -1 before the tape
+    tape.finish();
+    n_cols[lane] = s;
   }
 }
 
@@ -626,7 +893,7 @@ walk_cols_kernel(const uint32_t* __restrict__ moves,
 // written.  All device pointers, row-major, contiguous.  Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue, without a launch, for a W that is not a multiple
-// of 16 in [16, 512] or an S below 1.
+// of 16 in [16, 3072] or an S below 1.
 extern "C" int mecat_walk_rows(const void* moves, const void* seg_qlen,
                                const void* w_end, void* mv, void* h, void* wo,
                                void* w0, int N, int S, int W, void* stream) {
@@ -634,16 +901,17 @@ extern "C" int mecat_walk_rows(const void* moves, const void* seg_qlen,
   if (S <= 0 || W <= 0 || W % 16 || W > kMaxW)
     return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
-  const size_t smem = row_smem(W);
+  const int L = row_lanes(W);
+  const size_t smem = row_smem(W, L);
   const cudaError_t err = allow_smem(walk_rows_kernel, smem, &smem_set);
   if (err != cudaSuccess) return (int)err;
-  walk_rows_kernel<<<blocks_for(N, 32), 64, smem,
+  walk_rows_kernel<<<blocks_for(N, L), 64, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(moves),
       static_cast<const int32_t*>(seg_qlen),
       static_cast<const int32_t*>(w_end), static_cast<int32_t*>(mv),
       static_cast<int32_t*>(h), static_cast<int32_t*>(wo),
-      static_cast<int32_t*>(w0), N, S, W);
+      static_cast<int32_t*>(w0), N, S, W, L);
   return (int)cudaGetLastError();
 }
 
@@ -692,26 +960,24 @@ extern "C" int mecat_walk_deposit(const void* wo, const void* aw,
 // [N, max_cols] (the tape, right-aligned, -1 before it) and n_cols int32
 // [N], uninitialised: every element is written.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue, without a launch, for a W that
-// is not a positive multiple of 16, an S below 1 or max_cols below 1.
+// is not a multiple of 16 in [16, 3072], an S below 1 or max_cols below 1.
 extern "C" int mecat_walk_cols(const void* moves, const void* seg_qlen,
                                const void* w_end, void* ops, void* n_cols,
                                int N, int S, int W, int max_cols,
                                void* stream) {
   if (N <= 0) return 0;
-  if (S <= 0 || W <= 0 || W % 16 || max_cols <= 0)
+  if (S <= 0 || W <= 0 || W % 16 || W > kMaxW || max_cols <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks_for(N, kWalkThreads));
-  const auto* m = static_cast<const uint32_t*>(moves);
-  const auto* q = static_cast<const int32_t*>(seg_qlen);
-  const auto* e = static_cast<const int32_t*>(w_end);
-  auto* o = static_cast<uint8_t*>(ops);
-  auto* n = static_cast<int32_t*>(n_cols);
-  if (max_cols % 4 == 0)
-    walk_cols_kernel<true><<<grid, kWalkThreads, 0, st>>>(
-        m, q, e, o, n, N, S, W / 16, W / 2, max_cols);
-  else
-    walk_cols_kernel<false><<<grid, kWalkThreads, 0, st>>>(
-        m, q, e, o, n, N, S, W / 16, W / 2, max_cols);
+  static bool smem_set = false;
+  const int L = row_lanes(W);
+  const size_t smem = row_smem(W, L);
+  const cudaError_t err = allow_smem(walk_cols_kernel, smem, &smem_set);
+  if (err != cudaSuccess) return (int)err;
+  walk_cols_kernel<<<blocks_for(N, L), 64, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(moves),
+      static_cast<const int32_t*>(seg_qlen),
+      static_cast<const int32_t*>(w_end), static_cast<uint8_t*>(ops),
+      static_cast<int32_t*>(n_cols), N, S, W, L, max_cols);
   return (int)cudaGetLastError();
 }

@@ -29,18 +29,37 @@
 //     inactive lane are written as zeros, so the caller allocates the
 //     buffer uninitialised; no traceback reads a row above its r_best.
 //
-// Band widths: every W with W % 16 == 0 and 16 <= W <= 512, as the
-// reference computes them.  The warp holds Wp = 32 * C band cells, C = 2,
-// 4, ..., 16 cells a thread (Wp = 64, 128, ..., 512, the least that covers
-// W); the real W comes at run time, except in the instances of the paths'
-// widths, 64 and 128, which fix it, so that their code folds as a
-// compile-time band allows (a runtime W cost the counts loop 12 % and the
-// move kernel 15 % at W = 128 on an H100).  Cells w >= W are padding: their target
-// index is pushed out of [0, tmax], so every update leaves them at VINF,
-// and the last real cell's vertical input is then VINF + 4097 as in the
-// plain version.  They never score and no move of theirs is stored.  Where
-// W < Wp every iteration keeps the validity select (the fast iterations
-// below need W == Wp).
+// Band widths: every W with W % 16 == 0 and 16 <= W <= kMaxW = 3072, as
+// the reference computes them.  Up to 512 the warp holds Wp = 32 * C band
+// cells, C = 2, 4, ..., 16 cells a thread (Wp = 64, 128, ..., 512, the
+// least that covers W); the real W comes at run time, except in the
+// instances of the paths' widths, 64 and 128, which fix it, so that their
+// code folds as a compile-time band allows (a runtime W cost the counts
+// loop 12 % and the move kernel 15 % at W = 128 on an H100).  Cells w >= W
+// are padding: their target index is pushed out of [0, tmax], so every
+// update leaves them at VINF, and the last real cell's vertical input is
+// then VINF + 4097 as in the plain version.  They never score and no move
+// of theirs is stored.  Where W < Wp every iteration keeps the validity
+// select (the fast iterations below need W == Wp).
+//
+// Past 512 a lane is a block of n = ceil(W / 512) warps ("a wide lane"),
+// warp k holding the 512-cell slice [512k, 512k + 512) of the band at
+// C = 16 (Wp = 512 n, the cells past W padding as above).  Inside a warp
+// the wavefront is the one below; at a warp border the single value that
+// crosses a thread border crosses through shared memory: after the even
+// step of an iteration each warp's first cell (the vertical input of the
+// warp to its left's last cell on the odd step), after the odd step its
+// last cell (the horizontal input of the warp to its right's first cell on
+// the next even step), each followed by a barrier over the block, which is
+// the lane.  Every bound of the iteration loops is the lane's, so the
+// lane's warps pass the same barriers and leave together.  Each warp keeps
+// the move ring of its slice (288 rows of 128 bytes, 36 KB) and flushes
+// the rows its slice has finished on its own schedule; the best cell is
+// reduced in each warp, then across the lane's warps through shared
+// memory in the same order.  What sets kMaxW is shared memory a lane: six
+// move rings (216 KB) and the staging fit the block's 227 KB, seven rings
+// (252 KB) do not.  Lanes are handed out by a counter to persistent
+// blocks, as many as the card holds at once.
 //
 // What bounds it on an H100.  In operations: int32 ALU, 12 per cell (char
 // compare, three adds, two mins; for the best cell a shift, a multiply-add,
@@ -120,7 +139,9 @@ constexpr int kNeg = -(1 << 26);        // pick_end_local's masked score
 constexpr int kTwoPenalty = 4;          // 2 * constants.ALIGN_TRIM_PENALTY
 constexpr int kFar = 1 << 30;           // target offset of a padding cell
 constexpr int kMinW = 16;               // band widths taken: multiples of 16
-constexpr int kMaxW = 512;              //   in [kMinW, kMaxW]
+constexpr int kSliceW = 512;            //   in [kMinW, kMaxW]; past kSliceW a
+constexpr int kMaxSlices = 6;           //   lane takes a warp a 512-cell
+constexpr int kMaxW = kSliceW * kMaxSlices;  // slice, at most kMaxSlices
 constexpr int kWarps = 4;               // warps per block
 // Blocks per SM, so warps per scheduler.  On an H100 with 1,024 live lanes
 // scattered over 4,096, 2 / 3 / 4 / 6 took 0.075 / 0.104 / 0.134 / 0.181 ms
@@ -182,18 +203,56 @@ __device__ __forceinline__ void copy_words(uint32_t* __restrict__ dst,
   }
 }
 
-// n zero words at dst, by the warp: words up to the first 16-byte boundary,
-// then 16-byte stores, then the words left.
+// `rows` rows of `nw` words from a warp's ring in shared memory (rows
+// `src_rb` bytes apart, 16-byte aligned) to dst (rows `dst_rw` words
+// apart), by the warp: 16-byte stores where dst, dst_rw and nw allow them.
+// A wide lane's warp writes its slice of each row this way.
+__device__ __forceinline__ void copy_rows(uint32_t* __restrict__ dst,
+                                          const int dst_rw, const uint8_t* src,
+                                          const int src_rb, const int nw,
+                                          const int rows, const int lane) {
+  if (((reinterpret_cast<uintptr_t>(dst) & 15) | (dst_rw & 3) | (nw & 3)) ==
+      0) {
+    const int nv = nw / 4;
+    for (int u = lane; u < rows * nv; u += 32) {
+      const int r = u / nv, x = u - r * nv;
+      reinterpret_cast<uint4*>(dst + (size_t)r * dst_rw)[x] =
+          reinterpret_cast<const uint4*>(src + r * src_rb)[x];
+    }
+  } else {
+    for (int u = lane; u < rows * nw; u += 32) {
+      const int r = u / nw, x = u - r * nw;
+      dst[(size_t)r * dst_rw + x] =
+          reinterpret_cast<const uint32_t*>(src + r * src_rb)[x];
+    }
+  }
+}
+
+// n zero words at dst, by `nt` threads of which this is thread t (a warp
+// by default): words up to the first 16-byte boundary, then 16-byte
+// stores, then the words left.
 __device__ __forceinline__ void zero_words(uint32_t* __restrict__ dst,
-                                           const int n, const int lane) {
+                                           const int n, const int t,
+                                           const int nt = 32) {
   int head = (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 4;
   head = min(head, n);
-  if (lane < head) dst[lane] = 0;
+  if (t < head) dst[t] = 0;
   const int nv = (n - head) / 4;
   uint4* d = reinterpret_cast<uint4*>(dst + head);
-  for (int u = lane; u < nv; u += 32) d[u] = make_uint4(0, 0, 0, 0);
-  for (int u = head + 4 * nv + lane; u < n; u += 32) dst[u] = 0;
+  for (int u = t; u < nv; u += nt) d[u] = make_uint4(0, 0, 0, 0);
+  for (int u = head + 4 * nv + t; u < n; u += nt) dst[u] = 0;
 }
+
+// This warp's place in a wide lane (see "Past 512" above): slice k of the
+// lane's n, and the shared-memory slots through which the values at the
+// warp borders cross, xh[k] (slice k's last cell) and xv[k] (its first).
+struct Wide {
+  int k = 0;
+  int n = 1;
+  volatile uint32_t* xh = nullptr;
+  volatile uint32_t* xv = nullptr;
+  int4* red = nullptr;                  // red[k]: slice k's best (s, f, v)
+};
 
 // The segment of one lane, by one warp, from its staged bytes: `qs` is
 // this warp's share of the block's shared memory (see lane_smem), holding
@@ -201,18 +260,24 @@ __device__ __forceinline__ void zero_words(uint32_t* __restrict__ dst,
 // tm and sq are the lane's tmax and seg_q, W its band width (Wp = 32 * C >=
 // W > Wp - 64): kW where the instance fixes it (kW = 0: W_rt, at run
 // time).  kMoves: also write the lane's move rows, [S, W/16] words at
-// mv_out, through `ring`.  Returns the endpoint (r, w, packed v) on every
-// thread of the warp.
-template <int C, bool kMoves, int kW>
+// mv_out, through `ring`.  kWide: the warp is slice `wide.k` of a wide lane
+// (C = 16; `qs` is the lane's staging, Wp = 512 n wide, and `ring` the
+// warp's own); every warp of the block must call it with the same lane.
+// Returns the endpoint (r, w, packed v) on every thread of the warp (of
+// the lane, for a wide lane).
+template <int C, bool kMoves, int kW, bool kWide = false>
 __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
                                         const int sq, const int S,
                                         const int W_rt, const int lane,
                                         uint8_t* ring,
-                                        uint32_t* __restrict__ mv_out) {
+                                        uint32_t* __restrict__ mv_out,
+                                        const Wide wide = Wide{}) {
   static_assert(C % 2 == 0 && C >= 2 && C <= 16,
                 "a thread holds whole cell pairs of a band up to 512");
   static_assert(ring_rows(C) % kFlush == 0, "a flush never wraps the ring");
-  constexpr int Wp = 32 * C;
+  static_assert(!kWide || (C == 16 && kW == 0),
+                "a wide lane's warps hold 512-cell slices");
+  constexpr int Wp = 32 * C;            // band cells a warp holds
   constexpr int P = C / 2;              // cell pairs per thread
   constexpr int kRing = ring_rows(C);
   static_assert(kW == 0 || kW == Wp, "a fixed width fills the band");
@@ -220,11 +285,19 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   const int half = W / 2;
   const int row_words = W / 16;         // one row of moves
   const int row_bytes = W / 4;
-  const uint8_t* qsp = qs + Wp / 2;     // qsp[x] = q[x], x in [-Wp/2, S + Wp/2)
-  const uint8_t* ts = qs + S + Wp;      // ts[x] = tpad[x]
-  const int w0 = lane * C;
+  const int Wq = kWide ? Wp * wide.n : Wp;  // band cells the lane holds
+  const uint8_t* qsp = qs + Wq / 2;     // qsp[x] = q[x], x in [-Wq/2, S + Wq/2)
+  const uint8_t* ts = qs + S + Wq;      // ts[x] = tpad[x]
+  const int w0 = (kWide ? wide.k * 32 + lane : lane) * C;
   const int hw0 = w0 / 2;               // the thread's first cell pair
-  const bool padded = W < Wp;
+  const bool padded = W < Wq;
+  // a wide lane's warp: the bytes of a ring row (its slice's), the slice's
+  // first byte of a row of moves, its words in a row and its last real
+  // cell pair
+  const int ring_rb = kWide ? Wp / 4 : row_bytes;
+  const int m0 = kWide ? wide.k * (Wp / 4) : 0;
+  const int slice_words = kWide ? min(Wp / 16, row_words - m0 / 4) : 0;
+  const int g_hi = kWide ? min(wide.k * (Wp / 2) + Wp / 2 - 1, half - 1) : 0;
 
   // DP values are unsigned: every legitimate value is below 2^30, and a
   // border input that must not count is pushed above VINF by its addend
@@ -260,8 +333,15 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   // band cell has no horizontal input and the last thread's last cell no
   // vertical one (below Wp, the padding cell W gives the last real cell
   // VINF + 4097)
-  const uint32_t h_add = kK1 + (lane == 0 ? kVinf : 0u);
-  const uint32_t v_add = kK1 + (lane == 31 ? kVinf : 0u);
+  const bool band_first = lane == 0 && (!kWide || wide.k == 0);
+  const bool band_last = lane == 31 && (!kWide || wide.k == wide.n - 1);
+  const uint32_t h_add = kK1 + (band_first ? kVinf : 0u);
+  const uint32_t v_add = kK1 + (band_last ? kVinf : 0u);
+  if constexpr (kWide) {
+    // row 0's last cell of each slice, for the first even step
+    if (lane == 31) wide.xh[wide.k] = val[C - 1];
+    __syncthreads();
+  }
 
   // the bytes of iteration k: qc[p] = q[k - hw0 - 1 - p], the query char of
   // pair p's row; tc[m] = tpad[k + hw0 - 1 + m], the target char of cell m
@@ -303,9 +383,15 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
 #pragma unroll
     for (int par = 0; par < 2; ++par) {
       // the one value that crosses the thread border this step
-      const uint32_t edge_in = par == 0
-                                   ? __shfl_up_sync(kFull, val[C - 1], 1)
-                                   : __shfl_down_sync(kFull, val[0], 1);
+      uint32_t edge_in = par == 0 ? __shfl_up_sync(kFull, val[C - 1], 1)
+                                  : __shfl_down_sync(kFull, val[0], 1);
+      if constexpr (kWide) {
+        // at a warp border it crosses through shared memory
+        if (par == 0 && lane == 0 && wide.k > 0)
+          edge_in = wide.xh[wide.k - 1];
+        if (par == 1 && lane == 31 && wide.k < wide.n - 1)
+          edge_in = wide.xv[wide.k + 1];
+      }
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const int c = 2 * p + par;
@@ -334,6 +420,12 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
           best_v[c] = cur;
         }
       }
+      if constexpr (kWide) {
+        // publish this step's border values, then wait for the lane's warps
+        if (par == 0 && lane == 0) wide.xv[wide.k] = val[0];
+        if (par == 1 && lane == 31) wide.xh[wide.k] = val[C - 1];
+        __syncthreads();
+      }
     }
 
     if (kMoves) {
@@ -355,14 +447,24 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
           if (kEdge) mine = mine && (unsigned)(row - 1) < (unsigned)last;
           const uint32_t low = p > 0 ? prev[p > 0 ? p - 1 : 0] : left;
           if (mine)
-            ring[((unsigned)(row - 1) % kRing) * row_bytes + m] =
+            ring[((unsigned)(row - 1) % kRing) * ring_rb + m - m0] =
                 (uint8_t)(low | (nib[p] << 4));
         }
       }
 #pragma unroll
       for (int p = 0; p < P; ++p) prev[p] = nib[p];
-      // rows 1..k - W/2 + 1 are whole now
-      if (k - half + 1 - flushed >= kFlush) {
+      if constexpr (kWide) {
+        // the slice's rows 1..k - g_hi are whole now (none past `last`)
+        if (min(k - g_hi, last) - flushed >= kFlush) {
+          __syncwarp();
+          copy_rows(mv_out + (size_t)flushed * row_words + m0 / 4, row_words,
+                    ring + (flushed % kRing) * ring_rb, ring_rb, slice_words,
+                    kFlush, lane);
+          flushed += kFlush;
+          __syncwarp();
+        }
+      } else if (k - half + 1 - flushed >= kFlush) {
+        // rows 1..k - W/2 + 1 are whole now
         __syncwarp();
         copy_words(mv_out + (size_t)flushed * row_words,
                    ring + (flushed % kRing) * row_bytes, kFlush * row_words,
@@ -395,11 +497,19 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
     // the rows still in the ring (fewer than kFlush, contiguous in it), then
     // zeros for the rows never computed
     __syncwarp();
-    copy_words(mv_out + (size_t)flushed * row_words,
-               ring + (flushed % kRing) * row_bytes,
-               (last - flushed) * row_words, lane);
-    zero_words(mv_out + (size_t)last * row_words, (S - last) * row_words,
-               lane);
+    if constexpr (kWide) {
+      copy_rows(mv_out + (size_t)flushed * row_words + m0 / 4, row_words,
+                ring + (flushed % kRing) * ring_rb, ring_rb, slice_words,
+                last - flushed, lane);
+      zero_words(mv_out + (size_t)last * row_words, (S - last) * row_words,
+                 wide.k * 32 + lane, 32 * wide.n);
+    } else {
+      copy_words(mv_out + (size_t)flushed * row_words,
+                 ring + (flushed % kRing) * row_bytes,
+                 (last - flushed) * row_words, lane);
+      zero_words(mv_out + (size_t)last * row_words, (S - last) * row_words,
+                 lane);
+    }
   }
 
   // per-thread best, then a warp reduction on (score desc, flat index asc)
@@ -424,6 +534,22 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
       v = vo;
     }
   }
+  if constexpr (kWide) {
+    // then across the lane's warps, in the same order
+    if (lane == 0) wide.red[wide.k] = make_int4(s, f, v, 0);
+    __syncthreads();
+    s = wide.red[0].x;
+    f = wide.red[0].y;
+    v = wide.red[0].z;
+    for (int u = 1; u < wide.n; ++u) {
+      const int4 o = wide.red[u];
+      if (better(o.x, o.y, s, f)) {
+        s = o.x;
+        f = o.y;
+        v = o.z;
+      }
+    }
+  }
   return make_int3(f / W, f % W, v);  // f >= 0: truncation is floor
 }
 
@@ -439,21 +565,82 @@ __device__ __forceinline__ void warp_smem(uint8_t* smem, const int warp,
         (size_t)warp * 2 * (S + 32 * C);
 }
 
-// One launch lane of the per-segment kernels, by one warp: stage its q and
-// framed target rows, run the segment, write the endpoint (or the skip
-// record of an inactive lane, with zero moves).  `ring` and `qs` are this
-// warp's shares of the block's shared memory (see warp_smem).
-template <int C, bool kMoves, int kW>
+// A wide lane's block: its warps' rings (first: they stay 16-byte aligned),
+// then kWideHead bytes of slots (red, xh, xv and the lane counter's word),
+// then the lane's staging (the query and the target window, each with
+// room for the 512 n band cells).
+constexpr int kWideHead = 176;
+static_assert(16 * kMaxSlices <= 96 && 4 * kMaxSlices <= 32,
+              "the slots of kWideHead hold kMaxSlices warps");
+__host__ __device__ constexpr size_t wide_smem(int S, int n, bool moves) {
+  return (moves ? (size_t)n * ring_rows(16) * (kSliceW / 4) : 0) +
+         kWideHead + 2 * (size_t)(S + kSliceW * n);
+}
+
+template <bool kMoves>
+__device__ __forceinline__ void wide_lane_smem(uint8_t* smem, const int S,
+                                               Wide* wide, uint8_t** ring,
+                                               uint8_t** qs, int** next) {
+  const int n = blockDim.x >> 5;
+  const int k = threadIdx.x >> 5;
+  const size_t ring_bytes =
+      kMoves ? (size_t)ring_rows(16) * (kSliceW / 4) : 0;
+  uint8_t* head = smem + (size_t)n * ring_bytes;
+  *ring = smem + (size_t)k * ring_bytes;
+  wide->k = k;
+  wide->n = n;
+  wide->red = reinterpret_cast<int4*>(head);
+  wide->xh = reinterpret_cast<uint32_t*>(head + 96);
+  wide->xv = reinterpret_cast<uint32_t*>(head + 128);
+  *next = reinterpret_cast<int*>(head + 160);
+  *qs = head + kWideHead;
+}
+
+// The next lane from the counter, on every thread of the lane's warp (of
+// its block, for a wide lane; `slot` is the block's word for it).
+template <bool kWide>
+__device__ __forceinline__ int take_lane(int32_t* next_lane, int* slot) {
+  if constexpr (kWide) {
+    if (threadIdx.x == 0) *slot = atomicAdd(next_lane, 1);
+    __syncthreads();
+    const int b = *reinterpret_cast<volatile int*>(slot);
+    __syncthreads();  // read by all before the next lane's write
+    return b;
+  } else {
+    int b = 0;
+    if ((threadIdx.x & 31) == 0) b = atomicAdd(next_lane, 1);
+    return __shfl_sync(kFull, b, 0);
+  }
+}
+
+// Waits for the threads that run one lane: the warp, or a wide lane's block.
+template <bool kWide>
+__device__ __forceinline__ void lane_sync() {
+  if constexpr (kWide)
+    __syncthreads();
+  else
+    __syncwarp();
+}
+
+// One launch lane of the per-segment kernels, by one warp (a wide lane's
+// block): stage its q and framed target rows, run the segment, write the
+// endpoint (or the skip record of an inactive lane, with zero moves).
+// `ring` and `qs` are this warp's shares of the block's shared memory (see
+// warp_smem, wide_lane_smem).
+template <int C, bool kMoves, int kW, bool kWide>
 __device__ __forceinline__ void dp_lane(
     const uint8_t* __restrict__ q, const uint8_t* __restrict__ tpad,
     const int32_t* __restrict__ tmax, const int32_t* __restrict__ segq,
     const uint8_t* __restrict__ active, int32_t* __restrict__ r_out,
     int32_t* __restrict__ w_out, int32_t* __restrict__ v_out,
     int32_t* __restrict__ moves_out, const int S, const int W_rt, const int b,
-    const int lane, uint8_t* ring, uint8_t* qs) {
-  constexpr int Wp = 32 * C;
+    const int lane, uint8_t* ring, uint8_t* qs, const Wide wide) {
+  const int Wp = kWide ? 32 * C * wide.n : 32 * C;  // cells the lane holds
   const int W = kW ? kW : W_rt;
   const int half = W / 2;
+  // this thread among the lane's
+  const int t = kWide ? wide.k * 32 + lane : lane;
+  const int nt = kWide ? 32 * wide.n : 32;
 
   // this lane's move rows, [S, W/16]
   uint32_t* mv_out =
@@ -461,12 +648,12 @@ __device__ __forceinline__ void dp_lane(
              : nullptr;
 
   if (!active[b]) {
-    if (lane == 0) {
+    if (t == 0) {
       r_out[b] = 0;
       w_out[b] = half;
       v_out[b] = (int32_t)kVinf;
     }
-    if (kMoves) zero_words(mv_out, S * (W / 16), lane);
+    if (kMoves) zero_words(mv_out, S * (W / 16), t, nt);
     return;
   }
 
@@ -481,17 +668,17 @@ __device__ __forceinline__ void dp_lane(
     const uint4* tg4 = reinterpret_cast<const uint4*>(tg);
     uint4* qs4 = reinterpret_cast<uint4*>(qsp);
     uint4* ts4 = reinterpret_cast<uint4*>(ts);
-    for (int x = lane; x < S / 16; x += 32) qs4[x] = qg4[x];
-    for (int x = lane; x < (S + W) / 16; x += 32) ts4[x] = tg4[x];
+    for (int x = t; x < S / 16; x += nt) qs4[x] = qg4[x];
+    for (int x = t; x < (S + W) / 16; x += nt) ts4[x] = tg4[x];
   } else {
-    for (int x = lane; x < S; x += 32) qsp[x] = qg[x];
-    for (int x = lane; x < S + W; x += 32) ts[x] = tg[x];
+    for (int x = t; x < S; x += nt) qsp[x] = qg[x];
+    for (int x = t; x < S + W; x += nt) ts[x] = tg[x];
   }
-  __syncwarp();
+  lane_sync<kWide>();
 
-  const int3 best = dp_body<C, kMoves, kW>(qs, tmax[b], segq[b], S, W,
-                                           lane, ring, mv_out);
-  if (lane == 0) {
+  const int3 best = dp_body<C, kMoves, kW, kWide>(
+      qs, tmax[b], segq[b], S, W, lane, ring, mv_out, wide);
+  if (t == 0) {
     r_out[b] = best.x;
     w_out[b] = best.y;
     v_out[b] = best.z;
@@ -504,9 +691,10 @@ __device__ __forceinline__ void dp_lane(
 // lanes among many (the callers' usual one) then never stacks live lanes on
 // one scheduler while others idle: an inactive lane costs its warp one
 // counter round trip, and a scheduler runs at most kResident live lanes at
-// a time wherever they lie in the batch.
-template <int C, bool kMoves, int kW>
-__global__ void __launch_bounds__(32 * kWarps)
+// a time wherever they lie in the batch.  A wide lane's block takes its
+// lanes the same way, every block the card holds at once.
+template <int C, bool kMoves, int kW, bool kWide = false>
+__global__ void __launch_bounds__(32 * (kWide ? kMaxSlices : kWarps))
 dp_segment_kernel(const uint8_t* __restrict__ q,
                   const uint8_t* __restrict__ tpad,
                   const int32_t* __restrict__ tmax,
@@ -520,16 +708,23 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   uint8_t *ring, *qs;
-  warp_smem<C, kMoves>(reinterpret_cast<uint8_t*>(smem_vec), warp, S, W,
-                       &ring, &qs);
+  Wide wide;
+  int* slot = nullptr;
+  if constexpr (kWide)
+    wide_lane_smem<kMoves>(reinterpret_cast<uint8_t*>(smem_vec), S, &wide,
+                           &ring, &qs, &slot);
+  else
+    warp_smem<C, kMoves>(reinterpret_cast<uint8_t*>(smem_vec), warp, S, W,
+                         &ring, &qs);
   for (;;) {
-    int b = 0;
-    if (lane == 0) b = atomicAdd(next_lane, 1);
-    b = __shfl_sync(kFull, b, 0);
+    const int b = take_lane<kWide>(next_lane, slot);
     if (b >= B) return;
-    dp_lane<C, kMoves, kW>(q, tpad, tmax, segq, active, r_out, w_out, v_out,
-                           moves_out, S, W, b, lane, ring, qs);
-    __syncwarp();  // the next lane restages this warp's shared memory
+    dp_lane<C, kMoves, kW, kWide>(q, tpad, tmax, segq, active, r_out, w_out,
+                                  v_out, moves_out, S, W, b, lane, ring, qs,
+                                  wide);
+    // the next lane restages this warp's shared memory (a wide lane's
+    // block waits in take_lane)
+    if constexpr (!kWide) __syncwarp();
   }
 }
 
@@ -617,24 +812,31 @@ __device__ __forceinline__ int window_start(int start, const int width,
   return min(max(start, 0), width - size);
 }
 
-template <int C, bool kMoves, int kW>
-__global__ void __launch_bounds__(32 * kWarps)
+template <int C, bool kMoves, int kW, bool kWide = false>
+__global__ void __launch_bounds__(32 * (kWide ? kMaxSlices : kWarps))
 extend_kernel(const ExtendArgs a) {
-  constexpr int Wp = 32 * C;
   extern __shared__ uint4 smem_vec[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int S = a.S, W = kW ? kW : a.W;
   const int half = W / 2;
   uint8_t *ring, *qs;
-  warp_smem<C, kMoves>(reinterpret_cast<uint8_t*>(smem_vec), warp, S, W,
-                       &ring, &qs);
+  Wide wide;
+  int* slot = nullptr;
+  if constexpr (kWide)
+    wide_lane_smem<kMoves>(reinterpret_cast<uint8_t*>(smem_vec), S, &wide,
+                           &ring, &qs, &slot);
+  else
+    warp_smem<C, kMoves>(reinterpret_cast<uint8_t*>(smem_vec), warp, S, W,
+                         &ring, &qs);
+  const int Wp = kWide ? 32 * C * wide.n : 32 * C;  // cells the lane holds
+  // this thread among the lane's
+  const int t = kWide ? threadIdx.x : lane;
+  const int nt = kWide ? blockDim.x : 32;
   const int slack = max(1, S / 4);
   const size_t lane_words = (size_t)S * (W / 16);
   for (;;) {
-    int b = 0;
-    if (lane == 0) b = atomicAdd(a.next_lane, 1);
-    b = __shfl_sync(kFull, b, 0);
+    const int b = take_lane<kWide>(a.next_lane, slot);
     if (b >= a.N) return;
     const int max_segs = b < a.split ? a.max_segs : a.max_segs_b;
     const int qlen = a.qlen[b], tlen = a.tlen[b];
@@ -648,15 +850,16 @@ extend_kernel(const ExtendArgs a) {
       const int rem_t = min(max(tlen - toff, 0), S + half);
       const uint8_t* qg = qrow + window_start(q0 + qoff, a.Lq, S);
       const uint8_t* tg = trow + window_start(t0 + toff, a.Lt, S + W);
-      __syncwarp();                     // the last segment's reads are done
-      for (int x = lane; x < S; x += 32) qs[Wp / 2 + x] = qg[x];
-      for (int x = lane; x < S + W; x += 32) qs[S + Wp + x] = tg[x];
-      __syncwarp();
-      const size_t slot = (size_t)nsegs * a.N + b;
-      const int3 e = dp_body<C, kMoves, kW>(
+      lane_sync<kWide>();               // the last segment's reads are done
+      for (int x = t; x < S; x += nt) qs[Wp / 2 + x] = qg[x];
+      for (int x = t; x < S + W; x += nt) qs[S + Wp + x] = tg[x];
+      lane_sync<kWide>();
+      const size_t sl = (size_t)nsegs * a.N + b;
+      const int3 e = dp_body<C, kMoves, kW, kWide>(
           qs, rem_t, seg_q, S, W, lane, ring,
-          kMoves ? reinterpret_cast<uint32_t*>(a.moves) + slot * lane_words
-                 : nullptr);
+          kMoves ? reinterpret_cast<uint32_t*>(a.moves) + sl * lane_words
+                 : nullptr,
+          wide);
       const int r = e.x;
       const int j = r - half + e.y;
       const bool vinf = e.z >= (int)kVinf;
@@ -667,12 +870,12 @@ extend_kernel(const ExtendArgs a) {
       const float ident = __fdiv_rn((float)m, (float)max(al, 1));
       const bool ok = r + j > 0 && d < kInf &&
                       (ident >= a.min_identity || al < 32);
-      if (kMoves && lane == 0) {
-        a.r_end[slot] = r;
-        a.w_end[slot] = e.y;
-        a.qoff_before[slot] = qoff;
-        a.toff_before[slot] = toff;
-        a.ok[slot] = ok;
+      if (kMoves && t == 0) {
+        a.r_end[sl] = r;
+        a.w_end[sl] = e.y;
+        a.qoff_before[sl] = qoff;
+        a.toff_before[sl] = toff;
+        a.ok[sl] = ok;
       }
       if (ok) {
         qoff += r;
@@ -685,7 +888,7 @@ extend_kernel(const ExtendArgs a) {
       active = ok && r >= seg_q - slack && r >= 1 && qoff < qlen &&
                toff < tlen;
     }
-    if (lane == 0) {
+    if (t == 0) {
       const size_t n = (size_t)a.N;
       a.out[b] = qoff;
       a.out[n + b] = toff;
@@ -725,7 +928,31 @@ cudaError_t persistent_grid(int B, void* next_lane, cudaStream_t stream,
   return err;
 }
 
+// The grid of a wide lane's persistent blocks (n warps each, `smem` bytes):
+// every block the card holds at once, or fewer when the launch has fewer
+// lanes; cudaErrorInvalidValue where not one fits an SM.  Zeroes the lane
+// counter on the stream first.
+template <typename Kernel>
+cudaError_t wide_grid(Kernel kernel, int B, int n, size_t smem,
+                      void* next_lane, cudaStream_t stream, int* grid) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        32 * n, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = cudaMemsetAsync(next_lane, 0, 4, stream);
+  *grid = B < sms * per_sm ? B : sms * per_sm;
+  return err;
+}
+
 bool band_ok(int W) { return W % 16 == 0 && W >= kMinW && W <= kMaxW; }
+
+// warps of a lane at band W: one up to kSliceW, then a warp a slice
+int slices_for(int W) { return (W + kSliceW - 1) / kSliceW; }
 
 template <int C, bool kMoves, int kW>
 cudaError_t launch(const void* q, const void* tpad, const void* tmax,
@@ -745,6 +972,43 @@ cudaError_t launch(const void* q, const void* tpad, const void* tmax,
       static_cast<int32_t*>(w), static_cast<int32_t*>(v),
       static_cast<int32_t*>(moves), static_cast<int32_t*>(next_lane), B, S,
       W);
+  return cudaGetLastError();
+}
+
+template <bool kMoves>
+cudaError_t launch_wide(const void* q, const void* tpad, const void* tmax,
+                        const void* segq, const void* active, void* r,
+                        void* w, void* v, void* moves, void* next_lane, int B,
+                        int S, int W, cudaStream_t stream) {
+  const int n = slices_for(W);
+  const size_t smem = wide_smem(S, n, kMoves);
+  auto kernel = dp_segment_kernel<16, kMoves, 0, true>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = wide_grid(kernel, B, n, smem, next_lane, stream, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 32 * n, smem, stream>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(tpad),
+      static_cast<const int32_t*>(tmax), static_cast<const int32_t*>(segq),
+      static_cast<const uint8_t*>(active), static_cast<int32_t*>(r),
+      static_cast<int32_t*>(w), static_cast<int32_t*>(v),
+      static_cast<int32_t*>(moves), static_cast<int32_t*>(next_lane), B, S,
+      W);
+  return cudaGetLastError();
+}
+
+template <bool kMoves>
+cudaError_t launch_extend_wide(const ExtendArgs& a, cudaStream_t stream) {
+  const int n = slices_for(a.W);
+  const size_t smem = wide_smem(a.S, n, kMoves);
+  auto kernel = extend_kernel<16, kMoves, 0, true>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = wide_grid(kernel, a.N, n, smem, a.next_lane, stream, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 32 * n, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -768,6 +1032,10 @@ int dispatch(const void* q, const void* tpad, const void* tmax,
   if (B <= 0) return 0;
   if (S <= 0 || !band_ok(W)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W > kSliceW)
+    return static_cast<int>(launch_wide<kMoves>(q, tpad, tmax, segq, active,
+                                                r, w, v, moves, next_lane, B,
+                                                S, W, st));
 #define MECAT_LAUNCH(C, kW)                                                 \
   return launch<C, kMoves, kW>(q, tpad, tmax, segq, active, r, w, v, moves, \
                                next_lane, B, S, W, st)
@@ -794,6 +1062,8 @@ int dispatch_extend(const ExtendArgs& a, void* stream) {
   if (a.S <= 0 || !band_ok(a.W) || a.Lq < a.S || a.Lt < a.S + a.W)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.W > kSliceW)
+    return static_cast<int>(launch_extend_wide<kMoves>(a, st));
 #define MECAT_LAUNCH(C, kW) \
   return static_cast<int>(launch_extend<C, kMoves, kW>(a, st))
   switch (a.W) {                // the paths' widths: W fixed in the instance
@@ -821,7 +1091,7 @@ int dispatch_extend(const ExtendArgs& a, void* stream) {
 // call zeroes and the kernel counts lanes in.  All device pointers,
 // row-major, contiguous.  Returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue, without a launch, for a W that is not
-// a multiple of 16 in [16, 512], an S below 1 or an S whose staging does not
+// a multiple of 16 in [16, 3072], an S below 1 or an S whose staging does not
 // fit the block's shared memory.
 extern "C" int mecat_dp_segment_best(const void* q, const void* tpad,
                                      const void* tmax, const void* segq,
@@ -851,7 +1121,7 @@ extern "C" int mecat_dp_segment_best_moves(const void* q, const void* tpad,
 // of scratch.  All device pointers, row-major, contiguous.  Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue, without a launch, for a W that is not a multiple
-// of 16 in [16, 512], rows narrower than a window, or an S whose staging
+// of 16 in [16, 3072], rows narrower than a window, or an S whose staging
 // does not fit the block's shared memory.
 extern "C" int mecat_extend_counts(const void* q_pad, const void* t_pad,
                                    const void* q0, const void* t0,

@@ -47,9 +47,12 @@ LAUNCHES_EXTEND = 0
 #: launches of the move-writing segment-loop kernel
 LAUNCHES_EXTEND_MOVES = 0
 
-#: the band widths the kernels take: multiples of 16 in [BAND_MIN, BAND_MAX]
+#: the band widths the kernels take: multiples of 16 in [BAND_MIN, BAND_MAX].
+#: Past 512 a lane of the DP kernels is a block of W/512 warps (rounded up),
+#: each with a ring of move rows of 36 KB in shared memory; six rings fit
+#: the 227 KB a block can have, seven do not (see :func:`check_band`)
 BAND_MIN = 16
-BAND_MAX = 512
+BAND_MAX = 3072
 
 _lib = None
 
@@ -78,10 +81,16 @@ def _load():
 
 def check_band(W: int) -> None:
     """Raise ValueError unless the kernels take band width ``W``: every
-    multiple of 16 from BAND_MIN to BAND_MAX (the reference computes any
-    multiple of 16; a wider band would need more than 16 cells a thread of
-    the DP kernels' warp, or two warps a lane, and is not built for the
-    card)."""
+    multiple of 16 from BAND_MIN to BAND_MAX.
+
+    The reference computes any multiple of 16.  What sets BAND_MAX is
+    shared memory a lane: up to 512 a warp holds the band, past it a lane
+    takes a warp for each 512 cells, and each warp of the move-writing
+    kernels keeps its own ring of 288 move rows of 128 bytes (36 KB).  Six
+    rings and the lane's staging fit the 227 KB of shared memory a block of
+    an H100 can have, seven (252 KB) do not, so W <= 6 * 512.  The walks'
+    rings fit at that width (8 lanes a row-walk block).  Checked before
+    anything is built or launched."""
     if W % 16 or not BAND_MIN <= W <= BAND_MAX:
         raise ValueError(f"the CUDA kernels take band widths W that are "
                          f"multiples of 16 in [{BAND_MIN}, {BAND_MAX}], "

@@ -109,8 +109,8 @@ def traceback_rows_cuda(moves: torch.Tensor, seg_qlen: torch.Tensor,
     int32 [N] as :func:`..ops.align.traceback_rows_plain`.
 
     moves int32 [N, S, W/16]; seg_qlen, w_end int32 [N]; W a multiple of 16
-    in [16, 512] (:func:`.dp_kernel.check_band`, checked before anything is
-    built).  Raises on anything the kernel does not take.
+    in [BAND_MIN, BAND_MAX] (:func:`.dp_kernel.check_band`, checked before
+    anything is built).  Raises on anything the kernel does not take.
     """
     global LAUNCHES_ROWS
     dev, N, S = _walk_inputs(moves, seg_qlen, w_end, W)
@@ -162,11 +162,13 @@ def traceback_ops_cuda(moves: torch.Tensor, seg_qlen: torch.Tensor,
     int32 [N]): the right-aligned tape and its length, as the walk of
     :func:`..ops.align.traceback_ops_plain`.
 
-    moves int32 [N, S, W/16]; seg_qlen, w_end int32 [N].  Raises on
-    anything the kernel does not take.
+    moves int32 [N, S, W/16]; seg_qlen, w_end int32 [N]; W as
+    :func:`traceback_rows_cuda`.  Raises on anything the kernel does not
+    take.
     """
     global LAUNCHES_COLS
     dev, N, S = _walk_inputs(moves, seg_qlen, w_end, W)
+    check_band(W)
     ops = torch.empty((N, max_cols), dtype=torch.int8, device=dev)
     n_cols = torch.empty(N, dtype=torch.int32, device=dev)
     if N:

@@ -4,9 +4,10 @@
 ``pair_inputs`` query/target pairs with seeds for the segmented extension,
 ``roll_micro_inputs`` lanes for the row-update micro-benchmark family;
 ``dp_segment_best_wavefront`` evaluates a DP segment in the order of the
-Hopper kernel (``csrc/dp_segment.cu``), padded band and move ring
-(``move_rows_ring``) included, and ``walk_rows_words`` /
-``deposit_scan_warp`` the row walk and the deposit as ``csrc/cns_walk.cu``
+Hopper kernel (``csrc/dp_segment.cu``), padded band, move ring
+(``move_rows_ring``) and the lanes of several warps past 512 included, and
+``walk_rows_words`` / ``deposit_scan_warp`` / ``walk_cols_rows`` the row
+walk, the deposit and the row-stepped column walk as ``csrc/cns_walk.cu``
 does, so the CPU tests can hold each order against the plain version;
 ``GOLDEN_J1`` / ``GOLDEN_J0`` are the ``PwOptions`` that produced
 ``tests/golden/overlaps.m4`` and ``tests/golden/candidates.txt``, and
@@ -443,9 +444,16 @@ def roll_micro_inputs(S: int, W: int, n: int, seed: int):
     return q, t, tmax, segq
 
 
+#: band cells a warp of a wide lane holds (``csrc/dp_segment.cu``, kSliceW)
+SLICE_W = 512
+
+
 def band_cells(W: int):
     """(C, Wp) of ``csrc/dp_segment.cu`` for a band of W: band cells a
-    thread (even) and the band cells the warp holds, Wp = 32 * C >= W."""
+    thread (even) and the band cells the lane holds, Wp >= W: Wp = 32 * C
+    up to 512, past it C = 16 and a warp for each 512 cells."""
+    if W > SLICE_W:
+        return 16, SLICE_W * -(-W // SLICE_W)
     C = 2 * -(-W // 64)
     return C, 32 * C
 
@@ -466,8 +474,16 @@ def move_rows_ring(codes: np.ndarray, last: int, S: int, W: int):
     off its rows is poison (0xA), the ring and the output start as poison,
     and an iteration the kernel runs unpredicated asserts that every byte it
     writes lies on a row of the lane.
+
+    Past 512 each warp of the wide lane does this for its 512-cell slice
+    (:func:`_move_rows_slice`).
     """
     C, Wp = band_cells(W)
+    if W > SLICE_W:
+        out = np.full((S, W // 16), -0x22222223, np.int32)     # poison
+        for k in range(Wp // SLICE_W):
+            _move_rows_slice(codes, last, S, W, k, out)
+        return out
     P = C // 2
     R = max(128, Wp // 2 + 32)
     half, rb = W // 2, W // 4
@@ -509,6 +525,68 @@ def move_rows_ring(codes: np.ndarray, last: int, S: int, W: int):
     out[flushed * rb:last * rb] = ring[s0:s0 + (last - flushed) * rb]
     out[last * rb:] = 0
     return out.view("<i4").reshape(S, W // 16)
+
+
+def _move_rows_slice(codes: np.ndarray, last: int, S: int, W: int, k: int,
+                     out: np.ndarray):
+    """Warp k of a wide lane writes the words of its slice, cells [512k,
+    512k + 512), of every row into ``out`` [S, W/16] int32, as the kernel
+    does: 16 cells a thread (8 pairs, so every nibble joins its thread's
+    own), a ring of 288 rows of 128 bytes, and a flush of 32 rows once
+    min(k_iter - g_hi, last) - flushed >= 32, g_hi the slice's last real
+    cell pair; the rows left in the ring after the last iteration, then
+    zeros past ``last`` (the lane's warps share those rows: here each writes
+    its slice of them)."""
+    P, R, rb = 8, 288, SLICE_W // 4
+    half = W // 2
+    codes = np.asarray(codes, np.int64)
+    m0 = k * rb                                  # the slice's first byte
+    nw = min(SLICE_W // 16, W // 16 - m0 // 4)   # its words in a row
+    g_hi = min(k * (SLICE_W // 2) + SLICE_W // 2 - 1, half - 1)
+    ring = np.full(R * rb, 0xEE, np.uint8)
+    dst = out.view(np.uint8).reshape(S, W // 4)
+    g = (k * 32 + np.arange(32))[:, None] * P + np.arange(P)[None, :]
+    prev = np.zeros((32, P), np.int64)
+    flushed = 0
+
+    def flush(n):
+        rows = ring.reshape(R, rb)[flushed % R:flushed % R + n]
+        dst[flushed:flushed + n, m0:m0 + 4 * nw] = rows[:, :4 * nw]
+
+    odd = np.arange(1, P, 2)
+    k_end = last + half - 1 if last > 0 else 0
+    # the slice's pairs meet rows 1..last in iterations g_lo + 1 ..
+    # g_hi + last; no other iteration writes, so only its flushes run
+    first, top = k * (SLICE_W // 2) + 1, min(k_end, g_hi + last)
+    for it in range(1, k_end + 1):
+        if first <= it <= top:
+            edge = it <= half - 1 or it > last
+            row = it - g
+            on = (row >= 1) & (row <= last) & (2 * g + 1 < W)
+            rr = np.clip(row - 1, 0, S - 1)
+            gg = np.clip(g, 0, W // 2 - 1)
+            nib = np.where(on, codes[rr, 2 * gg] | (codes[rr, 2 * gg + 1]
+                                                    << 2), 0xA)
+            m = g[:, odd] >> 1
+            mine = 4 * m < W
+            in_rows = (row[:, odd] >= 1) & (row[:, odd] <= last)
+            if edge:
+                mine &= in_rows
+            else:
+                assert in_rows[mine].all(), it
+            assert ((m - m0 >= 0) & (m - m0 < rb))[mine].all()
+            slot = ((row[:, odd] - 1) % R) * rb + m - m0
+            ring[slot[mine]] = ((prev[:, odd - 1] | (nib[:, odd] << 4))
+                                & 0xFF)[mine]
+            prev = nib
+        elif it > top and min(it - g_hi, last) - flushed < 32:
+            break                                # no flush is left either
+        if min(it - g_hi, last) - flushed >= 32:
+            flush(32)
+            flushed += 32
+    assert last - flushed < 32
+    flush(last - flushed)
+    dst[last:, m0:m0 + 4 * nw] = 0
 
 
 def walk_rows_words(moves: np.ndarray, seg_qlen: np.ndarray,
@@ -559,6 +637,173 @@ def walk_rows_words(moves: np.ndarray, seg_qlen: np.ndarray,
         w = np.where(found, w_next, w)
         alive &= ~(act & (y == 0))
     return mv, h, wo, w.astype(np.int32)
+
+
+class _Tape:
+    """One lane's tape as ``csrc/cns_walk.cu``'s ``Tape`` writes it into a
+    flat buffer of every lane's bytes: backwards from column maxc - 1, the
+    bytes in a 64-bit register (the lowest column at its low end), an
+    emission of 1-4 bytes completing at most one word, which is stored
+    whole (asserted to lie in the lane's tape), byte by byte where it
+    reaches into a neighbour's; the word below column 0 at the end."""
+
+    def __init__(self, buf: np.ndarray, base: int, maxc: int):
+        self.buf, self.base, self.maxc = buf, base, maxc
+        self.col, self.sh0, self.pack = maxc - 1, base & 3, 0
+
+    def emit(self, data: int, k: int):
+        assert 1 <= k <= 4 and self.col - k >= -1
+        self.pack = ((self.pack << (8 * k)) | data) & (2 ** 64 - 1)
+        hi = self.col
+        self.col -= k
+        zc = hi - ((self.sh0 + hi) & 3)
+        if zc > self.col:
+            word = (self.pack >> (8 * (zc - self.col - 1))) & 0xFFFFFFFF
+            if zc + 3 < self.maxc:
+                assert zc >= 0 and (self.base + zc) % 4 == 0
+                self.buf[self.base + zc:self.base + zc + 4] = np.frombuffer(
+                    word.to_bytes(4, "little"), np.uint8)
+            else:
+                for u in range(zc, self.maxc):
+                    self.buf[self.base + u] = (word >> (8 * (u - zc))) & 0xFF
+
+    def run(self, v: int, n: int):
+        word = (v & 0xFF) * 0x01010101
+        while n >= 4:
+            self.emit(word, 4)
+            n -= 4
+        if n:
+            self.emit(word >> (8 * (4 - n)), n)
+
+    def finish(self):
+        assert self.col == -1
+        for u in range(min(3 - ((self.sh0 + 3) & 3), self.maxc)):
+            self.buf[self.base + u] = (self.pack >> (8 * u)) & 0xFF
+
+
+def walk_cols_rows(moves: np.ndarray, seg_qlen: np.ndarray,
+                   w_end: np.ndarray, W: int, max_cols: int = 0):
+    """The column walk as ``csrc/cns_walk.cu``'s ``walk_cols_kernel`` steps
+    it, on numpy arrays: a row at a time, not a column.  The common step, at
+    row i (1-based) and column w in [0, W): the row's exit is the highest
+    non-horizontal cell <= w in w's own word masked at w or in the word
+    below, the run of w - exit horizontal codes is at most 3, fits the tape
+    and completes no word shared with the next lane's tape; it emits the
+    run, then the exit code, at once.  A lane whose step is another takes
+    the full step there and for the rest of its group of 8 rows: the exit
+    down the row's words (as :func:`walk_rows_words` searches), else on
+    down the flat, clipped reads of the reference's
+    ``_read_move`` (word (i-1)*W/16 + floor(w/16) clipped to the lane, cell
+    w mod 16), at most as far as the tape has room (word 0 read again and
+    again below the lane, all horizontal, has no exit); a column outside
+    [0, W) and rows above S read that way from the start.  Once at row 0
+    the walk emits max(w - W/2, 0) horizontal codes; it stops after exactly
+    MAXC columns.  The tape is written by :class:`_Tape`, the lanes' tapes
+    side by side in one buffer as the kernel's are.
+
+    Returns (ops int8 [n, MAXC], n_cols int32 [n]) as
+    ``ops.align.traceback_ops_plain``'s first and last results; MAXC =
+    max_cols if given, else 2*S + W.
+    """
+    words = np.asarray(moves).view(np.uint32).astype(np.int64)
+    n, S, NW = words.shape
+    maxc = max_cols if max_cols else 2 * S + W
+    half, last = W // 2, S * NW - 1
+    flat = words.reshape(n, S * NW)
+    nh = lambda x: ~(x & (x >> 1)) & 0x55555555
+    buf = np.full(n * maxc, 0xAA, np.uint8)              # poison
+    n_cols = np.zeros(n, np.int32)
+
+    def search_flat(b, i, w, budget):
+        idx = ((i - 1) * NW + (w >> 4) + 2 ** 31) % 2 ** 32 - 2 ** 31
+        bit_w, h = w & 15, 0
+        while h < budget:
+            x = flat[b, min(max(idx, 0), last)]
+            y = nh(x) & (0xFFFFFFFF >> (30 - 2 * bit_w))
+            if y:
+                bit = int(y).bit_length() - 1
+                return h + bit_w - (bit >> 1), int((x >> bit) & 3)
+            h += bit_w + 1
+            if idx < 0 and bit_w == 15:
+                return budget, 0
+            bit_w, idx = 15, idx - 1
+        return budget, 0
+
+    for b in range(n):
+        tape = _Tape(buf, b * maxc, maxc)
+        st = dict(i=int(seg_qlen[b]), w=int(w_end[b]), s=0)
+        st["walking"] = st["i"] >= 0
+
+        def slow_step(row):
+            i, w, rem = st["i"], st["w"], maxc - st["s"]
+            if row is not None and 0 <= w < W:
+                j = w >> 4
+                y, q = nh(row[j]) & (0xFFFFFFFF >> (30 - 2 * (w & 15))), j
+                for u in range(j - 1, -1, -1):
+                    if y:
+                        break
+                    y, q = nh(row[u]), u
+                if y:
+                    bit = int(y).bit_length() - 1
+                    h, code = w - (16 * q + (bit >> 1)), int((row[q] >> bit)
+                                                             & 3)
+                else:
+                    h, code = search_flat(b, i, -1, rem - (w + 1))
+                    h += w + 1
+            else:
+                h, code = search_flat(b, i, w, rem)
+            if h >= rem:
+                tape.run(3, rem)
+                st["s"] += rem
+                st["walking"] = False
+                return
+            tape.run(3, h)
+            tape.emit(code, 1)
+            st["s"] += h + 1
+            st["i"] -= 1
+            st["w"] += (1 if code == 2 else 0) - h
+            st["walking"] = st["s"] < maxc
+
+        while st["walking"] and st["i"] > S:
+            slow_step(None)
+        stopped = False              # the group's rest is a full step each
+        for r in range(S - 1, -1, -1):
+            if r % 8 == 7:
+                stopped = False
+            if not (st["walking"] and st["i"] == r + 1):
+                continue
+            row, w = flat[b, r * NW:(r + 1) * NW], st["w"]
+            j = w >> 4 if 0 <= w < W else 0
+            y1 = (nh(row[j]) & (0xFFFFFFFF >> (30 - 2 * (w & 15)))
+                  if 0 <= w < W else 0)
+            y0 = nh(row[j - 1]) if j > 0 else 0
+            x, y, q = (row[j], y1, j) if y1 else (row[max(j - 1, 0)], y0,
+                                                 j - 1)
+            bit = int(y).bit_length() - 1
+            col = 16 * q + (bit >> 1)
+            h = w - col
+            zc = tape.col - ((tape.sh0 + tape.col) & 3)
+            top_word = zc > tape.col - (h + 1) and zc + 3 >= maxc
+            if (not stopped and 0 <= w < W and y and h <= 3
+                    and h < maxc - st["s"] and not top_word):
+                code = int((x >> bit) & 3)
+                tape.emit(code | ((0x030303 >> (8 * (3 - h))) << 8), h + 1)
+                st["s"] += h + 1
+                st["i"] -= 1
+                st["w"] = col + (1 if code == 2 else 0)
+                st["walking"] = st["s"] < maxc
+            else:
+                stopped = True
+                slow_step(row)
+        if st["walking"] and st["i"] == 0:                # row 0
+            e = min(max(st["w"] - half, 0), maxc - st["s"])
+            tape.run(3, e)
+            st["s"] += e
+        tape.run(0xFF, tape.col + 1)                     # -1 before the tape
+        tape.finish()
+        n_cols[b] = st["s"]
+    assert not (buf == 0xAA).any()                     # every byte written
+    return buf.view(np.int8).reshape(n, maxc).copy(), n_cols
 
 
 def deposit_scan_warp(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
@@ -687,11 +932,19 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
     holds a cell that can score.  Same arguments and results as
     ``ops.align.dp_segment_best_plain``, except that the move rows past the
     last row are zero, as the kernel leaves them.
+
+    Past 512 the lane is a warp a 512-cell slice: the value that crosses a
+    warp border comes from the slot the neighbouring warp published (its
+    first cell after the even step, its last after the odd step; the last
+    cells first after row 0), each warp keeps the move ring of its slice,
+    and the best cell is reduced in each slice and then across the slices
+    in order.
     """
     B = q_seg.shape[0]
     half = W // 2
     _, Wp = band_cells(W)
     padded = W < Wp
+    wide = W > SLICE_W
     K1 = IND_K + 1
     w_all = torch.arange(Wp, dtype=torch.int32)
     real = w_all < W
@@ -709,8 +962,13 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
     best_v = val.clone()
     codes = torch.zeros((B, S, W), dtype=torch.int64)
     vinf_col = torch.full((B, 1), VINF, dtype=torch.int32)
+    # a wide lane's border slots: xh[k] slice k's last cell, xv[k] its first
+    xh = val[:, SLICE_W - 1::SLICE_W].clone()
+    xv = None
     for tau in range(2, 2 * S + W):
         ws = torch.arange(tau & 1, Wp, 2)
+        # a cell off rows 1..S changes nothing this step: left out
+        ws = ws[(tau - ws >= 2) & (tau - ws <= 2 * S + 1)]
         i = (tau - ws) // 2                           # the row of each cell
         in_range = (i[None, :] >= 1) & (i[None, :] <= last_row)
         ic = i.clamp(1, S)
@@ -720,6 +978,14 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
         diag = val[:, ws] + sub * IND_K
         vert = padded_row[:, ws + 2] + K1             # cell w + 1, row i - 1
         hor = padded_row[:, ws] + K1                  # cell w - 1, row i
+        if wide and tau & 1 == 0:
+            # a slice's first cell: the left warp's last, from its slot
+            at = ((ws % SLICE_W) == 0) & (ws > 0)
+            hor[:, at] = xh[:, ws[at] // SLICE_W - 1] + K1
+        elif wide:
+            # a slice's last cell: the right warp's first, from its slot
+            at = ((ws % SLICE_W) == SLICE_W - 1) & (ws < Wp - 1)
+            vert[:, at] = xv[:, ws[at] // SLICE_W + 1] + K1
         j = (i + jo[ws]).to(torch.int32)[None, :]
         valid = (j >= 0) & (j <= tm)
         cur = torch.minimum(torch.minimum(diag, vert), hor)
@@ -746,9 +1012,28 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
         best_r[:, ws] = torch.where(better, i.to(torch.int32)[None, :],
                                     best_r[:, ws])
         best_v[:, ws] = torch.where(better, cur, best_v[:, ws])
+        if wide and tau & 1 == 0:                     # the slots, published
+            xv = val[:, ::SLICE_W].clone()
+        elif wide:
+            xh = val[:, SLICE_W - 1::SLICE_W].clone()
     flat = best_r * W + w_all[None, :]
-    top = best_s.max(dim=1, keepdim=True).values
-    f = torch.where(best_s == top, flat, (S + 1) * W).min(dim=1).values
+
+    def reduce(s_, f_):                               # score desc, flat asc
+        top = s_.max(dim=1, keepdim=True).values
+        return top[:, 0], torch.where(s_ == top, f_, (S + 1) * W).min(
+            dim=1).values
+
+    if wide:
+        # in each slice, then across the slices in order
+        s_red, f = reduce(best_s[:, :SLICE_W], flat[:, :SLICE_W])
+        for k in range(1, Wp // SLICE_W):
+            sl = slice(k * SLICE_W, (k + 1) * SLICE_W)
+            s_k, f_k = reduce(best_s[:, sl], flat[:, sl])
+            take = (s_k > s_red) | ((s_k == s_red) & (f_k < f))
+            s_red = torch.where(take, s_k, s_red)
+            f = torch.where(take, f_k, f)
+    else:
+        f = reduce(best_s, flat)[1]
     v = torch.gather(best_v, 1, (f % W).long()[:, None])[:, 0]
     r = torch.where(active, torch.div(f, W, rounding_mode="floor"), 0)
     w = torch.where(active, f % W, half)

@@ -168,9 +168,10 @@ def test_dp_moves_kernel_rejects_what_it_does_not_take(cuda):
     S, W = 128, 64
     q, tpad, tmax, seg_q, active = (torch.as_tensor(a, device=cuda)
                                     for a in dp_inputs(S, W, 64, seed=2))
+    W_off = dp_kernel.BAND_MAX + 16
     with pytest.raises(ValueError):                 # a band it does not take
         dp_kernel.dp_segment_best_moves_cuda(
-            q, tpad.new_zeros(64, S + 528), tmax, seg_q, active, S, 528)
+            q, tpad.new_zeros(64, S + W_off), tmax, seg_q, active, S, W_off)
     with pytest.raises(TypeError):
         dp_kernel.dp_segment_best_moves_cuda(q, tpad, tmax.long(), seg_q,
                                              active, S, W)
@@ -201,9 +202,10 @@ def test_dp_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         dp_kernel.dp_segment_best_cuda(q.int(), tpad, tmax, seg_q, active,
                                        S, W)
+    W_off = dp_kernel.BAND_MAX + 16
     with pytest.raises(ValueError):                 # a band it does not take
-        dp_kernel.dp_segment_best_cuda(q, tpad.new_zeros(64, S + 528), tmax,
-                                       seg_q, active, S, 528)
+        dp_kernel.dp_segment_best_cuda(q, tpad.new_zeros(64, S + W_off),
+                                       tmax, seg_q, active, S, W_off)
     S_big = 32768            # 4 lanes of q and t overflow 227 KB of smem
     with pytest.raises(ValueError):
         dp_kernel.dp_segment_best_cuda(
@@ -281,7 +283,7 @@ def test_extend_loop_kernel_rejects_what_it_does_not_take(cuda):
     kw = dict(S=S, max_segs=4, min_seg_identity=0.65)
     fn = dp_kernel.extend_counts_cuda
     with pytest.raises(ValueError):                 # a band it does not take
-        fn(*lanes, W=528, **kw)
+        fn(*lanes, W=dp_kernel.BAND_MAX + 16, **kw)
     with pytest.raises(ValueError):                 # rows narrower than S + W
         fn(lanes[0], lanes[1][:, :S + W - 1].contiguous(), *lanes[2:], W=W,
            **kw)
@@ -370,7 +372,7 @@ def test_extend_moves_kernel_rejects_what_it_does_not_take(cuda):
     kw = dict(S=S, max_segs=4, min_seg_identity=0.65)
     fn = dp_kernel.extend_moves_cuda
     with pytest.raises(ValueError):                 # a band it does not take
-        fn(*lanes, W=528, **kw)
+        fn(*lanes, W=dp_kernel.BAND_MAX + 16, **kw)
     with pytest.raises(ValueError):                 # rows narrower than S + W
         fn(lanes[0], lanes[1][:, :S + W - 1].contiguous(), *lanes[2:], W=W,
            **kw)
@@ -378,12 +380,15 @@ def test_extend_moves_kernel_rejects_what_it_does_not_take(cuda):
         fn(*lanes[:2], lanes[2].long(), *lanes[3:], W=W, **kw)
 
 
-@pytest.mark.parametrize("W", [32, 48, 96, 160, 256, 272, 384, 512])
+@pytest.mark.parametrize("W", [32, 48, 96, 160, 256, 272, 384, 512, 528,
+                               1024, 2048])
 def test_dp_family_kernels_match_plain_at_every_band(cuda, W):
     """Each band width the reference computes: the two per-segment DP
     kernels, the counts and the move loop, the row and the column walk on
     the move kernel's words and the deposit on the rows of that walk and on
-    random rows, each against its plain version."""
+    random rows, each against its plain version.  Past 512 a lane is
+    several warps (528: a second warp of one real thread, 1024 and 2048:
+    two and four whole slices)."""
     S = 128
     args = [torch.as_tensor(a, device=cuda)
             for a in dp_inputs(S, W, 256, seed=W)]
@@ -662,11 +667,15 @@ def _walk_case(cuda, S, W, source, n=1024):
 
 @pytest.mark.parametrize("source", ["dp", "random"])
 @pytest.mark.parametrize("S,W", [(128, 64), (512, 128), (512, 512),
-                                 (100, 48)])
+                                 (100, 48), (128, 2048)])
 def test_walk_kernels_match_plain(cuda, S, W, source):
-    """The row walk, the column walk (at the mapping path's MAXC and at the
-    unconditional 2S + W) and the deposit scan on the rows of the kernel's
-    own walk and on random rows: every output element of every lane."""
+    """The row walk, the column walk (at the mapping path's MAXC, at the
+    unconditional 2S + W, and cut short at 64 and 61 columns, in the middle
+    of rows, with tape words shared between lanes at 61) and the deposit
+    scan on the rows of the kernel's own walk and on random rows: every
+    output element of every lane.  The random words carry the edge lanes
+    of testing.walk_inputs (seg_qlen -1, 0, S, S + 3 by w_end -1, 0, W - 1,
+    W) and runs of horizontal moves across rows."""
     moves, seg_qlen, w_end = _walk_case(cuda, S, W, source)
     before = walk_kernel.launches()
     got = align.traceback_rows(moves, seg_qlen, w_end, W)
@@ -675,13 +684,15 @@ def test_walk_kernels_match_plain(cuda, S, W, source):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool((got[0] >= 0).any())
-    for maxc in (align.max_tape_cols(S, W, 0.65), 2 * S + W):
+    for maxc in (align.max_tape_cols(S, W, 0.65), 2 * S + W, 64, 61):
         got_c = align.traceback_ops(moves, seg_qlen, w_end, W, maxc)
         want_c = align.traceback_ops_plain(moves, seg_qlen, w_end, W, maxc)
         torch.cuda.synchronize()
         for g, w in zip(got_c, want_c):
             assert torch.equal(g, w)
         assert int(got_c[3].max()) > 0
+        if maxc in (64, 61):                  # walks longer than the tape
+            assert int(got_c[3].max()) == maxc
     walk = [a.cpu().numpy() for a in got[:3]]
     for rows in (deposit_inputs(S, W, 1024, seed=S, walk=walk),
                  deposit_inputs(S, W, 1024, seed=S + 1)):
@@ -693,7 +704,7 @@ def test_walk_kernels_match_plain(cuda, S, W, source):
             assert torch.equal(g, w)
     assert walk_kernel.launches_since(before) == {
         "walk_launches_rows": 1, "walk_launches_deposit": 2,
-        "walk_launches_cols": 2}
+        "walk_launches_cols": 4}
 
 
 @pytest.mark.parametrize("S,W", [(512, 128), (100, 48)])
@@ -748,8 +759,12 @@ def test_walk_kernels_reject_what_they_do_not_take(cuda):
         cols_fn(moves, seg_qlen[:-1], w_end, W, 192)
     with pytest.raises(ValueError):
         dep_fn(rows[0][:, :-1], *rows[1:], W)
-    with pytest.raises(ValueError):                 # a W the kernel refuses
-        rows_fn(moves.new_zeros(64, S, 33), seg_qlen, w_end, 528)
+    W_off = dp_kernel.BAND_MAX + 16
+    with pytest.raises(ValueError):                 # a W the kernels refuse
+        rows_fn(moves.new_zeros(64, S, W_off // 16), seg_qlen, w_end, W_off)
+    with pytest.raises(ValueError):
+        cols_fn(moves.new_zeros(64, S, W_off // 16), seg_qlen, w_end, W_off,
+                192)
     with pytest.raises(ValueError):                 # device
         rows_fn(moves, seg_qlen.cpu(), w_end, W)
     with pytest.raises(ValueError):

@@ -30,11 +30,17 @@ def _readable(moves, r_best, S):
 @pytest.mark.parametrize("S,W", [(64, 64), (128, 64), (256, 128), (64, 16),
                                  (96, 48), (128, 96), (128, 160),
                                  (128, 208), (128, 256), (64, 272),
-                                 (64, 384), (48, 512)])
+                                 (64, 384), (48, 512), (48, 528),
+                                 (48, 1024), (48, 1040), (48, 2048)])
 def test_wavefront_matches_plain(S, W):
     """dp_inputs carries the edge lanes: tmax / seg_q of 0 and -1, inactive
-    lanes; lane 4 has its endpoint restricted to early rows."""
-    q, tpad, tmax, seg_q, active = dp_inputs(S, W, 100, seed=3 * S + W)
+    lanes; lane 4 has its endpoint restricted to early rows.  Past 512 the
+    lane is a warp a 512-cell slice (the border exchange, the slices' move
+    rings, the reduction across slices): 528 adds a slice of 16 real cells,
+    1040 a third, 1024 and 2048 are whole slices; 32 lanes there keep every
+    kind of edge lane."""
+    n = 100 if W <= 512 else 32
+    q, tpad, tmax, seg_q, active = dp_inputs(S, W, n, seed=3 * S + W)
     seg_q[4] = S // 3
     args = [torch.as_tensor(a) for a in (q, tpad, tmax, seg_q, active)]
     got = dp_segment_best_wavefront(*args, S, W, want_moves=True)
@@ -43,7 +49,7 @@ def test_wavefront_matches_plain(S, W):
         assert g.dtype == torch.int32, name
         assert torch.equal(g, w), name
     r_best = got[1]
-    assert int((r_best > 0).sum()) > 80
+    assert int((r_best > 0).sum()) > 0.8 * n
     assert torch.equal(_readable(got[0], r_best, S),
                        _readable(want[0], r_best, S))
     assert not bool(got[0][~args[4]].any())   # an inactive lane writes none
@@ -116,13 +122,16 @@ def _packed(codes, last, W):
     return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
-@pytest.mark.parametrize("W", list(range(16, 513, 16)))
+@pytest.mark.parametrize("W", list(range(16, 513, 16)) + [528, 1024, 1040,
+                                                          2048])
 def test_move_ring_assembles_every_row_at_every_band(W):
     """The kernel's move bytes: nibbles joined across iterations and
     threads, a ring of 128 rows (160 at W > 192, up to 288 at W > 448)
     flushed every 32 rows, the rest after the last row and zeros past it,
-    for each band width the kernels take, at lasts around the flush and
-    ring boundaries."""
+    for each band width the kernels take up to 512, at lasts around the
+    flush and ring boundaries; past 512 a ring of 288 rows for each warp's
+    slice, flushed on the slice's own schedule, and partial slices (528,
+    1040) written word by word."""
     S = 512
     rng = np.random.default_rng(W)
     for last in (0, 1, 31, 32, 33, 127, 160, 161, 287, 288, 289, 300, S):

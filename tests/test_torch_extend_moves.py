@@ -166,9 +166,10 @@ def test_rows_and_tapes_from_the_slots_equal_jax(form):
     _assert_like_jax(got, want, 12)
 
 
-@pytest.mark.parametrize("W", [32, 48, 96, 160, 256, 384, 512])
+@pytest.mark.parametrize("W", [32, 48, 96, 160, 256, 384, 512, 528, 1024,
+                               2048])
 def test_plain_rows_equal_jax_at_every_band(W):
-    S = 128 if W <= 256 else 64
+    S = 128 if W <= 256 else 64 if W <= 512 else 32
     args = pair_inputs(12, 1024, seed=W)
     kw = dict(S=S, W=W, max_segs=10)
     got = port.extend_pair_batch_rows(*(torch.as_tensor(a) for a in args),
@@ -177,11 +178,14 @@ def test_plain_rows_equal_jax_at_every_band(W):
     _assert_like_jax(got, want, 6)
 
 
-def test_band_check_takes_the_multiples_of_16_up_to_512():
-    for W in range(16, 513, 16):
+def test_band_check_takes_the_multiples_of_16_up_to_band_max():
+    """Every multiple of 16 up to BAND_MAX, which six 36 KB move rings a
+    lane set at 3072; nothing else, past it or not a multiple of 16."""
+    assert dp_kernel.BAND_MAX == 3072
+    for W in range(16, dp_kernel.BAND_MAX + 1, 16):
         dp_kernel.check_band(W)
-    for W in (0, -16, 8, 24, 40, 100, 255, 520, 528, 1024):
-        with pytest.raises(ValueError, match="512"):
+    for W in (0, -16, 8, 24, 40, 100, 255, 520, dp_kernel.BAND_MAX + 16):
+        with pytest.raises(ValueError, match=str(dp_kernel.BAND_MAX)):
             dp_kernel.check_band(W)
 
 

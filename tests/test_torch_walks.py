@@ -6,7 +6,10 @@ versions of the three walk kernels against the JAX package, exact.
 words (every code, negative words, walks that break) with lanes whose
 seg_qlen is -1, 0, S or S + 3 and whose w_end is -1, 0, W - 1 or W;
 ``deposit_scan_plain`` against ``mecat_tpu.ops.consensus_banded.
-_deposit_scan`` on the rows of real walks and on random rows.  The public
+_deposit_scan`` on the rows of real walks and on random rows, at band
+widths up to 2048 (a DP lane of several warps past 512).  NumPy models of
+the kernels' orders (``testing.walk_rows_words``, ``walk_cols_rows``,
+``deposit_scan_warp``) are held against the plain versions.  The public
 names take the plain versions for CPU tensors without touching
 ``ops/walk_kernel``.  The kernels themselves are held against these plain
 versions in tests/test_torch_cuda.py.
@@ -24,9 +27,11 @@ from mecat_tpu.ops import consensus_banded as ref_cb
 from mecat_tpu_torch.ops import align, walk_kernel
 from mecat_tpu_torch.ops import consensus_banded as cb
 from mecat_tpu_torch.testing import (deposit_inputs, deposit_scan_warp,
-                                     walk_inputs, walk_rows_words)
+                                     walk_cols_rows, walk_inputs,
+                                     walk_rows_words)
 
-SHAPES = [(24, 32), (40, 64), (32, 128), (24, 384), (16, 512)]
+SHAPES = [(24, 32), (40, 64), (32, 128), (24, 384), (16, 512), (24, 528),
+          (16, 1024), (16, 2048)]
 
 
 def _t(*arrays):
@@ -73,9 +78,14 @@ def test_traceback_ops_plain_matches_jax_on_random_words(S, W, max_cols):
     maxc = max_cols or 2 * S + W
     assert got[0].shape == (48, maxc)
     assert n_cols[0] == 0 and (n_cols == maxc).any() and (n_cols < maxc).any()
+    # the column-walk kernel's row steps, on the same words
+    model = walk_cols_rows(moves, seg_qlen, w_end, W, max_cols)
+    np.testing.assert_array_equal(model[0], np.asarray(want[0]))
+    np.testing.assert_array_equal(model[1], np.asarray(want[3]))
 
 
-@pytest.mark.parametrize("S,W", [(40, 64), (32, 128), (24, 384), (16, 512)])
+@pytest.mark.parametrize("S,W", [(40, 64), (32, 128), (24, 384), (16, 512),
+                                 (16, 528), (24, 1024), (16, 2048)])
 @pytest.mark.parametrize("rows_from", ["walk", "random"])
 def test_deposit_scan_plain_matches_jax(S, W, rows_from):
     walk = None
@@ -112,7 +122,32 @@ def test_row_walk_kernel_model_matches_plain(S, W):
     assert (got[0] == align.MOVE_VERT).any()
 
 
-@pytest.mark.parametrize("S,W", [(40, 64), (100, 64), (72, 128), (24, 384)])
+@pytest.mark.parametrize("S,W", SHAPES + [(40, 16), (40, 48), (40, 80),
+                                          (72, 160), (24, 272), (30, 1040)])
+@pytest.mark.parametrize("max_cols", [0, 64, 30, 61])
+def test_col_walk_kernel_model_matches_plain(S, W, max_cols):
+    """The column-walk kernel's row steps (the row's exit by the two-word
+    test, its run of horizontal codes and the exit emitted at once, the
+    slow step's flat, clipped reads down the rows below, row 0's leading
+    deletions, the cut after exactly MAXC columns, tape words shared with
+    the next lane where MAXC % 4 != 0) on random words with the edge lanes,
+    which break paths and run them sideways across rows, and on walks
+    longer than MAXC.  Lane 47's words are all horizontal: its run passes
+    row 1 into word 0 read again and again, to the cut."""
+    moves, seg_qlen, w_end = walk_inputs(S, W, 48, seed=7 * S + W)
+    moves[47] = -1
+    seg_qlen[47], w_end[47] = S, W // 2
+    got = walk_cols_rows(moves, seg_qlen, w_end, W, max_cols)
+    want = align.traceback_ops_plain(*_t(moves, seg_qlen, w_end), W,
+                                     max_cols=max_cols)
+    np.testing.assert_array_equal(got[0], want[0].numpy(), err_msg="ops")
+    np.testing.assert_array_equal(got[1], want[3].numpy(), err_msg="n_cols")
+    maxc = max_cols or 2 * S + W
+    assert got[1][47] == maxc and (got[1] < maxc).any()
+
+
+@pytest.mark.parametrize("S,W", [(40, 64), (100, 64), (72, 128), (24, 384),
+                                 (24, 1024)])
 @pytest.mark.parametrize("rows_from", ["walk", "random"])
 def test_deposit_kernel_model_matches_plain(S, W, rows_from):
     """The deposit kernel's order (passes of 32 rows, keys with the base's
