@@ -33,9 +33,10 @@ non-zero exit and no result line:
    128) the wrapper alone as for the counts loop.  Every DP-family kernel
    (both per-segment kernels, both loops, the row and the column walk) at
    the band widths 32, 48, 96, 160, 256, 272, 384, 512, 528, 1024 and 2048
-   (past 512 a DP lane of several warps) against its plain version, and
-   the deposit scan on the rows of that row walk and on random rows; at
-   512, 1024 and 2048 each wrapper's ms of one launch from the host.
+   (past 512 a DP lane of several warps) against its plain version, the
+   deposit scan on the rows of that row walk and on random rows, and the
+   tag fold's two kernels on 64 pairs of ``testing.fold_inputs``; at 512,
+   1024 and 2048 each wrapper's ms of one launch from the host.
    Then both DP wrappers alone
    (``ops/dp_kernel``, nothing around them) at the shapes the paths
    launch: (512, 128), full-length segments, 64 / 256 / 1,024 / 4,096 live
@@ -50,7 +51,15 @@ non-zero exit and no result line:
    random rows.  Each wrapper alone on the first set: ms of one launch from
    the host and from a CUDA graph, the plain version's ms, the bound, ns a
    dependent step of the longest lane (for the column walk a row step,
-   its columns beside it) (``--kernels-only`` stops here).
+   its columns beside it).  The tag fold's two kernels of
+   ``csrc/cns_fold.cu`` (the planes and the fold of every correction
+   chunk) against their plain versions at (512, 128), every element of the
+   planes, counts and cov_diff: the row walks of 128 and of 64
+   ``testing.extend_inputs`` pairs of 8,192 bases (a cns and a polish
+   chunk) and 128 edge pairs of ``testing.fold_inputs``; each wrapper alone
+   on the 128-pair chunk: ms of one launch from the host and from a CUDA
+   graph, the plain version's ms, for the fold one ``index_add_`` of the
+   int32 presence buffer, the bound (``--kernels-only`` stops here).
    The ``roll_micro`` family, 2048
    lanes (the tool's own lanes plus lanes with varied tmax and segq): all 8
    output rows of each of the five variants equal on every lane; then the
@@ -64,7 +73,8 @@ non-zero exit and no result line:
    then the CLI ``mecat2cns -i 0 -a 300 -l 500 --extend-batch 32
    --align-band 384`` on the same pile with ``--device cuda`` and with
    ``--device cpu``: byte-equal corrected reads, and the CUDA run's summary
-   must show the move loop and both correction walks;
+   must show the move loop, both correction walks and the tag fold's two
+   kernels (as must the golden cns run);
 4. the bench workload (500 kb genome, 15x, mean 5 kb, 12 % error, seeds
    91/92; k 13, stride 10, N 16, S 512, W 128, 30 segments, B 128, L 8192)
    through ``overlap_step``: a warm-up batch, then ``--passes`` (default 3)
@@ -190,8 +200,9 @@ and 13b, the ranks of 13d and the
 bench and scaling processes of phase 14 are processes of their own and
 report their own counts (the dry run's and the scaling report's summed
 over their ranks; the bench's of its timed overlap window and its steady
-cns pass).  The row walk and the deposit scan must launch on every
-correction path (phases 6, 7, 10, 11, 12, 13c, 13d, 14c), the column walk
+cns pass).  The row walk, the deposit scan and the tag fold's planes and
+fold must launch on every correction path (phases 3, 6, 7, 10, 11, 12,
+13c, 13d, the dry run, 14c), the column walk
 on every mapping run (both of 8, and 9); every counts path (phases 4, 5, 8, 9, 11, 12,
 13b-13d, 14c, 14d) must launch the segment-loop kernel and never the
 per-segment counts kernel, whose body runs inside it; every correction,
@@ -235,6 +246,21 @@ WALK_REPLACES = {
     "traceback_ops": "mecat_tpu/ops/align.py:234",            # scan :283
 }
 
+FOLD_SOURCE = "mecat_tpu_torch/csrc/cns_fold.cu"
+#: each tag-fold kernel -> the reference's function whose device scans it
+#: replaces
+FOLD_REPLACES = {
+    # window scan :249, side-band associative scan :256 (_segmented)
+    "global_planes": "mecat_tpu/ops/consensus_banded.py:267",
+    # banded_presence :347 and the one-hot matmul fold :381
+    "fold_tags": "mecat_tpu/ops/consensus_banded.py:368",
+}
+#: each tag-fold kernel -> its launch counter's short name
+FOLD_SHORT = {"global_planes": "planes", "fold_tags": "fold"}
+#: the cns chunk's template width in phase 2's path cases (templates of the
+#: bench reads, mean 5 kb)
+FOLD_L_T = 8192
+
 # The card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet):
 # 3.35 TB/s of HBM, and for int32 a quarter of the 67 TFLOP/s float32
 # figure: an FMA counts as two FLOPs, and an SM has half as many INT32
@@ -261,6 +287,10 @@ ROLL_LANES = 2048   # the tool's default
 #: walk a tape column
 WALK_OPS = dict(row_chunk=20, row=12, deposit_row=24, gap_cell=3,
                 deposit_char=6, col_step=16)
+#: int32 operations of the tag fold's kernels: the planes kernel an output
+#: column and a side-band entry; the fold a column and an add on a present
+#: cell
+FOLD_OPS = dict(planes_col=12, planes_entry=40, fold_col=10, fold_add=4)
 
 #: band widths held in phase 2 besides the paths' 64 and 128: every other
 #: DP kernel instance (C = 2, 4, ..., 16 cells a thread) with and without
@@ -293,23 +323,29 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+#: the kernels of ops/walk_kernel, by the short names of their counters
+WALK_KERNELS = ("rows", "deposit", "cols", "planes", "fold")
+#: the kernels every correction path must launch
+CORRECTION_KERNELS = ("rows", "deposit", "planes", "fold")
+
+
 def zero_walk_counts() -> None:
-    """Set the three walk kernels' launch counters to 0."""
+    """Set the launch counters of the walks and the tag fold to 0."""
     from mecat_tpu_torch.ops import walk_kernel as wk
 
     wk.LAUNCHES_ROWS = wk.LAUNCHES_DEPOSIT = wk.LAUNCHES_COLS = 0
+    wk.LAUNCHES_PLANES = wk.LAUNCHES_FOLD = 0
 
 
 def need_walks(where: str, counts: dict,
-               kernels=("rows", "deposit")) -> dict:
-    """The walk launches of ``counts`` (a metrics summary, a bench line or
-    ``walk_kernel.launches()``); raises unless each of ``kernels`` was
-    launched."""
-    walks = {k: counts.get(f"walk_launches_{k}", 0)
-             for k in ("rows", "deposit", "cols")}
+               kernels=CORRECTION_KERNELS) -> dict:
+    """The launches of the walks and the tag fold in ``counts`` (a metrics
+    summary, a bench line or ``walk_kernel.launches()``); raises unless each
+    of ``kernels`` was launched."""
+    walks = {k: counts.get(f"walk_launches_{k}", 0) for k in WALK_KERNELS}
     missing = [k for k in kernels if walks[k] <= 0]
     if missing:
-        raise AssertionError(f"{where} did not go through the walk kernels "
+        raise AssertionError(f"{where} did not go through the kernels "
                              f"{missing}: {walks}")
     return walks
 
@@ -811,7 +847,8 @@ def phase_widths() -> tuple:
     on every lane, the move words on every row: the plain version's up to
     the last row computed, zeros after), the row and the column walk on the
     move kernel's words, the deposit scan on the rows of that row walk and
-    on random rows, the counts loop on 256 direction lanes of
+    on random rows, the tag fold's planes and fold on 64 pairs of
+    ``fold_inputs``, the counts loop on 256 direction lanes of
     ``extend_inputs`` pairs and the move loop on the same pairs, each
     against its plain version.  At the widths of BAND_TIMED each kernel's
     wrapper alone on those inputs, ms of one launch from the host (median
@@ -821,13 +858,13 @@ def phase_widths() -> tuple:
     from mecat_tpu_torch import constants as C
     from mecat_tpu_torch.ops import align, consensus_banded
     from mecat_tpu_torch.testing import (deposit_inputs, dp_inputs,
-                                         extend_inputs)
+                                         extend_inputs, fold_case)
 
     dev = torch.device("cuda")
     S = 128
     err = dict.fromkeys(("dp_segment_best", "dp_segment_best_moves",
                          "extend_counts", "extend_moves", "traceback_rows",
-                         "traceback_ops", "deposit_scan"), 0)
+                         "traceback_ops", "deposit_scan", *FOLD_REPLACES), 0)
 
     def check(name, got, want, W):
         for g, w in zip(got, want):
@@ -859,6 +896,9 @@ def phase_widths() -> tuple:
             dep = [torch.as_tensor(a, device=dev) for a in dep]
             check("deposit_scan", consensus_banded._deposit_scan(*dep, W),
                   consensus_banded.deposit_scan_plain(*dep, W), W)
+        fplanes, ffold = fold_case(dev, S, W, 900, "edge", B=64,
+                                   seed=241 + W)
+        fwant = check_fold(err, fplanes, ffold, S, W, 900, "fold_inputs")
         TC = align.max_tape_cols(S, W, C.MIN_SEGMENT_IDENTITY)
         check("traceback_ops",
               align.traceback_ops(moves, r_best, w_best, W, TC),
@@ -898,7 +938,11 @@ def phase_widths() -> tuple:
                     moves, r_best, w_best, W),
                 "traceback_ops": lambda: wk.traceback_ops_cuda(
                     moves, r_best, w_best, W, TC),
-                "deposit_scan": lambda: wk.deposit_scan_cuda(*dep, W)}
+                "deposit_scan": lambda: wk.deposit_scan_cuda(*dep, W),
+                "global_planes": lambda: wk.global_planes_cuda(
+                    *fplanes, L_t=900, S=S, W=W),
+                "fold_tags": lambda: wk.fold_tags_cuda(
+                    *ffold[:2], *fwant, *ffold[2:], 900)}
             timed[W] = {name: cuda_median_ms(fn, 11)
                         for name, fn in runs.items()}
             say(f"phase 2: band W={W} (S={S}, 256 lanes), ms of one launch "
@@ -908,7 +952,8 @@ def phase_widths() -> tuple:
             f"lanes, every move word), the row and the column walk on their "
             f"words, the deposit on that walk's rows and on random rows, "
             f"the counts loop and the move loop (256 direction lanes, 16 / 9 "
-            f"segments) == their plain versions")
+            f"segments), the tag fold's planes and fold (64 pairs of "
+            f"fold_inputs, L_t 900) == their plain versions")
     return err, timed
 
 
@@ -1058,6 +1103,193 @@ def phase_walks(S: int, W: int) -> dict:
     return out
 
 
+def _last_writer_bytes(planes, side, u, covered, LG: int) -> int:
+    """The deposit bytes the planes kernel needs from one direction: at
+    each covered local column u [B, L_t] the cell of the highest segment
+    whose clamped window holds it, if that segment is ok (9 bytes; 8 below
+    its lead, where GAP stands in for val0).  A non-ok segment's empties,
+    and a column no segment holds, need no deposit cell."""
+    import torch
+
+    toff, ok, lead = side[:3]
+    LP = planes[0].shape[2]
+    start = toff.long().clamp(0, LG - LP)
+    owner = torch.full_like(u, -1)
+    col = torch.zeros_like(u)
+    for g in range(toff.shape[0]):
+        c = u - start[g][:, None]
+        hit = covered & (c >= 0) & (c < LP)
+        owner = torch.where(hit, g, owner)
+        col = torch.where(hit, c, col)
+    at = owner.clamp(min=0)
+    kept = (owner >= 0) & ok.t().gather(1, at)
+    below = col < lead.t().long().gather(1, at)
+    return int(torch.where(kept, torch.where(below, 8, 9), 0).sum())
+
+
+def fold_bound(plane_args, fold_args, planes, L_t: int, S: int) -> dict:
+    """The bound of each tag-fold kernel on these inputs, with the bytes
+    this data needs.  Planes: the deposit cells that are the last writer of
+    an output column in an ok segment (_last_writer_bytes; the side-band
+    entries read the same cells), the side arrays once, and its three
+    planes written (9 bytes a cell of [B, L_t]).  Fold: pair_ok of every
+    pair and the four other pair arrays of a kept one; g0 and gcnt of the
+    live cells (pair_ok, column < tlen), gpack where gcnt > 0; a 4-byte
+    read-modify-write of each present cell of counts and each cov_diff
+    cell a span ends on.  Operations as FOLD_OPS counts them, the fold's
+    on the live cells."""
+    import torch
+
+    planes_r, planes_l, side_r, side_l, lj_end, tseed = plane_args
+    B = planes[0].shape[0]
+    LG = L_t + planes_r[0].shape[2] + S
+    G2 = planes_r[0].shape[0] + planes_l[0].shape[0]
+    side_bytes = sum(t.numel() * t.element_size()
+                     for t in (*side_r, *side_l, lj_end, tseed))
+    l_idx = torch.arange(L_t, device=tseed.device)[None, :]
+    # the placements, as the kernel clamps them: right over left, the left
+    # flipped
+    ts = tseed.long()[:, None]
+    r = LG + l_idx - (LG + ts).clamp(0, LG + L_t)
+    lf = LG + l_idx - ts.clamp(0, LG + L_t)
+    in_r = (r >= 0) & (r < LG)
+    in_l = ~in_r & (lf >= 0) & (lf < LG)
+    deposit_bytes = (_last_writer_bytes(planes_r, side_r, r, in_r, LG)
+                     + _last_writer_bytes(planes_l, side_l, LG - 1 - lf,
+                                          in_l, LG))
+    planes_b = card_bound(
+        deposit_bytes + side_bytes + 9 * B * L_t,
+        B * L_t * FOLD_OPS["planes_col"] + G2 * B * FOLD_OPS["planes_entry"])
+    counts, cov, tlen, t_slot, pair_ok, tbeg, tend = fold_args
+    g0, gp, gc = planes
+    live = pair_ok[:, None] & (l_idx < tlen[:, None])
+    n_live = int(live.sum())
+    base = (t_slot.long()[:, None] * L_t + l_idx) * (counts[0, 0].numel())
+    cells = [torch.where(live & (g0 >= 0) & (g0 <= 4), base + g0.long(), -1)]
+    for d in range(1, 16):
+        based = ((gp >> (2 * (d - 1))) & 3).long()
+        cells.append(torch.where(live & (gc >= d), base + 5 * d + based, -1))
+    cells = torch.stack(cells).reshape(-1)
+    adds = int((cells >= 0).sum())
+    n_cells = int(torch.unique(cells).numel()) - int(bool((cells < 0).any()))
+    a = tbeg.clamp(0, L_t).long()
+    e = torch.minimum(tend, tlen).clamp(0, L_t).long()
+    span = pair_ok & (e > a)
+    ends = torch.cat([t_slot.long()[span] * (L_t + 1) + a[span],
+                      t_slot.long()[span] * (L_t + 1) + e[span]])
+    n_cov = int(torch.unique(ends).numel())
+    fold_bytes = (B + 16 * int(pair_ok.sum()) + 5 * n_live
+                  + 4 * int((live & (gc > 0)).sum()) + 8 * (n_cells + n_cov))
+    fold_b = card_bound(
+        fold_bytes,
+        n_live * FOLD_OPS["fold_col"] + adds * FOLD_OPS["fold_add"])
+    return {"global_planes": dict(planes_b, deposit_bytes=deposit_bytes),
+            "fold_tags": dict(fold_b, present_cells=n_cells, adds=adds,
+                              live_cells=n_live)}
+
+
+def check_fold(err: dict, plane_args, fold_args, S: int, W: int, L_t: int,
+               what: str):
+    """Both tag-fold kernels against their plain versions on these inputs,
+    every element: the planes, then counts and cov_diff after the fold
+    (from the same starting tables).  Updates the largest difference in
+    ``err``; returns the kernel's planes (contiguous, equal to the plain
+    version's)."""
+    import torch
+
+    from mecat_tpu_torch.ops import consensus_banded as cb
+
+    got = cb.global_planes(*plane_args, L_t=L_t, S=S, W=W)
+    want = cb.banded_global_planes_plain(*plane_args, L_t=L_t, S=S, W=W)
+    counts, cov = fold_args[0].clone(), fold_args[1].clone()
+    cb.fold_tags(counts, cov, *got, *fold_args[2:], L_t)
+    want_c, want_v = fold_args[0].clone(), fold_args[1].clone()
+    cb.fold_tags_plain(want_c, want_v, *want, *fold_args[2:], L_t)
+    torch.cuda.synchronize()
+    for name, pairs in (("global_planes", zip(got, want)),
+                        ("fold_tags", ((counts, want_c), (cov, want_v)))):
+        for g, w in pairs:
+            err[name] = max(err[name], int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"{name} kernel != plain at S={S} W={W} on {what}: "
+                    f"{int((g != w).sum())} elements differ")
+    return got
+
+
+def phase_fold(S: int, W: int) -> dict:
+    """The tag fold's two kernels (``csrc/cns_fold.cu``) against their plain
+    versions at the cns cell's shape, every element: on the row walks of
+    ``testing.extend_inputs`` pairs of FOLD_L_T bases as a cns chunk hands
+    them over, 128 pairs (a cns chunk) and 64 (a polish chunk), and on the
+    edge pairs of ``testing.fold_inputs``.  Then each wrapper alone on the
+    128-pair chunk: ms of one launch from the host and replayed from a CUDA
+    graph, the plain version's ms, for the fold the ms of one
+    ``index_add_`` of the int32 presence buffer into counts (the PyTorch
+    call that computes the fold), and the bound.  Returns {kernel:
+    numbers}."""
+    import torch
+
+    from mecat_tpu_torch.ops import consensus_banded as cb
+    from mecat_tpu_torch.ops import walk_kernel as wk
+    from mecat_tpu_torch.testing import fold_case
+
+    dev = torch.device("cuda")
+    err = dict.fromkeys(FOLD_REPLACES, 0)
+    cases = {}
+    for B, source, L_t in ((128, "path", FOLD_L_T), (64, "path", FOLD_L_T),
+                           (128, "edge", 4096)):
+        plane_args, fold_args = fold_case(dev, S, W, L_t, source, B=B,
+                                          seed=191 + B)
+        want = check_fold(err, plane_args, fold_args, S, W, L_t,
+                          f"{B} pairs of {source} inputs")
+        cases[(B, source)] = (plane_args, fold_args, want, L_t)
+        say(f"phase 2: tag fold kernels == plain at S={S} W={W}, {B} pairs "
+            f"of {source} inputs, L_t {L_t}, "
+            f"{plane_args[0][0].shape[0]} / {plane_args[1][0].shape[0]} "
+            f"segments: planes (g0, gpack, gcnt) and the fold (counts, "
+            f"cov_diff; {int(fold_args[4].sum())} pairs kept): every "
+            f"element equal")
+    plane_args, fold_args, want, L_t = cases[(128, "path")]
+    bounds = fold_bound(plane_args, fold_args, want, L_t, S)
+    counts, cov = fold_args[0].clone(), fold_args[1].clone()
+    T = counts.shape[0]
+    pres = cb.banded_presence(*want, fold_args[2], fold_args[4], L_t).view(
+        want[0].shape[0], -1).to(torch.int32)
+    slot = fold_args[3].long()
+    runs = {
+        "global_planes": (
+            lambda: wk.global_planes_cuda(*plane_args, L_t=L_t, S=S, W=W),
+            lambda: cb.banded_global_planes_plain(*plane_args, L_t=L_t, S=S,
+                                                  W=W), None),
+        "fold_tags": (
+            lambda: wk.fold_tags_cuda(counts, cov, *want, *fold_args[2:],
+                                      L_t),
+            lambda: cb.fold_tags_plain(counts, cov, *want, *fold_args[2:],
+                                       L_t),
+            lambda: counts.view(T, -1).index_add_(0, slot, pres)),
+    }
+    out = {}
+    for name, (fn, plain, library) in runs.items():
+        ms = cuda_median_ms(fn, 21)
+        graph_ms = cuda_graph_ms(fn)
+        plain_ms = cuda_median_ms(plain, 3)
+        library_ms = cuda_median_ms(library, 21) if library else None
+        b = bounds[name]
+        say(f"phase 2: {name} kernel alone at S={S} W={W}, 128 pairs, L_t "
+            f"{L_t}: one launch from the host {ms:.4f} ms, replayed from a "
+            f"CUDA graph {graph_ms:.4f} ms; plain {plain_ms:.2f} ms; "
+            + (f"index_add_ of the presence buffer {library_ms:.4f} ms; "
+               if library else "no PyTorch call computes it; ")
+            + f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
+            + (f" ({b['live_cells']} live cells, {b['present_cells']} "
+               f"present cells, {b['adds']} adds)" if "adds" in b
+               else f" ({b['deposit_bytes']} bytes of deposit cells read)"))
+        out[name] = dict(max_abs_err=err[name], ms=ms, graph_ms=graph_ms,
+                         plain_ms=plain_ms, library_ms=library_ms, **b)
+    return out
+
+
 def phase_roll_micro(S: int, W: int) -> dict:
     """The five roll_micro variants against the plain version at one shape;
     returns {variant: numbers}."""
@@ -1148,20 +1380,25 @@ def phase_golden(work: str) -> dict:
     from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
     from mecat_tpu_torch.testing import GOLDEN_CNS
 
+    from mecat_tpu_torch.ops import walk_kernel
+
     out = os.path.join(work, "corrected.fasta")
     t0 = time.time()
-    before = dp_kernel.launches()
+    before = dp_kernel.launches(), walk_kernel.launches()
     run_cns(os.path.join(golden, "candidates.txt"), reads, out,
             CnsOptions(**GOLDEN_CNS), device="cuda")
-    launches = dp_launches_of(dp_kernel.launches_since(before))
+    launches = dp_launches_of(dp_kernel.launches_since(before[0]))
+    walks = need_walks("the golden cns run",
+                       walk_kernel.launches_since(before[1]))
     with open(out, "rb") as fh, \
             open(os.path.join(golden, "corrected.fasta"), "rb") as gh:
         if fh.read() != gh.read():
             raise AssertionError("golden corrected.fasta differs on the card")
     need_moves_loop("the golden cns run", launches)
     say(f"phase 3: golden corrected.fasta (mecat2cns -i 0) byte-equal on the "
-        f"card ({time.time() - t0:.2f} s; DP launches {launches})")
-    return launches
+        f"card ({time.time() - t0:.2f} s; DP launches {launches}, walk "
+        f"launches {walks})")
+    return dict(launches, walks=walks)
 
 
 def phase_golden_wide(work: str) -> dict:
@@ -1381,10 +1618,11 @@ class StageTimers:
                        "move loop + DP (both directions, cut to G)"),
                       (consensus_banded, "_deposit_scan", "deposit scan"),
                       (consensus_banded, "banded_global_planes",
-                       "global planes (incl. deposit scan)"),
-                      (consensus_banded, "banded_presence", "presence"),
+                       "global planes (deposit scan + planes kernel)"),
+                      (consensus_banded, "global_planes", "planes kernel"),
+                      (consensus_banded, "fold_tags", "fold kernel"),
                       (cns, "banded_accumulate_tags",
-                       "tags total (planes + presence + tally)"),
+                       "tag fold total (deposit + planes + fold)"),
                       (cns, "call_tables", "vote"),
                       (ctgcns, "call_tables", "vote"),
                       (cns, "plan_pairs", "host planning"),
@@ -2490,7 +2728,7 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
             f"{[r['exchange_bytes'] for r in rec[t]]}, launches (segment "
             f"loop, per-segment counts, per-segment moves, move loop) "
             f"{dp_counts}"
-            f", walk launches (rows, deposit, cols) "
+            f", walk launches {WALK_KERNELS} "
             f"{[tuple(need_walks(t, r, ()).values()) for r in rec[t]]}")
     for t in ("overlap-2x2", "pw-2x2", "pw-1x4"):
         need_loop(f"{t} on four ranks",
@@ -2502,8 +2740,7 @@ def phase_dist_ranks(fused: dict, dist1: dict, work: str) -> dict:
                           ("extend_moves", "launches_extend_moves"))})
     ranks_walks = need_walks("run_cns_dist on four ranks", {
         k: sum(r[k] for r in rec["cns-r2"])
-        for k in ("walk_launches_rows", "walk_launches_deposit",
-                  "walk_launches_cols")})
+        for k in (f"walk_launches_{w}" for w in WALK_KERNELS)})
     say(f"phase 13: the four ranks took {wall:.2f} s with process start")
 
     t0 = time.time()
@@ -2796,13 +3033,14 @@ def main(argv=None) -> int:
     widths, widths_ms = phase_widths()
     path_shapes = phase_kernel_path_shapes(*main_sw)
     walks = {(S, W): phase_walks(S, W) for S, W in shapes}
+    fold = phase_fold(*main_sw)
     if args.kernels_only:
         say(json.dumps({"extend": extend[main_sw],
                         "extend_moves": extend_moves[main_sw],
                         "widths": widths, "widths_ms": widths_ms,
                         "path_shapes": {
             "moves" if m else "counts": v for m, v in path_shapes.items()},
-            "walks": walks[main_sw]}))
+            "walks": walks[main_sw], "fold": fold}))
         say(f"card: {card}")
         return 0
     roll = {(S, W): phase_roll_micro(S, W) for S, W in shapes}
@@ -2922,6 +3160,25 @@ def main(argv=None) -> int:
     for k in kernels:
         k["band_widths"] = [64, 128, *BAND_SWEEP]
         k["ms_by_band"] = {W: t[k["name"]] for W, t in widths_ms.items()}
+    def correction_paths(short):
+        # the correction paths: phase 6's cns pass (the main path), phase
+        # 3's golden cns run and its cns CLI at WIDE_BAND, the cns CLI of
+        # phase 7, phase 10's two rounds, the CLIs of phases 11 and 12,
+        # run_cns_dist on one NCCL rank (13c) and summed over four gloo
+        # ranks (13d), the 8-rank dry run, the bench's cns leg
+        return dict(
+            launches=cns["walks"][short],
+            launches_golden_cns=golden_cns["walks"][short],
+            launches_cns_cli=cli_cns["walks"][short],
+            launches_cns_cli_wide=golden_wide["walks"][short],
+            launches_rounds=rounds["walks"][short],
+            launches_pipeline_cli=pipeline["walks"][short],
+            launches_assembly_cli=assembly["walks"][short],
+            launches_dist=dist1["walks"][short],
+            launches_dist_ranks=ranks["ranks_walks"][short],
+            launches_dryrun=ranks["walks"][short],
+            launches_bench=bench_line[f"cns_walk_launches_{short}"])
+
     # the walks of both main paths run S 512, W 128 (mapping's MAXC 704)
     walk_main = walks[(CFG["S"], CFG["W"])]
     for name, short in (("traceback_rows", "rows"),
@@ -2935,22 +3192,7 @@ def main(argv=None) -> int:
                          launches_mapping_wide=ref_wide["walks"][short],
                          launches_mapping_cli=ref_cli[f"walk_launches_{short}"])
         else:
-            # the correction paths: phase 6's cns pass (the main path), the
-            # cns CLIs of phase 7 and of phase 3 at WIDE_BAND, phase 10's two
-            # rounds, the CLIs of phases
-            # 11 and 12, run_cns_dist on one NCCL rank (13c) and summed over
-            # four gloo ranks (13d), the 8-rank dry run, the bench's cns leg
-            paths = dict(
-                launches=cns["walks"][short],
-                launches_cns_cli=cli_cns["walks"][short],
-                launches_cns_cli_wide=golden_wide["walks"][short],
-                launches_rounds=rounds["walks"][short],
-                launches_pipeline_cli=pipeline["walks"][short],
-                launches_assembly_cli=assembly["walks"][short],
-                launches_dist=dist1["walks"][short],
-                launches_dist_ranks=ranks["ranks_walks"][short],
-                launches_dryrun=ranks["walks"][short],
-                launches_bench=bench_line[f"cns_walk_launches_{short}"])
+            paths = correction_paths(short)
         kernels.append({
             "name": name, "route": "cuda", "source": WALK_SOURCE,
             "replaces": WALK_REPLACES[name], **paths,
@@ -2969,6 +3211,21 @@ def main(argv=None) -> int:
                                     "ns_step", "bound_ms")},
             # no single PyTorch call computes a banded walk or deposit
             "library_ms": None})
+    # the tag fold of every correction chunk, at the cns cell's S 512, W 128
+    for name, short in FOLD_SHORT.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": FOLD_SOURCE,
+            "replaces": FOLD_REPLACES[name], **correction_paths(short),
+            "max_abs_err": max(fold[name]["max_abs_err"], widths[name]),
+            # library_ms: the fold's is one index_add_ of the presence
+            # buffer; no PyTorch call computes the planes
+            **{k: fold[name][k]
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_by", "graph_ms", "deposit_bytes",
+                         "live_cells", "present_cells", "adds")
+               if k in fold[name]},
+            "band_widths": [128, *BAND_SWEEP],
+            "ms_by_band": {W: t[name] for W, t in widths_ms.items()}})
     # the tool runs S 512, W 128; the family's headline numbers are `full`'s
     roll_main = roll[(512, 128)]
     kernels.append({

@@ -38,7 +38,8 @@ that path) and of the steady cns pass (``cns_dp_launches_extend_moves`` of
 the move loop, one a chunk, beside ``cns_dp_launches_moves`` of the
 per-segment move kernel, 0 on that path), and the
 walk kernels' launches of that pass (``cns_walk_launches_rows`` /
-``_deposit`` / ``_cols``): 0 on the CPU.
+``_deposit`` / ``_cols``, and the tag fold's ``_planes`` / ``_fold``): 0
+on the CPU.
 """
 from __future__ import annotations
 

@@ -42,8 +42,12 @@ const char kDecode[4] = {'A', 'C', 'G', 'T'};
 
 thread_local std::string g_error;
 
+// The file's bytes; empty with g_error set on failure.  An empty file is
+// told from a failed read by g_error, so it is cleared first: an error of
+// an earlier call must not stick to this one.
 std::vector<char> read_whole_file(const char* path) {
   std::vector<char> buf;
+  g_error.clear();
   FILE* f = fopen(path, "rb");
   if (!f) { g_error = std::string("cannot open ") + path; return buf; }
   fseek(f, 0, SEEK_END);

@@ -23,7 +23,11 @@ wrap the same way; ``torch.arange`` and Python scalars are never allowed to
 promote a plane to int64.  Computed slice starts go through
 :func:`..ops.align.dynamic_slice_start`.  The S-step deposit scan runs as
 one kernel launch for CUDA tensors (``csrc/cns_walk.cu``) and as a Python
-loop of small torch ops, :func:`deposit_scan_plain`, for CPU tensors.
+loop of small torch ops, :func:`deposit_scan_plain`, for CPU tensors; so do
+the global planes (:func:`global_planes`, plain version
+:func:`banded_global_planes_plain`) and the fold of the planes into the
+tables (:func:`fold_tags`, plain version :func:`fold_tags_plain`), both in
+``csrc/cns_fold.cu``.
 """
 from __future__ import annotations
 
@@ -214,29 +218,31 @@ def _or_reduce(x: torch.Tensor, dim: int):
     return x[..., 0]
 
 
-def _planes_from_rowinfo(infos, oks, leads, S: int, W: int):
-    """ONE deposit scan over every direction's segments, then per-direction
-    leading-deletion GAP marks.  Returns a list of (val0, ipack, icnt)
-    [G, B, LP] tuples, one per input info."""
-    half = W // 2
-    LP = S + half - 1
-    shapes = [i["wo"].shape for i in infos]
-    flat = lambda k: torch.cat([i[k].reshape(-1, S) for i in infos], dim=0)
-    v0, ip, ic = _deposit_scan(flat("wo"), flat("aw"), flat("h"), flat("mv"),
-                               flat("vbase"), flat("delta"),
-                               flat("keep_ins"), W)
-    out = []
-    ofs = 0
-    c_iota = _iota(LP, v0.device)[None, None, :]
-    for (G, B, _), ok, lead in zip(shapes, oks, leads):
-        n = G * B
-        p0, pp, pc = (a[ofs:ofs + n].reshape(G, B, LP) for a in (v0, ip, ic))
-        ofs += n
-        p0 = torch.where(ok[:, :, None] & (c_iota < lead[:, :, None]),
-                         torch.tensor(GAP, dtype=torch.int8,
-                                      device=p0.device), p0)
-        out.append((p0, pp, pc))
-    return out
+def plane_inputs(right_rows, left_rows, q: torch.Tensor, qseed: torch.Tensor,
+                 S: int, W: int):
+    """Both directions' row walks -> the inputs of the global planes: ONE
+    deposit scan over every direction's segments, cut into each direction's
+    local planes (val0, ipack, icnt) [G, B, LP] (views of the scan's
+    output), and each direction's side arrays (toff, ok, lead, bnd_pack,
+    bnd_cnt) [G, B], with the left direction's j_end [G_l, B].
+
+    Returns (planes_r, planes_l, side_r, side_l, lj_end), the first five
+    arguments of :func:`banded_global_planes_plain`.
+    """
+    ri, rbp, rbc, rtoff, _, rlead, rok = direction_rowinfo(
+        right_rows, q, qseed, S, W, left=False)
+    li, lbp, lbc, ltoff, lj_end, llead, lok = direction_rowinfo(
+        left_rows, q, qseed, S, W, left=True)
+    LP = S + W // 2 - 1
+    flat = lambda k: torch.cat([ri[k].reshape(-1, S), li[k].reshape(-1, S)],
+                               dim=0)
+    dep = _deposit_scan(flat("wo"), flat("aw"), flat("h"), flat("mv"),
+                        flat("vbase"), flat("delta"), flat("keep_ins"), W)
+    n = rok.numel()
+    planes_r = tuple(a[:n].view(*rok.shape, LP) for a in dep)
+    planes_l = tuple(a[n:].view(*lok.shape, LP) for a in dep)
+    return (planes_r, planes_l, (rtoff, rok, rlead, rbp, rbc),
+            (ltoff, lok, llead, lbp, lbc), lj_end)
 
 
 def _update_rows(dst: torch.Tensor, src: torch.Tensor, start: torch.Tensor):
@@ -248,8 +254,9 @@ def _update_rows(dst: torch.Tensor, src: torch.Tensor, start: torch.Tensor):
     return dst.scatter_(1, idx, src)
 
 
-def _window_write(planes, toff, ok, LG: int):
-    """Forward pass of per-segment window writes into [B, LG] planes.
+def _window_write(planes, toff, ok, lead, LG: int):
+    """Forward pass of per-segment window writes into [B, LG] planes, the
+    leading-deletion GAP marks (chars below ``lead``) put on first.
 
     Clobber-safe: every true cell of segment g sits below segment g+1's
     window start, so later windows only overwrite empty tails.  Non-applied
@@ -259,6 +266,9 @@ def _window_write(planes, toff, ok, LG: int):
     G, B, LP = v0.shape
     dev = v0.device
     okx = ok[:, :, None]
+    c_iota = _iota(LP, dev)[None, None, :]
+    v0 = torch.where(okx & (c_iota < lead[:, :, None]),
+                     torch.tensor(GAP, dtype=torch.int8, device=dev), v0)
     g0 = torch.full((B, LG), -1, dtype=torch.int8, device=dev)
     gp = torch.zeros((B, LG), dtype=torch.int32, device=dev)
     gc = torch.zeros((B, LG), dtype=torch.int32, device=dev)
@@ -281,31 +291,31 @@ def _segmented(vals: torch.Tensor, same: torch.Tensor, comb):
     return torch.stack(out)
 
 
-def banded_global_planes(right_rows, left_rows, q, qseed, tseed,
-                         *, L_t: int, S: int, W: int):
-    """Both directions -> global template-coordinate planes [B, L_t].
+def banded_global_planes_plain(planes_r, planes_l, side_r, side_l, lj_end,
+                               tseed, *, L_t: int, S: int, W: int):
+    """Both directions' local planes -> global template-coordinate planes
+    (g0 int8, gpack int32, gcnt int32) [B, L_t]; the plain version of the
+    planes kernel, on any device.
 
-    Assembles each direction's local planes, places them around the seed
-    (left flipped: local char c <-> global tseed-1-c; right at tseed+c),
-    then applies the side-band insertion continuations in global column
-    order (left descending segments, then right ascending) with live delta
-    offsets: base = the assembled plane's run count at the target cell,
-    plus a segmented prefix over same-cell side-band chains.
+    planes_r / planes_l: (val0 int8, ipack, icnt int32) [G, B, LP] from the
+    deposit; side_r / side_l: (toff, ok, lead, bnd_pack, bnd_cnt) [G, B];
+    lj_end int32 [G_l, B]; tseed int32 [B] (:func:`plane_inputs`).  Marks
+    each segment's leading deletions, writes the segments' windows in
+    order, places both directions around the seed (left flipped: local char
+    c <-> global tseed-1-c; right at tseed+c), then applies the side-band
+    insertion continuations in global column order (left descending
+    segments, then right ascending) with live delta offsets: base = the
+    assembled plane's run count at the target cell, plus a segmented prefix
+    over same-cell side-band chains.
     """
-    B = q.shape[0]
-    half = W // 2
-    LP = S + half - 1
+    rtoff, rok, rlead, rbp, rbc = side_r
+    ltoff, lok, llead, lbp, lbc = side_l
+    B = tseed.shape[0]
+    LP = S + W // 2 - 1
     LG = L_t + LP + S
-    dev = q.device
-
-    ri, rbp, rbc, rtoff, _, rlead, rok = direction_rowinfo(
-        right_rows, q, qseed, S, W, left=False)
-    li, lbp, lbc, ltoff, lj_end, llead, lok = direction_rowinfo(
-        left_rows, q, qseed, S, W, left=True)
-    planes_r, planes_l = _planes_from_rowinfo(
-        [ri, li], [rok, lok], [rlead, llead], S, W)
-    r0, rp, rc = _window_write(planes_r, rtoff, rok, LG)
-    l0, lp, lc = _window_write(planes_l, ltoff, lok, LG)
+    dev = tseed.device
+    r0, rp, rc = _window_write(planes_r, rtoff, rok, rlead, LG)
+    l0, lp, lc = _window_write(planes_l, ltoff, lok, llead, LG)
 
     Lb = LG + L_t + LG  # buffer origin LG: left placement never underflows
 
@@ -361,6 +371,34 @@ def banded_global_planes(right_rows, left_rows, q, qseed, tseed,
     return g0[:, o:o + L_t], gp[:, o:o + L_t], gc[:, o:o + L_t]
 
 
+def global_planes(planes_r, planes_l, side_r, side_l, lj_end, tseed, *,
+                  L_t: int, S: int, W: int):
+    """The global planes of :func:`banded_global_planes_plain`; the planes
+    kernel for CUDA tensors.
+
+    CPU tensors take the plain version; CUDA tensors launch the planes
+    kernel (``csrc/cns_fold.cu`` through :mod:`.walk_kernel`), which
+    raises on what it does not take.
+    """
+    if tseed.device.type == "cpu":
+        return banded_global_planes_plain(planes_r, planes_l, side_r, side_l,
+                                          lj_end, tseed, L_t=L_t, S=S, W=W)
+    from .walk_kernel import global_planes_cuda
+
+    dense = lambda ts: tuple(t.contiguous() for t in ts)
+    return global_planes_cuda(planes_r, planes_l, dense(side_r),
+                              dense(side_l), lj_end.contiguous(),
+                              tseed.contiguous(), L_t=L_t, S=S, W=W)
+
+
+def banded_global_planes(right_rows, left_rows, q, qseed, tseed,
+                         *, L_t: int, S: int, W: int):
+    """Both directions -> global template-coordinate planes [B, L_t]: the
+    deposit (:func:`plane_inputs`), then :func:`global_planes`."""
+    return global_planes(*plane_inputs(right_rows, left_rows, q, qseed, S, W),
+                         tseed, L_t=L_t, S=S, W=W)
+
+
 def banded_presence(g0, gpack, gcnt, tlen, pair_ok, L_t: int,
                     max_delta: int = C.MAX_INS_DELTA):
     """Global planes -> the per-pair tag presence buffer int8
@@ -381,20 +419,17 @@ def banded_presence(g0, gpack, gcnt, tlen, pair_ok, L_t: int,
     return pres
 
 
-def banded_accumulate_tags(counts, cov_diff, right_rows, left_rows,
-                           qseed, tseed, support, tlen, t_slot, pair_ok,
-                           tbeg, tend, *, L_t: int, S: int, W: int):
-    """Tally one chunk's tags into the per-template tables, IN PLACE.
+def fold_tags_plain(counts, cov_diff, g0, gpack, gcnt, tlen, t_slot,
+                    pair_ok, tbeg, tend, L_t: int):
+    """Fold one chunk's global planes into the per-template tables, IN
+    PLACE; the plain version of the fold kernel, on any device.
 
-    counts int32 [T, L_t, D1, 5] and cov_diff int32 [T, L_t + 1] are
-    updated in place and returned.  The reference folds the presence buffer
-    with an int8 x int8 -> int32 one-hot matmul; torch has no integer
-    matmul on CUDA, so the fold is an exact ``index_add_`` over the pairs'
-    table slots (a masked pair's presence is all zero).
+    The reference folds the presence buffer with an int8 x int8 -> int32
+    one-hot matmul; torch has no integer matmul on CUDA, so this is an
+    exact ``index_add_`` of the presence buffer, cast to int32, over the
+    pairs' table slots (a masked pair's presence is all zero).
     """
-    g0, gpk, gcn = banded_global_planes(
-        right_rows, left_rows, support, qseed, tseed, L_t=L_t, S=S, W=W)
-    pres = banded_presence(g0, gpk, gcn, tlen, pair_ok, L_t)
+    pres = banded_presence(g0, gpack, gcnt, tlen, pair_ok, L_t)
     B = pres.shape[0]
     T = counts.shape[0]
     slot = t_slot.long()
@@ -408,3 +443,33 @@ def banded_accumulate_tags(counts, cov_diff, right_rows, left_rows,
     cov_diff.index_put_((slot, a), span, accumulate=True)
     cov_diff.index_put_((slot, b), -span, accumulate=True)
     return counts, cov_diff
+
+
+def fold_tags(counts, cov_diff, g0, gpack, gcnt, tlen, t_slot, pair_ok,
+              tbeg, tend, L_t: int):
+    """The fold of :func:`fold_tags_plain`; the fold kernel for CUDA
+    tensors (``csrc/cns_fold.cu`` through :mod:`.walk_kernel`): atomic adds
+    on the present cells only, no presence buffer."""
+    if counts.device.type == "cpu":
+        return fold_tags_plain(counts, cov_diff, g0, gpack, gcnt, tlen,
+                               t_slot, pair_ok, tbeg, tend, L_t)
+    from .walk_kernel import fold_tags_cuda
+
+    return fold_tags_cuda(counts, cov_diff, g0, gpack, gcnt,
+                          *(t.contiguous() for t in (tlen, t_slot, pair_ok,
+                                                     tbeg, tend)), L_t)
+
+
+def banded_accumulate_tags(counts, cov_diff, right_rows, left_rows,
+                           qseed, tseed, support, tlen, t_slot, pair_ok,
+                           tbeg, tend, *, L_t: int, S: int, W: int):
+    """Tally one chunk's tags into the per-template tables, IN PLACE.
+
+    counts int32 [T, L_t, D1, 5] and cov_diff int32 [T, L_t + 1] are
+    updated in place and returned.  On CUDA tensors the deposit, the
+    planes and the fold are one kernel launch each.
+    """
+    g0, gpk, gcn = banded_global_planes(
+        right_rows, left_rows, support, qseed, tseed, L_t=L_t, S=S, W=W)
+    return fold_tags(counts, cov_diff, g0, gpk, gcn, tlen, t_slot, pair_ok,
+                     tbeg, tend, L_t)

@@ -23,7 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 #: every kernel library of the package: name -> source file under csrc/
 SOURCES = {"mecat_dp": "dp_segment.cu", "mecat_roll_micro": "roll_micro.cu",
-           "mecat_walk": "cns_walk.cu"}
+           "mecat_walk": "cns_walk.cu", "mecat_fold": "cns_fold.cu"}
 
 
 def source_path(name: str) -> str:

@@ -8,7 +8,10 @@ Hopper kernel (``csrc/dp_segment.cu``), padded band, move ring
 (``move_rows_ring``) and the lanes of several warps past 512 included, and
 ``walk_rows_words`` / ``deposit_scan_warp`` / ``walk_cols_rows`` the row
 walk, the deposit and the row-stepped column walk as ``csrc/cns_walk.cu``
-does, so the CPU tests can hold each order against the plain version;
+does, and ``global_planes_pairwise`` / ``fold_tags_cells`` the tag fold's
+two kernels (``csrc/cns_fold.cu``) on the edge inputs of ``fold_inputs``
+(``fold_case`` puts them, or a chunk's, on a device), so the CPU tests can
+hold each order against the plain version;
 ``GOLDEN_J1`` / ``GOLDEN_J0`` are the ``PwOptions`` that produced
 ``tests/golden/overlaps.m4`` and ``tests/golden/candidates.txt``, and
 ``GOLDEN_CNS`` the ``CnsOptions`` of ``tests/golden/corrected.fasta``.
@@ -34,6 +37,7 @@ import os
 import numpy as np
 import torch
 
+from . import constants as C
 from .io.fasta import write_fasta
 from .io.m4 import M4Record, format_block
 from .io.packed_db import PackedDB, revcomp
@@ -868,6 +872,276 @@ def deposit_scan_warp(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
         (key >> 8) & 1, (key & 0xFF).astype(np.uint8).view(np.int8), 4))
     return (val0.astype(np.int8), ap.astype(np.uint32).view(np.int32),
             ac.astype(np.int32))
+
+
+def fold_inputs(S: int, W: int, B: int, L_t: int, T: int, seed: int):
+    """Edge inputs of the tag fold's two kernels, as :func:`..ops.
+    consensus_banded.plane_inputs` and the chunk hand them over: deposit
+    planes (val0 in [-1, 4], ipack any int32, icnt 0-20), segments whose
+    target offsets grow by S/2 to S (a prefix of them ok, each left j_end
+    within its segment's step, so side-band cells run in column order),
+    side-band packs and counts, and the pair arrays of the fold.  Pairs 0-11
+    are edge pairs: 0-2 tseed at 0, at L_t and past it; 3 a non-ok segment
+    between ok ones in each direction; 4 the first right window start
+    clamped at 0 and the last at LG - LP; 5 a same-cell side-band chain
+    from the left direction's last entry into the right's first two, which
+    share one offset; 6 that chain with a run count of 13 at its cell, so
+    its second entry starts at off >= MAXD; 7 that chain on an unconsumed
+    anchor (g0 < 0); 8 tend > tlen; 9 tlen and tend past L_t (b == L_t); 10
+    that chain summing past 15 deltas (gcnt > 15); 11 a masked pair (B >=
+    12).  6 right and 5 left segments.
+
+    Returns a dict of numpy arrays: planes_r / planes_l (val0 int8, ipack,
+    icnt int32 [G, B, LP]), side_r / side_l (toff, ok bool, lead, bnd_pack,
+    bnd_cnt [G, B]), lj_end [G_l, B], tseed, tlen, t_slot, tbeg, tend int32
+    and pair_ok bool [B], counts int32 [T, L_t, 16, 5] and cov_diff int32
+    [T, L_t + 1] (small random starting values).
+    """
+    rng = np.random.default_rng(seed)
+    LP = S + W // 2 - 1
+    LG = L_t + LP + S
+    G_r, G_l = 6, 5
+
+    def direction(G):
+        v0 = rng.choice(np.array([-1, 0, 1, 2, 3, 4], np.int8), (G, B, LP),
+                        p=[0.2, 0.2, 0.15, 0.15, 0.15, 0.15])
+        ip = rng.integers(-(1 << 31), 1 << 31, (G, B, LP)).astype(np.int32)
+        ic = np.where(rng.random((G, B, LP)) < 0.8, 0, rng.integers(
+            1, 21, (G, B, LP))).astype(np.int32)
+        step = rng.integers(S // 2, S + 1, (G, B)).astype(np.int32)
+        toff = (np.cumsum(step, axis=0) - step).astype(np.int32)
+        n_ok = rng.integers(0, G + 1, B)
+        ok = np.arange(G)[:, None] < n_ok[None, :]
+        lead = rng.integers(0, W // 2, (G, B)).astype(np.int32)
+        bp = rng.integers(0, 1 << 30, (G, B)).astype(np.int32)
+        bc = np.where(rng.random((G, B)) < 0.5, 0,
+                      rng.integers(1, 21, (G, B))).astype(np.int32)
+        return [v0, ip, ic], [toff, ok, lead, bp, bc], step
+
+    planes_r, side_r, _ = direction(G_r)
+    planes_l, side_l, step_l = direction(G_l)
+    lj_end = (step_l - rng.integers(0, 3, (G_l, B))).astype(np.int32)
+    lj_end[rng.random((G_l, B)) < 0.1] = -1
+    tseed = rng.integers(0, L_t, B).astype(np.int32)
+    tseed[0], tseed[1], tseed[2] = 0, L_t, L_t + 7
+    for side in (side_r, side_l):
+        side[1][:, 3] = True
+        side[1][1, 3] = False                    # a non-ok segment inside
+    side_r[1][:, 4] = True
+    side_r[0][:, 4] -= 37                        # clamped at 0 ...
+    side_r[0][-1, 4] = LG - LP + 50              # ... and at LG - LP
+    for b, icnt, cnt in ((5, 3, (4, 5)), (6, 13, (2, 3)), (7, 3, (4, 5)),
+                         (10, 10, (5, 3))):
+        # the left's last entry and the right's first at global column
+        # tseed - 1; the right's first two segments at one offset
+        side_l[0][:, b] -= side_l[0][0, b]
+        lj_end[0, b] = 0 if b % 2 else -1
+        side_r[0][:, b] -= side_r[0][0, b]
+        side_r[0][1, b] = 0
+        for side in (side_l, side_r):
+            side[1][:, b] = True
+        side_l[4][0, b], side_r[4][0, b] = cnt
+        side_r[4][1, b] = 2
+        side_l[2][0, b] = 0
+        tseed[b] = max(tseed[b], 1)              # the cell is a column
+        planes_l[0][0, b, 0] = -1 if b == 7 else 2
+        planes_l[2][0, b, 0] = icnt
+    tlen = rng.integers(L_t // 2, L_t + 1, B).astype(np.int32)
+    tbeg = (rng.integers(-5, L_t // 2, B)).astype(np.int32)
+    tend = (tbeg + rng.integers(1, L_t // 2, B)).astype(np.int32)
+    tend[8] = tlen[8] + 20
+    tlen[9], tend[9] = L_t + 10, L_t + 20
+    pair_ok = rng.random(B) < 0.85
+    pair_ok[:11] = True
+    pair_ok[11] = False
+    return dict(planes_r=tuple(planes_r), planes_l=tuple(planes_l),
+                side_r=tuple(side_r), side_l=tuple(side_l), lj_end=lj_end,
+                tseed=tseed, tlen=tlen,
+                t_slot=rng.integers(0, T, B).astype(np.int32),
+                pair_ok=pair_ok, tbeg=tbeg, tend=tend,
+                counts=rng.integers(0, 3, (T, L_t, C.MAX_INS_DELTA + 1, 5)
+                                    ).astype(np.int32),
+                cov_diff=rng.integers(-2, 3, (T, L_t + 1)).astype(np.int32))
+
+
+#: the planes kernel's and the fold's pair arrays in fold_inputs, in the
+#: order of their arguments
+PLANE_KEYS = ("planes_r", "planes_l", "side_r", "side_l", "lj_end", "tseed")
+FOLD_KEYS = ("tlen", "t_slot", "pair_ok", "tbeg", "tend")
+
+
+def fold_case(device, S: int, W: int, L_t: int, source: str, B: int = 128,
+              T: int = 16, seed: int = 7):
+    """The tag fold's arguments as tensors on ``device``: (the arguments of
+    ``ops.consensus_banded.banded_global_planes_plain`` but its keywords,
+    [counts, cov_diff, tlen, t_slot, pair_ok, tbeg, tend] of
+    ``fold_tags_plain``).  ``"edge"``: :func:`fold_inputs`; ``"path"``: the
+    deposit and side arrays of the row walks (``ops.align.
+    extend_pair_batch_rows``, L_t // S + 2 segments a direction) of
+    :func:`extend_inputs` pairs of L_t bases, as a cns chunk hands them
+    over, with the pairs' own spans, the identity gate of the correction
+    filter (60 %, 20 columns) and random table slots; zeroed tables."""
+    def on(a):
+        if isinstance(a, tuple):
+            return tuple(on(x) for x in a)
+        return torch.as_tensor(np.array(a), device=device)
+
+    if source == "edge":
+        fi = fold_inputs(S, W, B, L_t, T, seed)
+        return ([on(fi[k]) for k in PLANE_KEYS],
+                [on(fi["counts"]), on(fi["cov_diff"]),
+                 *(on(fi[k]) for k in FOLD_KEYS)])
+    from .ops.align import extend_pair_batch_rows
+    from .ops.consensus_banded import plane_inputs
+
+    q, t, qlen, tlen, qs, ts = (on(a) for a in extend_inputs(B, L_t, S,
+                                                              seed))
+    G = L_t // S + 2
+    pa, rr, lr = extend_pair_batch_rows(q, t, qlen, tlen, qs, ts, S=S, W=W,
+                                        max_segs=G, max_segs_left=G)
+    slot = on(np.random.default_rng(seed).integers(0, T, B).astype(
+        np.int32))
+    pair_ok = (pa.identity >= 60.0) & ((pa.tend - pa.tbeg) >= 20)
+    return [*plane_inputs(rr, lr, q, qs, S, W), ts], [
+        torch.zeros((T, L_t, C.MAX_INS_DELTA + 1, 5), dtype=torch.int32,
+                    device=device),
+        torch.zeros((T, L_t + 1), dtype=torch.int32, device=device),
+        tlen, slot, pair_ok, pa.tbeg, pa.tend]
+
+
+def _i32(x):
+    """int64 values wrapped to int32, as int32 tensor arithmetic wraps."""
+    return ((np.asarray(x, np.int64) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def global_planes_pairwise(planes_r, planes_l, side_r, side_l, lj_end, tseed,
+                           L_t: int, S: int, W: int):
+    """The global planes as ``csrc/cns_fold.cu``'s planes kernel makes them,
+    on numpy arrays, pair by pair: each output column's value found, not
+    replayed (the right placement if it covers the column, else the left
+    one, flipped; in that direction the highest segment whose clamped
+    window holds it: GAP below its lead, the empties where it is not ok or
+    none holds it), then the pair's side-band entries (left descending,
+    right ascending), each reading the placed planes at its cell, chained
+    in order by one loop that writes a group's sum at its last entry where
+    that cell is an output column.  Same arguments and results as
+    ``ops.consensus_banded.banded_global_planes_plain``, as numpy."""
+    planes_r = [np.asarray(a) for a in planes_r]
+    planes_l = [np.asarray(a) for a in planes_l]
+    side_r = [np.asarray(a) for a in side_r]
+    side_l = [np.asarray(a) for a in side_l]
+    lj_end, tseed = np.asarray(lj_end), np.asarray(tseed)
+    B = len(tseed)
+    LP = S + W // 2 - 1
+    LG = L_t + LP + S
+    Lb = 2 * LG + L_t
+    g0 = np.empty((B, L_t), np.int8)
+    gp = np.empty((B, L_t), np.int32)
+    gc = np.empty((B, L_t), np.int32)
+
+    def window(planes, side, b, u):
+        v0, ip, ic = planes
+        toff, ok, lead = side[:3]
+        val = np.full(u.shape, -1, np.int64)
+        pk = np.zeros(u.shape, np.int64)
+        cn = np.zeros(u.shape, np.int64)
+        found = np.zeros(u.shape, bool)
+        for g in range(v0.shape[0] - 1, -1, -1):
+            c = u - min(max(int(toff[g, b]), 0), LG - LP)
+            hit = ~found & (c >= 0) & (c < LP)
+            found |= hit
+            if ok[g, b]:
+                cc = c[hit]
+                val[hit] = np.where(cc < lead[g, b], 4, v0[g, b, cc])
+                pk[hit], cn[hit] = ip[g, b, cc], ic[g, b, cc]
+        return val, pk, cn
+
+    for b in range(B):
+        ts = int(tseed[b])
+        rs = min(max(int(_i32(LG + ts)), 0), Lb - LG)
+        ls = min(max(ts, 0), Lb - LG)
+
+        def placed(x):
+            out = [np.full(x.shape, -1, np.int64),
+                   np.zeros(x.shape, np.int64), np.zeros(x.shape, np.int64)]
+            r, lf = x - rs, x - ls
+            in_r = (r >= 0) & (r < LG)
+            in_l = ~in_r & (lf >= 0) & (lf < LG)
+            for sel, vals in ((in_r, window(planes_r, side_r, b, r[in_r])),
+                              (in_l, window(planes_l, side_l, b,
+                                            LG - 1 - lf[in_l]))):
+                for o, v in zip(out, vals):
+                    o[sel] = v
+            return out
+
+        v, p, c = placed(LG + np.arange(L_t))
+        g0[b], gp[b], gc[b] = v, p, c
+        entries = []
+        for g in range(lj_end.shape[0] - 1, -1, -1):
+            cell = _i32(LG + ts - 1 - _i32(int(side_l[0][g, b])
+                                           + max(int(lj_end[g, b]), 0)))
+            entries.append((int(cell), side_l[3][g, b], side_l[4][g, b],
+                            side_l[1][g, b]))
+        for g in range(side_r[0].shape[0]):
+            cell = _i32(LG + ts + int(side_r[0][g, b]) - 1)
+            entries.append((int(cell), side_r[3][g, b], side_r[4][g, b],
+                            side_r[1][g, b]))
+        prep = []
+        for cell, pack, cnt, ok in entries:
+            cnt = int(cnt) if ok else 0
+            base = at_gp = live = 0
+            if LG <= cell < LG + L_t:
+                at = placed(np.array([cell]))
+                base, at_gp = int(at[2][0]), int(at[1][0])
+                live = cnt > 0 and at[0][0] >= 0
+            prep.append((cell, int(pack), cnt if live else 0, base, live,
+                         at_gp))
+        acc_cnt = acc_pack = 0
+        for k, (cell, pack, cnt, base, live, at_gp) in enumerate(prep):
+            if k == 0 or cell != prep[k - 1][0]:
+                acc_cnt = acc_pack = 0
+            off = int(_i32(base + acc_cnt))
+            shift = min(max(int(_i32(2 * off)), 0), 2 * C.MAX_INS_DELTA)
+            if live and off < C.MAX_INS_DELTA:
+                acc_pack |= ((pack % (1 << 32)) << shift) & ((1 << 30) - 1)
+            acc_cnt = int(_i32(acc_cnt + cnt))
+            last = k == len(prep) - 1 or prep[k + 1][0] != cell
+            if last and acc_cnt > 0:
+                gp[b, cell - LG] = _i32(at_gp | acc_pack)
+                gc[b, cell - LG] = _i32(base + acc_cnt)
+    return g0, gp, gc
+
+
+def fold_tags_cells(counts, cov_diff, g0, gpack, gcnt, tlen, t_slot,
+                    pair_ok, tbeg, tend, L_t: int):
+    """The fold as ``csrc/cns_fold.cu``'s fold kernel does it, on numpy
+    arrays: for each pair with pair_ok, one add of 1 a present cell of
+    counts[t_slot] (the base channel where 0 <= g0 <= 4; delta d at base
+    (gpack >> 2(d-1)) & 3 for d = 1 .. min(gcnt, 15)) over the columns
+    below tlen, and +1 / -1 on cov_diff at the clipped span's ends.
+    Returns new (counts, cov_diff); same arguments as
+    ``ops.consensus_banded.fold_tags_plain``."""
+    counts = np.array(counts, np.int32)
+    cov_diff = np.array(cov_diff, np.int32)
+    g0, gpack, gcnt = (np.asarray(a) for a in (g0, gpack, gcnt))
+    for b in np.nonzero(np.asarray(pair_ok))[0]:
+        slot = int(t_slot[b])
+        n = max(min(int(tlen[b]), L_t), 0)
+        cols = np.arange(n)
+        v = g0[b, :n].astype(np.int64)
+        m = (v >= 0) & (v <= 4)
+        np.add.at(counts, (slot, cols[m], 0, v[m]), 1)
+        pack = gpack[b, :n].astype(np.int64) % (1 << 32)
+        for d in range(1, C.MAX_INS_DELTA + 1):
+            m = gcnt[b, :n] >= d
+            np.add.at(counts, (slot, cols[m], d,
+                               (pack[m] >> (2 * (d - 1))) & 3), 1)
+        a = min(max(int(tbeg[b]), 0), L_t)
+        e = min(max(min(int(tend[b]), int(tlen[b])), 0), L_t)
+        if e > a:
+            cov_diff[slot, a] += 1
+            cov_diff[slot, e] -= 1
+    return counts, cov_diff
 
 
 class DpTally:

@@ -26,7 +26,8 @@ KEYS = {"metric", "value", "unit", "vs_baseline",
         "useful_segments", "batches", "reads", "dp_launches",
         "dp_launches_extend", "cns_dp_launches_moves",
         "cns_dp_launches_extend_moves", "cns_walk_launches_rows",
-        "cns_walk_launches_deposit", "cns_walk_launches_cols"}
+        "cns_walk_launches_deposit", "cns_walk_launches_cols",
+        "cns_walk_launches_planes", "cns_walk_launches_fold"}
 
 _REFERENCE = r'''
 import json, sys
@@ -73,6 +74,8 @@ def test_bench_line_matches_reference_bench():
     assert line["cns_walk_launches_rows"] == 0
     assert line["cns_walk_launches_deposit"] == 0
     assert line["cns_walk_launches_cols"] == 0
+    assert line["cns_walk_launches_planes"] == 0
+    assert line["cns_walk_launches_fold"] == 0
     assert line["overlaps"] > 0 and line["cns_corrected_reads"] > 0
     assert line["baseline_scalar_core_ovl_s"] > 0
     assert line["vs_baseline"] == (line["value"]

@@ -22,6 +22,7 @@ from mecat_tpu_torch.pipeline.device_step import overlap_step
 from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
 from mecat_tpu_torch.testing import (GOLDEN_J1, deposit_inputs, dp_inputs,
                                      dp_inputs_full, extend_inputs,
+                                     fold_case,
                                      moves_as_the_kernels_leave_them,
                                      roll_micro_inputs, walk_inputs)
 
@@ -704,7 +705,8 @@ def test_walk_kernels_match_plain(cuda, S, W, source):
             assert torch.equal(g, w)
     assert walk_kernel.launches_since(before) == {
         "walk_launches_rows": 1, "walk_launches_deposit": 2,
-        "walk_launches_cols": 4}
+        "walk_launches_cols": 4, "walk_launches_planes": 0,
+        "walk_launches_fold": 0}
 
 
 @pytest.mark.parametrize("S,W", [(512, 128), (100, 48)])
@@ -786,3 +788,178 @@ def test_walk_kernels_reject_what_they_do_not_take(cuda):
                     align.traceback_rows_plain(odd, seg_qlen[:63],
                                                w_end[:63], W)):
         assert torch.equal(g, w)
+
+
+
+def _on(dev, a):
+    return torch.as_tensor(np.array(a), device=dev)
+
+@pytest.mark.parametrize("S,W,L_t,source", [
+    (512, 128, 4096, "path"), (512, 128, 2000, "edge"), (128, 64, 2048,
+                                                           "path"),
+    (128, 64, 1200, "edge"), (128, 1024, 900, "edge"),
+    (128, 2048, 700, "edge")])
+def test_tag_fold_kernels_match_plain(cuda, S, W, L_t, source):
+    """The planes kernel and the fold kernel against their plain versions,
+    every element (planes, counts, cov_diff), one launch each."""
+    plane_args, fold_args = fold_case(cuda, S, W, L_t, source)
+    before = walk_kernel.launches()
+    got = consensus_banded.global_planes(*plane_args, L_t=L_t, S=S, W=W)
+    want = consensus_banded.banded_global_planes_plain(*plane_args, L_t=L_t,
+                                                       S=S, W=W)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    counts, cov = fold_args[0].clone(), fold_args[1].clone()
+    consensus_banded.fold_tags(counts, cov, *got, *fold_args[2:], L_t)
+    consensus_banded.fold_tags_plain(fold_args[0], fold_args[1], *want,
+                                     *fold_args[2:], L_t)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, fold_args[0]) and torch.equal(cov, fold_args[1])
+    assert int(counts.sum()) > 1000
+    assert walk_kernel.launches_since(before) == {
+        "walk_launches_rows": 0, "walk_launches_deposit": 0,
+        "walk_launches_cols": 0, "walk_launches_planes": 1,
+        "walk_launches_fold": 1}
+
+
+def test_planes_kernel_writes_every_element_of_uninitialised_buffers(
+        cuda, monkeypatch):
+    """torch.empty hands the planes kernel buffers full of ones; its planes
+    must still equal the plain version's everywhere."""
+    plane_args, _ = fold_case(cuda, 256, 64, 1200, "edge", B=32)
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *size, **kw: real_empty(*size, **kw).fill_(1))
+    got = walk_kernel.global_planes_cuda(*plane_args, L_t=1200, S=256, W=64)
+    monkeypatch.undo()
+    want = consensus_banded.banded_global_planes_plain(*plane_args, L_t=1200,
+                                                       S=256, W=64)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _chunk_case(dev, P=24, L_t=1500, S=128, W=64, T=4, seed=13):
+    """One cns chunk's arguments: supports mutated from slices of one
+    template, seeds on the true diagonal, one padding lane."""
+    from mecat_tpu_torch.utils.sim import mutate, random_genome
+
+    rng = np.random.default_rng(seed)
+    tmpl = random_genome(L_t - 20, seed=seed)
+    sups, qs, ts = [], [], []
+    for _ in range(P):
+        a = int(rng.integers(0, len(tmpl) // 2))
+        b = int(rng.integers(a + 300, len(tmpl) + 1))
+        sups.append(mutate(tmpl[a:b], rng, 0.04, 0.08, 0.04))
+        qs.append(len(sups[-1]) // 2)
+        ts.append(min(a + (b - a) // 2, len(tmpl) - 1))
+    reads = [tmpl] + sups
+    lens = np.array([len(r) for r in reads], np.int32)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    L_s = int(lens.max()) + 64
+    fwd = np.concatenate(reads)
+    vol = np.concatenate([fwd, 3 - fwd[::-1], np.zeros(L_s + 64, np.uint8)])
+    real = np.ones(P, bool)
+    real[-1] = False
+    kw = dict(L_s=L_s, L_t=L_t, S=S, W=W, max_segs=12, max_segs_left=12,
+              min_identity=60.0, min_align_size=100, min_mapping_ratio=0.05)
+    arrays = (np.arange(1, P + 1, dtype=np.int32), np.zeros(P, np.int32),
+              lens[1:], np.full(P, len(tmpl), np.int32),
+              np.array(qs, np.int32), np.array(ts, np.int32),
+              (np.arange(P) % T).astype(np.int32), np.zeros(P, np.int32),
+              real)
+    args = (torch.zeros((T, L_t, 16, 5), dtype=torch.int32, device=dev),
+            torch.zeros((T, L_t + 1), dtype=torch.int32, device=dev),
+            torch.zeros(T, dtype=torch.bool, device=dev), _on(dev, vol),
+            _on(dev, starts), _on(dev, lens), int(lens.sum()),
+            *(_on(dev, a) for a in arrays))
+    return kw, args
+
+
+def test_cns_chunk_on_cuda_launches_planes_and_fold_once(cuda):
+    """One make_cns_chunk on the card: one launch each of the deposit, the
+    planes and the fold, and the CPU run's counts, cov_diff and has."""
+    from mecat_tpu_torch.pipeline.cns import make_cns_chunk
+
+    kw, args = _chunk_case(cuda)
+    before = walk_kernel.launches()
+    got = make_cns_chunk(**kw)(*args)
+    torch.cuda.synchronize()
+    launched = walk_kernel.launches_since(before)
+    assert launched["walk_launches_planes"] == 1
+    assert launched["walk_launches_fold"] == 1
+    assert launched["walk_launches_deposit"] == 1
+    _, cpu_args = _chunk_case("cpu")
+    want = make_cns_chunk(**kw)(*cpu_args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[0].sum()) > 10_000
+
+
+def test_tag_fold_kernels_reject_what_they_do_not_take(cuda):
+    """What only the card can refuse: a CPU tensor among CUDA ones, and a
+    width the planes entry point refuses.  Dtype, shape and contiguity go
+    through planes_args / fold_args, which the CPU tests hold."""
+    plane_args, fold_args = fold_case(cuda, 128, 64, 600, "edge", B=16,
+                                       T=3)
+    planes_fn = walk_kernel.global_planes_cuda
+    fold_fn = walk_kernel.fold_tags_cuda
+    planes = planes_fn(*plane_args, L_t=600, S=128, W=64)
+    bad = list(plane_args)
+    bad[4] = bad[4].cpu()
+    with pytest.raises(ValueError):                 # device
+        planes_fn(*bad, L_t=600, S=128, W=64)
+    with pytest.raises(ValueError):
+        fold_fn(fold_args[0], fold_args[1].cpu(), *planes, *fold_args[2:],
+                600)
+    with pytest.raises(ValueError):                 # a W the kernel refuses
+        planes_fn(*plane_args, L_t=600, S=128, W=63)
+
+
+_BAD_SLOT = """
+import torch
+from mecat_tpu_torch.ops import walk_kernel
+from mecat_tpu_torch.testing import fold_case
+
+dev = torch.device("cuda")
+plane_args, fold_args = fold_case(dev, 128, 64, 600, "edge", B=16, T=3)
+planes = walk_kernel.global_planes_cuda(*plane_args, L_t=600, S=128, W=64)
+slot = fold_args[3].clone()
+slot[int(torch.nonzero(fold_args[4])[0])] = 3
+walk_kernel.fold_tags_cuda(*fold_args[:2], *planes, fold_args[2], slot,
+                           *fold_args[4:], 600)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("raised:", err)
+else:
+    print("no error")
+"""
+
+
+def test_fold_kernel_skips_a_masked_pair_and_traps_on_a_kept_one(cuda):
+    """A pair without pair_ok touches nothing and its t_slot is not read,
+    even one outside [0, T); a kept pair's slot outside [0, T) stops the
+    kernel, and the next synchronisation raises (in a process of its own:
+    the trap ends the CUDA context)."""
+    import subprocess
+    import sys
+
+    plane_args, fold_args = fold_case(cuda, 128, 64, 600, "edge", B=16, T=3)
+    masked = int(torch.nonzero(~fold_args[4])[0])
+    planes = walk_kernel.global_planes_cuda(*plane_args, L_t=600, S=128,
+                                            W=64)
+    slot = fold_args[3].clone()
+    slot[masked] = 1 << 20
+    counts, cov = fold_args[0].clone(), fold_args[1].clone()
+    walk_kernel.fold_tags_cuda(counts, cov, *planes, fold_args[2], slot,
+                               *fold_args[4:], 600)
+    consensus_banded.fold_tags_plain(fold_args[0], fold_args[1], *planes,
+                                     *fold_args[2:], 600)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, fold_args[0]) and torch.equal(cov, fold_args[1])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _BAD_SLOT], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert "raised:" in run.stdout, (run.stdout, run.stderr)

@@ -1,0 +1,339 @@
+"""The tag fold's two kernels (``csrc/cns_fold.cu``) on the CPU: their NumPy
+models against the plain versions and the JAX package, exact equality.
+
+``testing.global_planes_pairwise`` makes the global planes in the planes
+kernel's order (each output column's last writer found, then one pair's
+side-band chains in order) and ``testing.fold_tags_cells`` folds them as the
+fold kernel does (one add a present cell).  Each is held element for
+element against the port's plain version (``banded_global_planes_plain``,
+``fold_tags_plain``) and against ``mecat_tpu.ops.consensus_banded.
+banded_global_planes`` / ``banded_accumulate_tags``: on the correction piles
+of ``test_torch_cns_banded._pile`` (rows from the JAX extension) and on the
+edge inputs of ``testing.fold_inputs``, whose planes reach the JAX functions
+through their own deposit hooks.  CPU tensors take the plain versions and
+never build or load the fold library.
+"""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# small tensors: one thread is as fast, and several test workers share cores
+torch.set_num_threads(1)
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+from mecat_tpu import constants as ref_C
+from mecat_tpu.ops import align as ref_align
+from mecat_tpu.ops import consensus_banded as ref
+from mecat_tpu_torch.ops import consensus_banded as port
+from mecat_tpu_torch.ops import cuda_build, walk_kernel
+from mecat_tpu_torch.pipeline import cns as port_cns
+from mecat_tpu_torch.testing import (FOLD_KEYS, PLANE_KEYS, fold_inputs,
+                                     fold_tags_cells, global_planes_pairwise)
+from test_torch_cns_banded import _pile
+
+D1 = ref_C.MAX_INS_DELTA + 1
+
+#: (S, W) of the piles: the golden and wide cns shapes, and a band past 512
+PILE_WIDTHS = [(256, 64), (512, 128), (512, 640)]
+#: (S, W, L_t) of the edge inputs; W = 1024 is a band past 512
+EDGE_WIDTHS = [(64, 32, 300), (256, 64, 1200), (512, 128, 2000),
+               (128, 1024, 900)]
+
+
+def _tt(a):
+    if isinstance(a, tuple):
+        return tuple(_tt(x) for x in a)
+    return torch.as_tensor(np.array(a))
+
+
+def _jj(a):
+    if isinstance(a, tuple):
+        return tuple(_jj(x) for x in a)
+    return jnp.asarray(np.array(a))
+
+
+@functools.lru_cache(maxsize=None)
+def _pile_case(S, W):
+    """A correction pile at (S, W), its JAX row walks and the fold's pair
+    arrays, as numpy."""
+    G, B, T = 3, 10, 3
+    L_t = 4 * S
+    q, t, qlen, tlen, qs, ts, t_slot = _pile(
+        S=S, W=W, G=G, B=B, L_t=L_t, L_s=L_t + S, T=T, err=0.06,
+        seed=S + W, ins_heavy=True)
+    pa, rr, lr = ref_align.extend_pair_batch_rows(
+        *(jnp.asarray(a) for a in (q, t, qlen, tlen, qs, ts)),
+        S=S, W=W, max_segs=G, max_segs_left=G)
+    pair_ok = np.asarray((pa.identity >= 60.0) & ((pa.tend - pa.tbeg) >= 20))
+    rows = tuple(tuple(np.asarray(x) for x in r) for r in (rr, lr))
+    return dict(q=q, qs=qs, ts=ts, tlen=tlen, t_slot=t_slot,
+                pair_ok=pair_ok, tbeg=np.asarray(pa.tbeg),
+                tend=np.asarray(pa.tend), rows=rows, L_t=L_t, T=T)
+
+
+def _assert_planes_equal(got, want, what):
+    for name, g, w in zip(("g0", "gpack", "gcnt"), got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype, (what, name)
+        np.testing.assert_array_equal(g, w, err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("S,W", PILE_WIDTHS)
+def test_global_planes_on_piles_match_jax(S, W):
+    c = _pile_case(S, W)
+    rr, lr = c["rows"]
+    want = ref.banded_global_planes(_jj(rr), _jj(lr), jnp.asarray(c["q"]),
+                                    jnp.asarray(c["qs"]),
+                                    jnp.asarray(c["ts"]), L_t=c["L_t"], S=S,
+                                    W=W)
+    got = port.banded_global_planes(_tt(rr), _tt(lr), _tt(c["q"]),
+                                    _tt(c["qs"]), _tt(c["ts"]), L_t=c["L_t"],
+                                    S=S, W=W)
+    _assert_planes_equal(got, want, "plain vs JAX")
+    inputs = port.plane_inputs(_tt(rr), _tt(lr), _tt(c["q"]), _tt(c["qs"]),
+                               S, W)
+    model = global_planes_pairwise(
+        *(tuple(t.numpy() for t in x) for x in inputs[:4]),
+        inputs[4].numpy(), c["ts"], c["L_t"], S, W)
+    _assert_planes_equal(model, want, "model vs JAX")
+    assert int((np.asarray(want[2]) > 0).sum()) > 5     # insertions landed
+
+
+@pytest.mark.parametrize("S,W", PILE_WIDTHS)
+def test_accumulate_tags_on_piles_match_jax(S, W):
+    c = _pile_case(S, W)
+    rr, lr = c["rows"]
+    T, L_t = c["T"], c["L_t"]
+    assert 3 < c["pair_ok"].sum()
+    want_c, want_v = ref.banded_accumulate_tags(
+        jnp.zeros((T, L_t, D1, 5), jnp.int32),
+        jnp.zeros((T, L_t + 1), jnp.int32), _jj(rr), _jj(lr),
+        jnp.asarray(c["qs"]), jnp.asarray(c["ts"]), jnp.asarray(c["q"]),
+        *(jnp.asarray(c[k]) for k in FOLD_KEYS), L_t=L_t, S=S, W=W)
+    counts = torch.zeros((T, L_t, D1, 5), dtype=torch.int32)
+    cov = torch.zeros((T, L_t + 1), dtype=torch.int32)
+    got_c, got_v = port.banded_accumulate_tags(
+        counts, cov, _tt(rr), _tt(lr), _tt(c["qs"]), _tt(c["ts"]),
+        _tt(c["q"]), *(_tt(c[k]) for k in FOLD_KEYS), L_t=L_t, S=S, W=W)
+    assert got_c is counts and got_v is cov            # tallied in place
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    planes = port.banded_global_planes(_tt(rr), _tt(lr), _tt(c["q"]),
+                                       _tt(c["qs"]), _tt(c["ts"]), L_t=L_t,
+                                       S=S, W=W)
+    model_c, model_v = fold_tags_cells(
+        np.zeros((T, L_t, D1, 5), np.int32), np.zeros((T, L_t + 1), np.int32),
+        *(p.numpy() for p in planes), *(c[k] for k in FOLD_KEYS), L_t)
+    np.testing.assert_array_equal(model_c, np.asarray(want_c))
+    np.testing.assert_array_equal(model_v, np.asarray(want_v))
+    assert int(np.asarray(want_c).sum()) > 1000
+
+
+def _jax_planes_from(fi, L_t, S, W, monkeypatch):
+    """JAX ``banded_global_planes`` on the planes of ``fold_inputs``: its row
+    info and its deposit are replaced by these planes, the rest (the lead
+    marks, the window scan, the placement, the side-band chains) is the
+    JAX package's own code, run without jit."""
+    G_r, G_l = fi["side_r"][0].shape[0], fi["side_l"][0].shape[0]
+    B = len(fi["tseed"])
+
+    def rowinfo(rows, q, qseed, S_, W_, left):
+        side = fi["side_l" if left else "side_r"]
+        G = G_l if left else G_r
+        info = {k: jnp.zeros((G, B, S), jnp.int32)
+                for k in ("wo", "aw", "h", "mv", "vbase", "delta",
+                          "keep_ins")}
+        toff, ok, lead, bp, bc = (jnp.asarray(a) for a in side)
+        j_end = jnp.asarray(fi["lj_end"]) if left else None
+        return info, bp, bc, toff, j_end, lead, ok
+
+    def deposit(*args):
+        return tuple(jnp.concatenate(
+            [jnp.asarray(r.reshape(-1, r.shape[-1])),
+             jnp.asarray(l.reshape(-1, l.shape[-1]))], axis=0)
+            for r, l in zip(fi["planes_r"], fi["planes_l"]))
+
+    monkeypatch.setattr(ref, "direction_rowinfo", rowinfo)
+    monkeypatch.setattr(ref, "_deposit_scan", deposit)
+    rows = lambda side: (None,) * 6 + (jnp.asarray(side[1]),)
+    with jax.disable_jit():
+        return ref.banded_global_planes(
+            rows(fi["side_r"]), rows(fi["side_l"]), jnp.zeros((B, 1)), None,
+            jnp.asarray(fi["tseed"]), L_t=L_t, S=S, W=W)
+
+
+@pytest.mark.parametrize("S,W,L_t", EDGE_WIDTHS)
+def test_global_planes_on_edge_inputs_match_jax(S, W, L_t, monkeypatch):
+    fi = fold_inputs(S, W, 24, L_t, 5, seed=S + W)
+    want = _jax_planes_from(fi, L_t, S, W, monkeypatch)
+    got = port.banded_global_planes_plain(
+        *(_tt(fi[k]) for k in PLANE_KEYS), L_t=L_t, S=S, W=W)
+    _assert_planes_equal(got, want, "plain vs JAX")
+    model = global_planes_pairwise(*(fi[k] for k in PLANE_KEYS), L_t, S, W)
+    _assert_planes_equal(model, want, "model vs JAX")
+
+
+@pytest.mark.parametrize("S,W,L_t", EDGE_WIDTHS)
+def test_fold_on_edge_inputs_matches_jax(S, W, L_t, monkeypatch):
+    fi = fold_inputs(S, W, 24, L_t, 5, seed=S + W + 1)
+    planes = port.banded_global_planes_plain(
+        *(_tt(fi[k]) for k in PLANE_KEYS), L_t=L_t, S=S, W=W)
+    monkeypatch.setattr(ref, "banded_global_planes",
+                        lambda *a, **kw: tuple(jnp.asarray(p.numpy())
+                                               for p in planes))
+    want_c, want_v = ref.banded_accumulate_tags(
+        jnp.asarray(fi["counts"]), jnp.asarray(fi["cov_diff"]), None, None,
+        None, None, None, *(jnp.asarray(fi[k]) for k in FOLD_KEYS),
+        L_t=L_t, S=S, W=W)
+    counts, cov = _tt(fi["counts"]), _tt(fi["cov_diff"])
+    port.fold_tags_plain(counts, cov, *planes,
+                         *(_tt(fi[k]) for k in FOLD_KEYS), L_t)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_c))
+    np.testing.assert_array_equal(cov.numpy(), np.asarray(want_v))
+    model_c, model_v = fold_tags_cells(
+        fi["counts"], fi["cov_diff"], *(p.numpy() for p in planes),
+        *(fi[k] for k in FOLD_KEYS), L_t)
+    np.testing.assert_array_equal(model_c, np.asarray(want_c))
+    np.testing.assert_array_equal(model_v, np.asarray(want_v))
+    # the edges of the fold: gcnt past 15 deltas, b == L_t
+    assert int(planes[2].max()) > 15
+    slot = fi["t_slot"][9]
+    assert int(want_v[slot, L_t]) < int(fi["cov_diff"][slot, L_t])
+
+
+def test_fold_inputs_reach_every_edge():
+    """The edge pairs of ``fold_inputs`` do what its docstring says: the
+    clamped windows, the non-ok segment, the boundary chains and their
+    writes (the chain's count on top of the cell's run count, nothing on
+    an unconsumed anchor), tend past tlen and b == L_t."""
+    S, W, L_t = 256, 64, 1200
+    LP = S + W // 2 - 1
+    LG = L_t + LP + S
+    fi = fold_inputs(S, W, 24, L_t, 5, seed=3)
+    toff_r, ok_r = fi["side_r"][:2]
+    assert list(fi["tseed"][:3]) == [0, L_t, L_t + 7]
+    assert not ok_r[1, 3] and ok_r[0, 3] and ok_r[2, 3]
+    assert not fi["side_l"][1][1, 3] and fi["side_l"][1][2, 3]
+    assert toff_r[0, 4] < 0 and toff_r[-1, 4] > LG - LP
+    g0, gp, gc = port.banded_global_planes_plain(
+        *(_tt(fi[k]) for k in PLANE_KEYS), L_t=L_t, S=S, W=W)
+    for b, want in ((5, 3 + 4 + 5 + 2), (6, 13 + 2 + 3 + 2),
+                    (10, 10 + 5 + 3 + 2), (7, 3)):
+        col = int(fi["tseed"][b]) - 1
+        assert int(gc[b, col]) == want, b
+    assert int(g0[7, int(fi["tseed"][7]) - 1]) < 0
+    assert fi["tend"][8] > fi["tlen"][8] and fi["pair_ok"][8]
+    assert min(fi["tlen"][9], fi["tend"][9]) > L_t and fi["pair_ok"][9]
+    assert not fi["pair_ok"][11]
+
+
+def _small_chunk():
+    """One cns chunk's arguments on the CPU (a pile of 12 supports)."""
+    P, L_t, L_s, S, W, T = 12, 600, 900, 128, 64, 3
+    rng = np.random.default_rng(21)
+    q, t, qlen, tlen, qs, ts, t_slot = _pile(
+        S=S, W=W, G=4, B=P, L_t=L_t, L_s=L_s, T=T, err=0.1, seed=21)
+    reads = [t[0, :tlen[0]]] + [q[b, :qlen[b]] for b in range(P)]
+    lens = np.array([len(r) for r in reads], np.int32)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    fwd = np.concatenate(reads)
+    vol = np.concatenate([fwd, 3 - fwd[::-1], np.zeros(L_s + 64, np.uint8)])
+    kw = dict(L_s=L_s, L_t=L_t, S=S, W=W, max_segs=4, max_segs_left=4,
+              min_identity=60.0, min_align_size=100, min_mapping_ratio=0.05)
+    args = (torch.zeros((T, L_t, D1, 5), dtype=torch.int32),
+            torch.zeros((T, L_t + 1), dtype=torch.int32),
+            torch.zeros(T, dtype=torch.bool), _tt(vol), _tt(starts),
+            _tt(lens), int(lens.sum()),
+            *(_tt(a) for a in (np.arange(1, P + 1, dtype=np.int32),
+                               np.zeros(P, np.int32), qlen, tlen, qs, ts,
+                               t_slot, np.zeros(P, np.int32),
+                               rng.random(P) < 0.9)))
+    return kw, args
+
+
+def test_cpu_chunk_never_loads_the_fold_library(monkeypatch):
+    """A CPU chunk runs the plain versions: no build, no load, no launch;
+    and the tensors the chunk hands to the planes and the fold pass the
+    kernels' own argument checks (dtype, shape, contiguity, alignment)."""
+    def no_build(name, verbose=False):
+        raise AssertionError(f"the CPU route built {name}")
+
+    monkeypatch.setattr(cuda_build, "build", no_build)
+    checked = []
+    planes_plain, fold_plain = (port.banded_global_planes_plain,
+                                port.fold_tags_plain)
+
+    def planes(*a, **kw):
+        dense = [tuple(t.contiguous() for t in x) if isinstance(x, tuple)
+                 else x.contiguous() for x in a]
+        checked.append(walk_kernel.planes_args(*dense, **kw,
+                                               device=a[-1].device))
+        return planes_plain(*a, **kw)
+
+    def fold(*a):
+        dense = [x.contiguous() if torch.is_tensor(x) else x for x in a]
+        checked.append(walk_kernel.fold_args(*dense, device=a[0].device))
+        return fold_plain(*a)
+
+    monkeypatch.setattr(port, "banded_global_planes_plain", planes)
+    monkeypatch.setattr(port, "fold_tags_plain", fold)
+    before = walk_kernel.launches()
+    kw, args = _small_chunk()
+    counts, cov, has = port_cns.make_cns_chunk(**kw)(*args)
+    assert walk_kernel.launches() == before
+    assert "mecat_fold" not in walk_kernel._libs
+    assert len(checked) == 2 and int(counts.sum()) > 1000
+    B, G_r, G_l = checked[0][:3]
+    assert B == 12 and 1 <= G_r <= 4 and 1 <= G_l <= 4
+    assert checked[1][:2] == (12, 3)
+
+
+def test_fold_wrappers_refuse_cpu_tensors_before_any_build(monkeypatch):
+    def no_build(name, verbose=False):
+        raise AssertionError(f"{name} was built for a CPU tensor")
+
+    monkeypatch.setattr(cuda_build, "build", no_build)
+    fi = fold_inputs(64, 32, 16, 300, 3, seed=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        walk_kernel.global_planes_cuda(*(_tt(fi[k]) for k in PLANE_KEYS),
+                                       L_t=300, S=64, W=32)
+    planes = port.banded_global_planes_plain(
+        *(_tt(fi[k]) for k in PLANE_KEYS), L_t=300, S=64, W=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        walk_kernel.fold_tags_cuda(_tt(fi["counts"]), _tt(fi["cov_diff"]),
+                                   *planes, *(_tt(fi[k]) for k in FOLD_KEYS),
+                                   300)
+
+
+def test_fold_argument_checks_refuse_what_the_kernels_do_not_take():
+    fi = fold_inputs(64, 32, 16, 300, 3, seed=5)
+    cpu = torch.device("cpu")
+    args = [_tt(fi[k]) for k in PLANE_KEYS]
+    assert walk_kernel.planes_args(*args, L_t=300, S=64, W=32,
+                                   device=cpu)[:3] == (16, 6, 5)
+    bad = list(args)
+    bad[5] = bad[5].long()                               # int64 tseed
+    with pytest.raises(TypeError):
+        walk_kernel.planes_args(*bad, L_t=300, S=64, W=32, device=cpu)
+    bad = list(args)
+    bad[2] = (bad[2][0].t().contiguous().t(), *bad[2][1:])  # strided toff
+    with pytest.raises(ValueError, match="contiguous"):
+        walk_kernel.planes_args(*bad, L_t=300, S=64, W=32, device=cpu)
+    with pytest.raises(ValueError):                      # the wrong LP
+        walk_kernel.planes_args(*args, L_t=300, S=64, W=64, device=cpu)
+    with pytest.raises(ValueError):
+        walk_kernel.planes_args(*args, L_t=300, S=64, W=33, device=cpu)
+    planes = port.banded_global_planes_plain(*args, L_t=300, S=64, W=32)
+    fargs = [_tt(fi["counts"]), _tt(fi["cov_diff"]),
+             *(p.contiguous() for p in planes),
+             *(_tt(fi[k]) for k in FOLD_KEYS)]
+    assert walk_kernel.fold_args(*fargs, 300, cpu)[:2] == (16, 3)
+    with pytest.raises(ValueError):                      # counts of L_t 299
+        walk_kernel.fold_args(*fargs, 299, cpu)
+    bad = list(fargs)
+    bad[7] = bad[7].to(torch.int32)                      # pair_ok not bool
+    with pytest.raises(TypeError):
+        walk_kernel.fold_args(*bad, 300, cpu)
