@@ -35,7 +35,8 @@ non-zero exit and no result line:
    the band widths 32, 48, 96, 160, 256, 272, 384, 512, 528, 1024 and 2048
    (past 512 a DP lane of several warps) against its plain version, the
    deposit scan on the rows of that row walk and on random rows, and the
-   tag fold's two kernels on 64 pairs of ``testing.fold_inputs``; at 512,
+   tag fold's two kernels on 64 pairs of ``testing.fold_inputs`` (L_t 900
+   and 2,100: one tile and three of the planes kernel); at 512,
    1024 and 2048 each wrapper's ms of one launch from the host.
    Then both DP wrappers alone
    (``ops/dp_kernel``, nothing around them) at the shapes the paths
@@ -55,11 +56,17 @@ non-zero exit and no result line:
    ``csrc/cns_fold.cu`` (the planes and the fold of every correction
    chunk) against their plain versions at (512, 128), every element of the
    planes, counts and cov_diff: the row walks of 128 and of 64
-   ``testing.extend_inputs`` pairs of 8,192 bases (a cns and a polish
-   chunk) and 128 edge pairs of ``testing.fold_inputs``; each wrapper alone
-   on the 128-pair chunk: ms of one launch from the host and from a CUDA
-   graph, the plain version's ms, for the fold one ``index_add_`` of the
-   int32 presence buffer, the bound (``--kernels-only`` stops here).
+   ``testing.extend_inputs`` pairs of 8,192 bases (a cns chunk on 16 table
+   slots and a polish chunk), the 128 pairs on 4 slots (a deep pile), 128
+   edge pairs of ``testing.fold_inputs`` and 64 with 40 / 36 segments;
+   each wrapper alone at the three chunks: ms of one launch from the host
+   and from a CUDA graph, the bound, for the fold also the sector floor
+   (each distinct 32-byte sector of counts and cov_diff that a present
+   cell lies in, read and written once); at the cns chunk the plain
+   version's ms and, for the fold, one ``index_add_`` of the int32
+   presence buffer; the planes kernel's probe (graph ms on 16, 32, 64 and
+   128 of the pairs, on them with no deposit cell read, and one
+   ``copy_`` of its bound's bytes) (``--kernels-only`` stops here).
    The ``roll_micro`` family, 2048
    lanes (the tool's own lanes plus lanes with varied tmax and segq): all 8
    output rows of each of the five variants equal on every lane; then the
@@ -260,6 +267,10 @@ FOLD_SHORT = {"global_planes": "planes", "fold_tags": "fold"}
 #: the cns chunk's template width in phase 2's path cases (templates of the
 #: bench reads, mean 5 kb)
 FOLD_L_T = 8192
+#: the chunks at which phase 2 times the tag fold's kernels: name -> case
+#: of phase_fold (128 pairs of a cns chunk on 16 slots, 64 of a polish
+#: chunk, the cns chunk's pairs on 4 slots)
+FOLD_CHUNKS = {"cns": (128, "path"), "polish": (64, "path"), "deep": "deep"}
 
 # The card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet):
 # 3.35 TB/s of HBM, and for int32 a quarter of the 67 TFLOP/s float32
@@ -848,7 +859,7 @@ def phase_widths() -> tuple:
     the last row computed, zeros after), the row and the column walk on the
     move kernel's words, the deposit scan on the rows of that row walk and
     on random rows, the tag fold's planes and fold on 64 pairs of
-    ``fold_inputs``, the counts loop on 256 direction lanes of
+    ``fold_inputs`` at L_t 900 and 2,100, the counts loop on 256 direction lanes of
     ``extend_inputs`` pairs and the move loop on the same pairs, each
     against its plain version.  At the widths of BAND_TIMED each kernel's
     wrapper alone on those inputs, ms of one launch from the host (median
@@ -896,6 +907,10 @@ def phase_widths() -> tuple:
             dep = [torch.as_tensor(a, device=dev) for a in dep]
             check("deposit_scan", consensus_banded._deposit_scan(*dep, W),
                   consensus_banded.deposit_scan_plain(*dep, W), W)
+        # L_t 2,100: three tiles of the planes kernel, side-band cells at
+        # the first one's last column and the second one's first
+        check_fold(err, *fold_case(dev, S, W, 2100, "edge", B=64,
+                                   seed=242 + W), S, W, 2100, "fold_inputs")
         fplanes, ffold = fold_case(dev, S, W, 900, "edge", B=64,
                                    seed=241 + W)
         fwant = check_fold(err, fplanes, ffold, S, W, 900, "fold_inputs")
@@ -953,7 +968,7 @@ def phase_widths() -> tuple:
             f"words, the deposit on that walk's rows and on random rows, "
             f"the counts loop and the move loop (256 direction lanes, 16 / 9 "
             f"segments), the tag fold's planes and fold (64 pairs of "
-            f"fold_inputs, L_t 900) == their plain versions")
+            f"fold_inputs, L_t 900 and 2,100) == their plain versions")
     return err, timed
 
 
@@ -1170,22 +1185,31 @@ def fold_bound(plane_args, fold_args, planes, L_t: int, S: int) -> dict:
         based = ((gp >> (2 * (d - 1))) & 3).long()
         cells.append(torch.where(live & (gc >= d), base + 5 * d + based, -1))
     cells = torch.stack(cells).reshape(-1)
-    adds = int((cells >= 0).sum())
-    n_cells = int(torch.unique(cells).numel()) - int(bool((cells < 0).any()))
+    cells = cells[cells >= 0]
+    adds = int(cells.numel())
+    n_cells = int(torch.unique(cells).numel())
     a = tbeg.clamp(0, L_t).long()
     e = torch.minimum(tend, tlen).clamp(0, L_t).long()
     span = pair_ok & (e > a)
     ends = torch.cat([t_slot.long()[span] * (L_t + 1) + a[span],
                       t_slot.long()[span] * (L_t + 1) + e[span]])
     n_cov = int(torch.unique(ends).numel())
-    fold_bytes = (B + 16 * int(pair_ok.sum()) + 5 * n_live
-                  + 4 * int((live & (gc > 0)).sum()) + 8 * (n_cells + n_cov))
+    reads = (B + 16 * int(pair_ok.sum()) + 5 * n_live
+             + 4 * int((live & (gc > 0)).sum()))
     fold_b = card_bound(
-        fold_bytes,
+        reads + 8 * (n_cells + n_cov),
         n_live * FOLD_OPS["fold_col"] + adds * FOLD_OPS["fold_add"])
+    # the sector floor: the card moves 32-byte sectors, so each distinct
+    # sector of counts and cov_diff that a present cell or a span's end
+    # lies in is read once and written once (8 int32 a sector; torch's
+    # allocations start on a sector)
+    sectors = (int(torch.unique(cells // 8).numel())
+               + int(torch.unique(ends // 8).numel()))
+    sector_ms = 1e3 * (reads + 64 * sectors) / HBM_BYTES_PER_S
     return {"global_planes": dict(planes_b, deposit_bytes=deposit_bytes),
             "fold_tags": dict(fold_b, present_cells=n_cells, adds=adds,
-                              live_cells=n_live)}
+                              live_cells=n_live, sectors=sectors,
+                              sector_ms=sector_ms)}
 
 
 def check_fold(err: dict, plane_args, fold_args, S: int, W: int, L_t: int,
@@ -1217,17 +1241,72 @@ def check_fold(err: dict, plane_args, fold_args, S: int, W: int, L_t: int,
     return got
 
 
+def planes_probe(err: dict, plane_args, fold_args, L_t: int, S: int,
+                 W: int) -> dict:
+    """What holds the planes kernel back at the cns chunk, read from outside
+    the kernel (no counter tool works on the card), each a graph ms: the
+    kernel on the chunk's first 16, 32, 64 and all of its pairs (a kernel
+    bound by bytes takes time in proportion to them); on the chunk with
+    every segment's ok cleared, so that no deposit cell is read (the
+    segments are still listed and every element written; held against the
+    plain version, every element); and one uint8 ``copy_`` that moves the
+    chunk's bound bytes, half read and half written (what one launch takes
+    to stream them on this card).  Returns those numbers."""
+    import torch
+
+    from mecat_tpu_torch.ops import walk_kernel as wk
+
+    planes_r, planes_l, side_r, side_l, lj_end, tseed = plane_args
+    B = tseed.shape[0]
+
+    def first(n):
+        cut = lambda ts, dim: tuple(t.narrow(dim, 0, n).contiguous()
+                                    for t in ts)
+        return [cut(planes_r, 1), cut(planes_l, 1), cut(side_r, 1),
+                cut(side_l, 1), *cut((lj_end,), 1), *cut((tseed,), 0)]
+
+    by_pairs = {}
+    for n in (16, 32, 64, B):
+        args = first(n)
+        by_pairs[n] = cuda_graph_ms(lambda: wk.global_planes_cuda(
+            *args, L_t=L_t, S=S, W=W))
+    no_ok = lambda side: (side[0], torch.zeros_like(side[1]), *side[2:])
+    bare = [planes_r, planes_l, no_ok(side_r), no_ok(side_l), lj_end, tseed]
+    check_fold(err, bare, fold_args, S, W, L_t, "the cns chunk, no segment ok")
+    got = wk.global_planes_cuda(*bare, L_t=L_t, S=S, W=W)
+    bare_bound = fold_bound(bare, fold_args, got, L_t, S)["global_planes"]
+    bare_ms = cuda_graph_ms(lambda: wk.global_planes_cuda(
+        *bare, L_t=L_t, S=S, W=W))
+    n_bytes = int(fold_bound(plane_args, fold_args, got, L_t, S)[
+        "global_planes"]["bound_ms"] * HBM_BYTES_PER_S / 1e3)
+    src = torch.ones(n_bytes // 2, dtype=torch.uint8, device=tseed.device)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_graph_ms(lambda: dst.copy_(src))
+    say(f"phase 2: global_planes probe at the cns chunk, graph ms: "
+        + ", ".join(f"{n} pairs {ms:.4f}" for n, ms in by_pairs.items())
+        + f"; no deposit cell read {bare_ms:.4f} (bound "
+        f"{bare_bound['bound_ms']:.4f} by {bare_bound['bound_by']}); a "
+        f"copy_ of the bound's {n_bytes} bytes {copy_ms:.4f}")
+    return {"graph_ms_by_pairs": by_pairs, "no_loads_graph_ms": bare_ms,
+            "no_loads_bound_ms": bare_bound["bound_ms"],
+            "copy_bytes": n_bytes, "copy_graph_ms": copy_ms}
+
+
 def phase_fold(S: int, W: int) -> dict:
     """The tag fold's two kernels (``csrc/cns_fold.cu``) against their plain
     versions at the cns cell's shape, every element: on the row walks of
     ``testing.extend_inputs`` pairs of FOLD_L_T bases as a cns chunk hands
-    them over, 128 pairs (a cns chunk) and 64 (a polish chunk), and on the
-    edge pairs of ``testing.fold_inputs``.  Then each wrapper alone on the
-    128-pair chunk: ms of one launch from the host and replayed from a CUDA
-    graph, the plain version's ms, for the fold the ms of one
+    them over, 128 pairs on 16 slots (a cns chunk), the same pairs on 4
+    slots (a deep pile) and 64 pairs (a polish chunk), and on the edge
+    pairs of ``testing.fold_inputs`` (also with 40 and 36 segments, more
+    than a warp's lanes).  Then each wrapper alone at each
+    chunk of FOLD_CHUNKS: ms of one launch from the host and replayed from
+    a CUDA graph, the bound, and for the fold the sector floor; at the cns
+    chunk also the plain version's ms and, for the fold, the ms of one
     ``index_add_`` of the int32 presence buffer into counts (the PyTorch
-    call that computes the fold), and the bound.  Returns {kernel:
-    numbers}."""
+    call that computes the fold), and ``planes_probe``.  Returns {kernel:
+    numbers at the cns chunk, with ``chunks``: {chunk: numbers}; the
+    planes' with ``probe``}."""
     import torch
 
     from mecat_tpu_torch.ops import consensus_banded as cb
@@ -1239,54 +1318,87 @@ def phase_fold(S: int, W: int) -> dict:
     cases = {}
     for B, source, L_t in ((128, "path", FOLD_L_T), (64, "path", FOLD_L_T),
                            (128, "edge", 4096)):
-        plane_args, fold_args = fold_case(dev, S, W, L_t, source, B=B,
-                                          seed=191 + B)
-        want = check_fold(err, plane_args, fold_args, S, W, L_t,
-                          f"{B} pairs of {source} inputs")
-        cases[(B, source)] = (plane_args, fold_args, want, L_t)
-        say(f"phase 2: tag fold kernels == plain at S={S} W={W}, {B} pairs "
-            f"of {source} inputs, L_t {L_t}, "
-            f"{plane_args[0][0].shape[0]} / {plane_args[1][0].shape[0]} "
-            f"segments: planes (g0, gpack, gcnt) and the fold (counts, "
-            f"cov_diff; {int(fold_args[4].sum())} pairs kept): every "
-            f"element equal")
-    plane_args, fold_args, want, L_t = cases[(128, "path")]
-    bounds = fold_bound(plane_args, fold_args, want, L_t, S)
+        cases[(B, source)] = (*fold_case(dev, S, W, L_t, source, B=B,
+                                         seed=191 + B), L_t)
+    # more segments a direction than a warp has lanes
+    cases["segments"] = (*fold_case(dev, S, W, 3000, "edge", B=64, seed=193,
+                                    segs=(40, 36)), 3000)
+    # the cns chunk's pairs on 4 slots
+    plane_args, fold_args, L_t = cases[(128, "path")]
+    slot = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 4, 128).astype(np.int32), device=dev)
+    cases["deep"] = (plane_args, [
+        torch.zeros((4, *fold_args[0].shape[1:]), dtype=torch.int32,
+                    device=dev),
+        torch.zeros((4, L_t + 1), dtype=torch.int32, device=dev),
+        fold_args[2], slot, *fold_args[4:]], L_t)
+    wants = {}
+    for key, (plane_args, fold_args, L_t) in cases.items():
+        wants[key] = check_fold(err, plane_args, fold_args, S, W, L_t,
+                                f"{key} inputs")
+        say(f"phase 2: tag fold kernels == plain at S={S} W={W}, {key} "
+            f"inputs, L_t {L_t}, {plane_args[0][0].shape[0]} / "
+            f"{plane_args[1][0].shape[0]} segments, "
+            f"{fold_args[0].shape[0]} slots: planes (g0, gpack, gcnt) and "
+            f"the fold (counts, cov_diff; {int(fold_args[4].sum())} pairs "
+            f"kept): every element equal")
+    out = {name: {"chunks": {}} for name in FOLD_REPLACES}
+    for chunk, key in FOLD_CHUNKS.items():
+        plane_args, fold_args, L_t = cases[key]
+        want = wants[key]
+        bounds = fold_bound(plane_args, fold_args, want, L_t, S)
+        counts, cov = fold_args[0].clone(), fold_args[1].clone()
+        small = [t.contiguous() for t in fold_args[2:]]
+        runs = {"fold_tags": lambda: wk.fold_tags_cuda(
+            counts, cov, *want, *small, L_t)}
+        if chunk != "deep":         # the deep pile's planes are the cns's
+            runs["global_planes"] = lambda: wk.global_planes_cuda(
+                *plane_args, L_t=L_t, S=S, W=W)
+        for name, fn in runs.items():
+            b = bounds[name]
+            num = dict(ms=cuda_median_ms(fn, 21), graph_ms=cuda_graph_ms(fn),
+                       **b)
+            out[name]["chunks"][chunk] = num
+            say(f"phase 2: {name} kernel alone at S={S} W={W}, {chunk} "
+                f"chunk ({want[0].shape[0]} pairs on "
+                f"{fold_args[0].shape[0]} slots), L_t {L_t}: one launch "
+                f"from the host {num['ms']:.4f} ms, replayed from a CUDA "
+                f"graph {num['graph_ms']:.4f} ms; bound "
+                f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+                f"({100 * b['bound_ms'] / num['graph_ms']:.1f} % of the "
+                f"graph time)"
+                + (f"; sector floor {b['sector_ms']:.4f} ms "
+                   f"({100 * b['sector_ms'] / num['graph_ms']:.1f} %; "
+                   f"{b['sectors']} sectors, {b['live_cells']} live cells, "
+                   f"{b['present_cells']} present cells, {b['adds']} adds)"
+                   if "adds" in b
+                   else f" ({b['deposit_bytes']} bytes of deposit cells "
+                        f"read)"))
+    plane_args, fold_args, L_t = cases[FOLD_CHUNKS["cns"]]
+    want = wants[FOLD_CHUNKS["cns"]]
+    out["global_planes"]["probe"] = planes_probe(err, plane_args, fold_args,
+                                                 L_t, S, W)
     counts, cov = fold_args[0].clone(), fold_args[1].clone()
     T = counts.shape[0]
     pres = cb.banded_presence(*want, fold_args[2], fold_args[4], L_t).view(
         want[0].shape[0], -1).to(torch.int32)
     slot = fold_args[3].long()
-    runs = {
-        "global_planes": (
-            lambda: wk.global_planes_cuda(*plane_args, L_t=L_t, S=S, W=W),
-            lambda: cb.banded_global_planes_plain(*plane_args, L_t=L_t, S=S,
-                                                  W=W), None),
+    plain = {
+        "global_planes": (lambda: cb.banded_global_planes_plain(
+            *plane_args, L_t=L_t, S=S, W=W), None),
         "fold_tags": (
-            lambda: wk.fold_tags_cuda(counts, cov, *want, *fold_args[2:],
-                                      L_t),
             lambda: cb.fold_tags_plain(counts, cov, *want, *fold_args[2:],
                                        L_t),
             lambda: counts.view(T, -1).index_add_(0, slot, pres)),
     }
-    out = {}
-    for name, (fn, plain, library) in runs.items():
-        ms = cuda_median_ms(fn, 21)
-        graph_ms = cuda_graph_ms(fn)
-        plain_ms = cuda_median_ms(plain, 3)
+    for name, (fn, library) in plain.items():
+        plain_ms = cuda_median_ms(fn, 3)
         library_ms = cuda_median_ms(library, 21) if library else None
-        b = bounds[name]
-        say(f"phase 2: {name} kernel alone at S={S} W={W}, 128 pairs, L_t "
-            f"{L_t}: one launch from the host {ms:.4f} ms, replayed from a "
-            f"CUDA graph {graph_ms:.4f} ms; plain {plain_ms:.2f} ms; "
-            + (f"index_add_ of the presence buffer {library_ms:.4f} ms; "
-               if library else "no PyTorch call computes it; ")
-            + f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
-            + (f" ({b['live_cells']} live cells, {b['present_cells']} "
-               f"present cells, {b['adds']} adds)" if "adds" in b
-               else f" ({b['deposit_bytes']} bytes of deposit cells read)"))
-        out[name] = dict(max_abs_err=err[name], ms=ms, graph_ms=graph_ms,
-                         plain_ms=plain_ms, library_ms=library_ms, **b)
+        say(f"phase 2: {name} at the cns chunk: plain {plain_ms:.2f} ms; "
+            + (f"index_add_ of the presence buffer {library_ms:.4f} ms"
+               if library else "no PyTorch call computes it"))
+        out[name].update(out[name]["chunks"]["cns"], max_abs_err=err[name],
+                         plain_ms=plain_ms, library_ms=library_ms)
     return out
 
 
@@ -3222,7 +3334,8 @@ def main(argv=None) -> int:
             **{k: fold[name][k]
                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_by", "graph_ms", "deposit_bytes",
-                         "live_cells", "present_cells", "adds")
+                         "live_cells", "present_cells", "adds", "sectors",
+                         "sector_ms", "chunks", "probe")
                if k in fold[name]},
             "band_widths": [128, *BAND_SWEEP],
             "ms_by_band": {W: t[name] for W, t in widths_ms.items()}})

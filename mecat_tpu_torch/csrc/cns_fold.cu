@@ -20,35 +20,47 @@
 //     ops/consensus_banded.fold_tags_plain.
 //
 // What bounds them on an H100.  Both move bytes and do little arithmetic:
-// the planes kernel reads at most the deposit's planes of both directions
-// (9 bytes a cell of [2G, B, LP]) and writes 9 bytes a cell of [B, L_t];
-// the fold reads those 9 bytes a cell and adds into the present cells of
-// counts, one or two of the 80 a column.  At a cns chunk (B = 128, L_t of
-// a few thousand) that is a few MB, microseconds at 3.35 TB/s, so the
-// design only has to avoid what the plain versions pay: launches, the
-// LG-wide intermediate planes and the presence buffer.
+// the planes kernel reads the deposit cells that last write an output
+// column (9 bytes a cell of [2G, B, LP] at most) and writes 9 bytes a cell
+// of [B, L_t]; the fold reads those 9 bytes a live cell and adds into the
+// present cells of counts, one or two of the 80 a column.  At a cns chunk
+// (B = 128, L_t 8,192) that is a few MB, microseconds at 3.35 TB/s, so
+// each kernel is held back by the latency of its few dependent loads and
+// by the requests it makes: a pair's side arrays are [G, B], a segment a
+// 32-byte sector; the fold makes an atomic request a present cell, while
+// a column's present cells share one or two sectors of its 320-byte
+// record.
 //
-//   * fold_planes, one block a pair.  The window write is "last writer
-//     wins in segment order", and the placement puts the right direction
-//     over the left, so the value of an output column is found, not
-//     replayed: the right window if it covers the column, else the left
-//     one (flipped), and in that direction's window the highest segment
-//     whose clamped window holds the column; that segment's deposit value
-//     (GAP below its lead, the masked empties -1 / 0 / 0 where it is not
-//     ok), or the empties where no segment holds it.  So each thread
-//     writes its columns straight to the output, reading one deposit cell
-//     for each, and no LG-wide plane exists.  Then the pair's 2G side-band
-//     entries: each thread prepares one (its cell, found as above before
-//     any write, which is what the reference's functional update reads),
-//     and one thread runs the chains in order, as the associative scan
-//     defines them, writing a group's sum at its last entry.  Only output
-//     columns are written: a cell outside [LG, LG + L_t) of the reference's
-//     buffer is cut off by its final slice, so its group is skipped.
-//   * fold_tags, a thread a (pair, column): atomic adds of 1 on the present
-//     cells of counts[t_slot] and of +-1 on cov_diff.  Integer atomics are
-//     exact in any order, so no presence buffer and no int32 temporary.  A
-//     kept pair whose t_slot lies outside [0, T) traps, where the plain
-//     version's index_add_ raises (on the CPU) or asserts (on CUDA).
+//   * fold_planes, a block of 256 threads a (pair, tile of 1,024 columns),
+//     several blocks an SM.  The window write is "last writer wins in
+//     segment order", and the placement puts the right direction over the
+//     left, so the value of an output column is found, not replayed: the
+//     right window if it covers the column, else the left one (flipped),
+//     and in that direction's window the highest segment whose clamped
+//     window holds the column; that segment's deposit value (GAP below its
+//     lead, the masked empties -1 / 0 / 0 where it is not ok), or the
+//     empties where no segment holds it.  Two warps read the pair's side
+//     arrays once a block (a lane a segment, with the seed) and list, by
+//     ballots in segment order, the few segments of each direction whose
+//     clamped windows meet the tile, and file the side-band entries; after
+//     one barrier each thread walks both lists once for all 4 of its
+//     columns (a block apart, so a warp's loads and stores fall on
+//     adjacent columns) and starts every deposit load before it uses one.
+//     Each warp then runs the side-band entries whose cell is one of its
+//     own columns, in order, as the associative scan defines them: an
+//     entry's base is the placed value of its cell, fetched by a shuffle
+//     from the lane that loaded it (the inputs, before any write, which is
+//     what the reference's functional update reads); a group's sum
+//     replaces that column's value before the store, so each element is
+//     written once.  A cell outside [LG, LG + L_t) of the reference's
+//     buffer is cut off by its final slice, so no tile takes its group.
+//   * fold_tags, a thread a (pair, column): the column's three planes
+//     loaded together, then atomic adds of 1 on its present cells of
+//     counts[t_slot] and of +-1 on cov_diff.  Integer atomics are exact in
+//     any order, so no presence buffer and no int32 temporary.  A kept
+//     pair whose t_slot lies outside [0, T) traps, where the plain
+//     version's index_add_ raises (on the CPU) or asserts (on CUDA); a
+//     masked pair reads nothing past pair_ok and touches nothing.
 //
 // Every output element of fold_planes is written; fold_tags updates its
 // tables in place.  Both launch on the caller's stream and allocate
@@ -65,9 +77,18 @@ constexpr int kMaxD = 15;           // constants.MAX_INS_DELTA
 constexpr int kCells = 5 * (kMaxD + 1);  // counts cells a column: [D1, 5]
 constexpr int kGap = 4;             // ops/consensus.GAP
 constexpr uint32_t kPackMask = (1u << (2 * kMaxD)) - 1;
-constexpr int kThreads = 256;
 constexpr size_t kSmemDefault = 48 * 1024;
 constexpr size_t kSmemLimit = 227 * 1024;
+
+// planes: a block of kPlanesThreads a (pair, tile of kPlanesTile columns),
+// kPlanesCols columns a thread, kPlanesThreads apart
+constexpr int kPlanesThreads = 256;
+constexpr int kPlanesCols = 4;
+constexpr int kPlanesTile = kPlanesThreads * kPlanesCols;
+
+// fold: a block of kFoldThreads a (pair, tile of kFoldThreads columns), a
+// thread a column
+constexpr int kFoldThreads = 256;
 
 // int32 arithmetic that wraps as torch's and XLA's int32 tensors do
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
@@ -83,57 +104,96 @@ __device__ __forceinline__ int32_t clamp_to(int32_t v, int32_t lo,
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-struct Value {
-  int32_t v0, pack, cnt;
+constexpr unsigned kFull = 0xffffffffu;
+
+// A planes block's lists in shared memory: for each direction the
+// segments whose clamped windows meet the tile, in segment order (window
+// start, 2 g + ok, lead); the pair's side-band entries by index (cell,
+// pack, count: 0 where its segment is not ok).  Entry k in global column
+// order: left segment G_l - 1 - k for k < G_l, then right segment k - G_l.
+struct Lists {
+  int32_t *start[2], *g_ok[2], *lead[2];
+  int32_t *e_cell, *e_pack, *e_cnt;
 };
 
-// One direction's deposit planes [G, B, LP] and its segments' window
-// starts, ok flags and leads (in shared memory).
-struct Direction {
-  const int8_t* v0;
-  const int32_t* ip;
-  const int32_t* ic;
-  const int32_t* start;  // toff clamped to [0, LG - LP]
-  const int32_t* ok;
-  const int32_t* lead;
-  int G;
-
-  // The value the window write leaves at local column u of [0, LG).
-  __device__ Value at(int u, int b, int B, int LP) const {
-    for (int g = G - 1; g >= 0; --g) {
-      const int c = u - start[g];
-      if ((unsigned)c < (unsigned)LP) {
-        if (!ok[g]) return {-1, 0, 0};
-        const size_t i = ((size_t)g * B + b) * LP + c;
-        return {c < lead[g] ? kGap : (int32_t)v0[i], ip[i], ic[i]};
-      }
-    }
-    return {-1, 0, 0};
-  }
-};
-
-struct Placement {
-  Direction right, left;
-  int rs, ls;  // the placements' clamped starts in the reference's buffer
-  int LG, LP, B;
-
-  // The value the placements leave at column x of the buffer.
-  __device__ Value at(int x, int b) const {
-    const int r = x - rs;
-    if ((unsigned)r < (unsigned)LG) return right.at(r, b, B, LP);
-    const int l = x - ls;
-    if ((unsigned)l < (unsigned)LG) return left.at(LG - 1 - l, b, B, LP);
-    return {-1, 0, 0};
-  }
-};
-
-// Shared memory of a planes block: three words a segment of each direction,
-// then six words a side-band entry.
-size_t planes_smem(int G_r, int G_l) {
-  return (size_t)(G_r + G_l) * 9 * sizeof(int32_t);
+__device__ __forceinline__ Lists lists_in(int32_t* smem, int G_r, int G_l) {
+  const int E = G_r + G_l;
+  Lists t;
+  t.start[0] = smem;
+  t.g_ok[0] = smem + G_r;
+  t.lead[0] = smem + 2 * G_r;
+  t.start[1] = smem + 3 * G_r;
+  t.g_ok[1] = t.start[1] + G_l;
+  t.lead[1] = t.start[1] + 2 * G_l;
+  t.e_cell = smem + 3 * E;
+  t.e_pack = t.e_cell + E;
+  t.e_cnt = t.e_pack + E;
+  return t;
 }
 
-__global__ void __launch_bounds__(kThreads) fold_planes_kernel(
+// Shared memory of a planes block: six words a segment.
+size_t planes_smem(int G_r, int G_l) {
+  return ((size_t)G_r + G_l) * 6 * sizeof(int32_t);
+}
+
+// One warp lists one direction (d = 1: the left, its local columns
+// flipped): lane g of each round of 32 loads segment g's toff, ok, lead and
+// side band (and the left's j_end) once, together with the seed, lists the
+// segment if its clamped window [start, start + LP) meets the tile's
+// columns [l0, l1) in the direction's local columns, and files its
+// side-band entry.  Returns the count of listed segments (in every lane).
+__device__ int list_direction(
+    const Lists& t, int d, const int32_t* __restrict__ toff,
+    const uint8_t* __restrict__ ok, const int32_t* __restrict__ lead,
+    const int32_t* __restrict__ bp, const int32_t* __restrict__ bc,
+    const int32_t* __restrict__ j_end, const int32_t* __restrict__ tseed,
+    int G, int G_l, int B, int b, int LG, int LP, int L_t, int l0, int l1) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  for (int g0 = 0; g0 < G; g0 += 32) {
+    const int g = g0 + lane;
+    const size_t i = (size_t)(g < G ? g : 0) * B + b;
+    int32_t tf = 0, k_ok = 0, ld = 0, pack = 0, cnt = 0, je = 0;
+    if (g < G) {   // every load in flight before a use
+      tf = toff[i];
+      k_ok = ok[i];
+      ld = lead[i];
+      pack = bp[i];
+      cnt = bc[i];
+      if (d) je = j_end[i];
+    }
+    const int32_t ts = tseed[b];
+    const int32_t base = wrap_add(LG, ts);
+    const int Lb = LG + L_t + LG;
+    const int at = d ? clamp_to(ts, 0, Lb - LG) : clamp_to(base, 0, Lb - LG);
+    const int x_lo = max(LG + l0 - at, 0), x_hi = min(LG + l1 - 1 - at, LG - 1);
+    const int lo = d ? LG - 1 - x_hi : x_lo, hi = d ? LG - 1 - x_lo : x_hi;
+    // the left's cell base - 1 - (toff + max(j_end, 0)), the right's
+    // base + toff - 1
+    const int32_t cell =
+        d ? wrap_sub(wrap_add(base, -1), wrap_add(tf, je > 0 ? je : 0))
+          : wrap_add(wrap_add(base, tf), -1);
+    const int32_t st = clamp_to(tf, 0, LG - LP);
+    const bool hit = g < G && x_lo <= x_hi && st <= hi && st + LP > lo;
+    const unsigned m = __ballot_sync(kFull, hit);
+    if (hit) {
+      const int pos = n + __popc(m & ((1u << lane) - 1));
+      (d ? t.start[1] : t.start[0])[pos] = st;
+      (d ? t.g_ok[1] : t.g_ok[0])[pos] = 2 * g + (k_ok != 0);
+      (d ? t.lead[1] : t.lead[0])[pos] = ld;
+    }
+    n += __popc(m);
+    if (g < G) {
+      const int k = d ? G_l - 1 - g : G_l + g;
+      t.e_cell[k] = cell;
+      t.e_pack[k] = pack;
+      t.e_cnt[k] = k_ok ? cnt : 0;
+    }
+  }
+  return n;
+}
+
+__global__ void __launch_bounds__(kPlanesThreads) fold_planes_kernel(
     const int8_t* __restrict__ v0_r, const int32_t* __restrict__ ip_r,
     const int32_t* __restrict__ ic_r, const int8_t* __restrict__ v0_l,
     const int32_t* __restrict__ ip_l, const int32_t* __restrict__ ic_l,
@@ -147,107 +207,165 @@ __global__ void __launch_bounds__(kThreads) fold_planes_kernel(
     int32_t* __restrict__ gc, int B, int G_r, int G_l, int LP, int LG,
     int L_t) {
   extern __shared__ int32_t smem[];
-  const int b = blockIdx.x;
+  __shared__ int n_seg[2];
+  // block x: pair x / tiles, its tile x % tiles (a pair's tiles adjacent)
+  const int tiles = (L_t + kPlanesTile - 1) / kPlanesTile;
+  const int b = blockIdx.x / tiles;
+  const int l0 = (blockIdx.x - b * tiles) * kPlanesTile;
+  const int l1 = min(l0 + kPlanesTile, L_t);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int E = G_r + G_l;
-  int32_t* seg = smem;                 // start, ok, lead: right then left
-  int32_t* e_cell = smem + 3 * E;      // the side-band entries
-  int32_t* e_pack = e_cell + E;
-  int32_t* e_cnt = e_pack + E;
-  int32_t* e_base = e_cnt + E;
-  int32_t* e_live = e_base + E;
-  int32_t* e_gp = e_live + E;
+  const Lists t = lists_in(smem, G_r, G_l);
 
-  for (int k = threadIdx.x; k < E; k += blockDim.x) {
-    const bool right = k < G_r;
-    const int g = right ? k : k - G_r;
-    const size_t i = (size_t)g * B + b;
-    seg[k] = clamp_to(right ? toff_r[i] : toff_l[i], 0, LG - LP);
-    seg[E + k] = right ? ok_r[i] : ok_l[i];
-    seg[2 * E + k] = right ? lead_r[i] : lead_l[i];
+  // warp 0 lists the right direction, warp 1 the left; each side array is
+  // read once a block
+  if (warp < 2) {
+    const bool d = warp == 1;
+    const int n = list_direction(
+        t, d, d ? toff_l : toff_r, d ? ok_l : ok_r, d ? lead_l : lead_r,
+        d ? bp_l : bp_r, d ? bc_l : bc_r, j_end_l, tseed, d ? G_l : G_r, G_l,
+        B, b, LG, LP, L_t, l0, l1);
+    if (lane == 0) n_seg[d] = n;
   }
-  __syncthreads();
-
   const int32_t ts = tseed[b];
   const int Lb = LG + L_t + LG;
-  Placement pl;
-  pl.right = {v0_r, ip_r, ic_r, seg, seg + E, seg + 2 * E, G_r};
-  pl.left = {v0_l,          ip_l,          ic_l,
-             seg + G_r,     seg + E + G_r, seg + 2 * E + G_r,
-             G_l};
-  pl.rs = clamp_to(wrap_add(LG, ts), 0, Lb - LG);
-  pl.ls = clamp_to(ts, 0, Lb - LG);
-  pl.LG = LG;
-  pl.LP = LP;
-  pl.B = B;
+  const int rs = clamp_to(wrap_add(LG, ts), 0, Lb - LG);
+  const int ls = clamp_to(ts, 0, Lb - LG);
+  __syncthreads();
+
+  // each column's local column in the direction that places it (right
+  // over left, the left flipped), -1 where neither does; its writer is the
+  // last listed segment whose window holds it: both lists walked once for
+  // all of a thread's columns, alike in every thread
+  int u[kPlanesCols], own[kPlanesCols];
+  unsigned is_left = 0;
+#pragma unroll
+  for (int j = 0; j < kPlanesCols; ++j) {
+    const int l = l0 + threadIdx.x + j * kPlanesThreads;
+    const int r = LG + l - rs, f = LG + l - ls;
+    const bool left = (unsigned)r >= (unsigned)LG;
+    is_left |= (unsigned)left << j;
+    u[j] = l >= l1 ? -1
+                   : !left ? r : ((unsigned)f < (unsigned)LG ? LG - 1 - f : -1);
+    own[j] = -1;
+  }
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    const int n = n_seg[d];
+    const int32_t* starts = d ? t.start[1] : t.start[0];
+    for (int k = 0; k < n; ++k) {
+      const int st = starts[k];
+#pragma unroll
+      for (int j = 0; j < kPlanesCols; ++j)
+        if (((is_left >> j) & 1) == d && (unsigned)(u[j] - st) < (unsigned)LP)
+          own[j] = k;
+    }
+  }
+  // every deposit load of this thread's columns in flight before a use
+  int32_t v[kPlanesCols], p[kPlanesCols], c[kPlanesCols];
+#pragma unroll
+  for (int j = 0; j < kPlanesCols; ++j) {
+    const bool left = (is_left >> j) & 1;
+    int src = -1;
+    bool gap = false;
+    if (own[j] >= 0) {
+      const int k = own[j];
+      const int g_ok = (left ? t.g_ok[1] : t.g_ok[0])[k];
+      const int cc = u[j] - (left ? t.start[1] : t.start[0])[k];
+      gap = cc < (left ? t.lead[1] : t.lead[0])[k];
+      if (g_ok & 1) src = ((g_ok >> 1) * B + b) * LP + cc;   // else: empties
+    }
+    const bool any = src >= 0;
+    const int i = any ? src : 0;
+    v[j] = any && !gap ? (left ? v0_l : v0_r)[i] : (any ? kGap : -1);
+    p[j] = any ? (left ? ip_l : ip_r)[i] : 0;
+    c[j] = any ? (left ? ic_l : ic_r)[i] : 0;
+  }
+
+  // the listed entries whose cell is one of this warp's columns, in global
+  // column order; each reads the placed planes at its cell from the lane
+  // that holds that column, before any write.  A chain groups consecutive
+  // entries of one cell; its sum is written at the group's last entry,
+  // over the column's value
+  int32_t wp[kPlanesCols], wc[kPlanesCols];
+  unsigned written = 0;
+  uint32_t acc_cnt = 0, acc_pack = 0;
+  int32_t prev_cell = 0, prev_gp = 0, prev_base = 0;
+  int prev_k = -2;
+  const auto flush = [&]() {
+    if ((int32_t)acc_cnt <= 0) return;
+    const int at = prev_cell - LG - l0;
+    if (lane == (at & 31)) {
+#pragma unroll
+      for (int j = 0; j < kPlanesCols; ++j)
+        if (at / kPlanesThreads == j) {
+          wp[j] = prev_gp | (int32_t)acc_pack;
+          wc[j] = wrap_add(prev_base, (int32_t)acc_cnt);
+          written |= 1u << j;
+        }
+    }
+  };
+  for (int k0 = 0; k0 < E; k0 += 32) {
+    const int k = k0 + lane;
+    const int32_t cell = k < E ? t.e_cell[k] : 0;
+    const long long at = (long long)cell - LG - l0;   // a column of the tile?
+    const bool in = k < E && at >= 0 && at < l1 - l0;
+    const int col = in ? (int)at : 0;
+    const bool mine = in && ((col % kPlanesThreads) >> 5) == warp;
+    const int at_lane = col & 31, at_j = col / kPlanesThreads;
+    int32_t ev = -1, egp = 0, ebase = 0;
+#pragma unroll
+    for (int j = 0; j < kPlanesCols; ++j) {
+      const int32_t tv = __shfl_sync(kFull, v[j], at_lane);
+      const int32_t tp = __shfl_sync(kFull, p[j], at_lane);
+      const int32_t tc = __shfl_sync(kFull, c[j], at_lane);
+      if (at_j == j) {
+        ev = tv;
+        egp = tp;
+        ebase = tc;
+      }
+    }
+    unsigned m = __ballot_sync(kFull, mine);
+    while (m) {                // the same in every lane
+      const int e = __ffs(m) - 1;
+      m &= m - 1;
+      const int32_t e_cell = __shfl_sync(kFull, cell, e);
+      const int ke = k0 + e;
+      if (e_cell != prev_cell || ke != prev_k + 1) {
+        flush();               // a new group: the last one ends here
+        acc_cnt = acc_pack = 0;
+      }
+      const int32_t base = __shfl_sync(kFull, ebase, e);
+      int32_t cnt = t.e_cnt[ke];
+      cnt = cnt > 0 && __shfl_sync(kFull, ev, e) >= 0 ? cnt : 0;
+      // an unconsumed anchor (the cell's value < 0) is dropped
+      const int32_t off = wrap_add(base, (int32_t)acc_cnt);
+      const int32_t shift = clamp_to(wrap_add(off, off), 0, 2 * kMaxD);
+      if (cnt > 0 && off < kMaxD)
+        acc_pack |= ((uint32_t)t.e_pack[ke] << shift) & kPackMask;
+      acc_cnt += (uint32_t)cnt;
+      prev_cell = e_cell;
+      prev_k = ke;
+      prev_gp = __shfl_sync(kFull, egp, e);
+      prev_base = base;
+    }
+  }
+  flush();                     // the last group
 
   const size_t row = (size_t)b * L_t;
-  for (int l = threadIdx.x; l < L_t; l += blockDim.x) {
-    const Value v = pl.at(LG + l, b);
-    g0[row + l] = (int8_t)v.v0;
-    gp[row + l] = v.pack;
-    gc[row + l] = v.cnt;
-  }
-
-  // the side-band entries in global column order: left segments
-  // descending, then right ascending; each reads the placed planes
-  for (int k = threadIdx.x; k < E; k += blockDim.x) {
-    int32_t cell, pack, cnt;
-    bool ok;
-    if (k < G_l) {
-      const size_t i = (size_t)(G_l - 1 - k) * B + b;
-      const int32_t je = j_end_l[i] > 0 ? j_end_l[i] : 0;
-      cell = wrap_sub(wrap_add(wrap_add(LG, ts), -1), wrap_add(toff_l[i], je));
-      pack = bp_l[i];
-      cnt = bc_l[i];
-      ok = ok_l[i];
-    } else {
-      const size_t i = (size_t)(k - G_l) * B + b;
-      cell = wrap_add(wrap_add(wrap_add(LG, ts), toff_r[i]), -1);
-      pack = bp_r[i];
-      cnt = bc_r[i];
-      ok = ok_r[i];
-    }
-    cnt = ok ? cnt : 0;
-    int32_t base = 0, at_gp = 0, live = 0;
-    if ((long long)cell - LG >= 0 && (long long)cell - LG < L_t) {
-      const Value v = pl.at(cell, b);
-      base = v.cnt;
-      at_gp = v.pack;
-      live = cnt > 0 && v.v0 >= 0;   // an unconsumed anchor: dropped
-    }
-    // a cell outside the output only ever writes outside it: its group
-    // counts nothing
-    e_cell[k] = cell;
-    e_pack[k] = pack;
-    e_cnt[k] = live ? cnt : 0;
-    e_base[k] = base;
-    e_live[k] = live;
-    e_gp[k] = at_gp;
-  }
-  __syncthreads();   // the columns' writes land before the chains' writes
-
-  if (threadIdx.x == 0) {
-    uint32_t acc_cnt = 0, acc_pack = 0;
-    for (int k = 0; k < E; ++k) {
-      const int32_t cell = e_cell[k];
-      if (k == 0 || cell != e_cell[k - 1]) acc_cnt = acc_pack = 0;
-      const int32_t off = wrap_add(e_base[k], (int32_t)acc_cnt);
-      const int32_t shift = clamp_to(wrap_add(off, off), 0, 2 * kMaxD);
-      if (e_live[k] && off < kMaxD)
-        acc_pack |= ((uint32_t)e_pack[k] << shift) & kPackMask;
-      acc_cnt += (uint32_t)e_cnt[k];
-      const bool last = k == E - 1 || e_cell[k + 1] != cell;
-      if (last && (int32_t)acc_cnt > 0) {
-        // a counting group's cell lies in the output (see above)
-        const size_t i = row + (cell - LG);
-        gp[i] = e_gp[k] | (int32_t)acc_pack;
-        gc[i] = wrap_add(e_base[k], (int32_t)acc_cnt);
-      }
+#pragma unroll
+  for (int j = 0; j < kPlanesCols; ++j) {
+    const int l = l0 + threadIdx.x + j * kPlanesThreads;
+    if (l < l1) {
+      const bool w = (written >> j) & 1;
+      g0[row + l] = (int8_t)v[j];
+      gp[row + l] = w ? wp[j] : p[j];
+      gc[row + l] = w ? wc[j] : c[j];
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fold_tags_kernel(
+__global__ void __launch_bounds__(kFoldThreads) fold_tags_kernel(
     const int8_t* __restrict__ g0, const int32_t* __restrict__ gp,
     const int32_t* __restrict__ gc, const int32_t* __restrict__ tlen,
     const int32_t* __restrict__ t_slot, const uint8_t* __restrict__ pair_ok,
@@ -256,7 +374,9 @@ __global__ void __launch_bounds__(kThreads) fold_tags_kernel(
     int T) {
   const int b = blockIdx.y;
   if (!pair_ok[b]) return;            // a masked pair touches nothing
-  const int32_t slot = t_slot[b];
+  // the kept pair's arrays in flight together
+  const int32_t slot = t_slot[b], len = tlen[b], beg = tbeg[b],
+                end = tend[b];
   if (slot < 0 || slot >= T) {
     // a kept pair with no table row: stop the grid, as torch's index_add_
     // does on CUDA, so that the next synchronising call raises
@@ -265,29 +385,28 @@ __global__ void __launch_bounds__(kThreads) fold_tags_kernel(
              T);
     __trap();
   }
-  const int32_t n = tlen[b] < L_t ? tlen[b] : L_t;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const int32_t a = clamp_to(tbeg[b], 0, L_t);
-    const int32_t e = clamp_to(tend[b] < tlen[b] ? tend[b] : tlen[b], 0, L_t);
+    const int32_t a = clamp_to(beg, 0, L_t);
+    const int32_t e = clamp_to(end < len ? end : len, 0, L_t);
     if (e > a) {
       int32_t* cov = cov_diff + (size_t)slot * (L_t + 1);
       atomicAdd(cov + a, 1);
       atomicAdd(cov + e, -1);
     }
   }
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= n) return;
+  const int l = blockIdx.x * kFoldThreads + threadIdx.x;
+  if (l >= (len < L_t ? len : L_t)) return;
+  // the column's three planes in flight together: gpack does not wait for
+  // gcnt
   const size_t i = (size_t)b * L_t + l;
-  int32_t* cells = counts + ((size_t)slot * L_t + l) * kCells;
   const int v = g0[i];
-  if (v >= 0 && v <= kGap) atomicAdd(cells + v, 1);
   const int32_t cnt = gc[i];
-  if (cnt > 0) {
-    const uint32_t pack = (uint32_t)gp[i];
-    const int top = cnt < kMaxD ? cnt : kMaxD;
-    for (int d = 1; d <= top; ++d)
-      atomicAdd(cells + 5 * d + ((pack >> (2 * (d - 1))) & 3), 1);
-  }
+  const uint32_t pack = (uint32_t)gp[i];
+  int32_t* cells = counts + ((size_t)slot * L_t + l) * kCells;
+  if (v >= 0 && v <= kGap) atomicAdd(cells + v, 1);
+  const int top = cnt < kMaxD ? cnt : kMaxD;
+  for (int d = 1; d <= top; ++d)
+    atomicAdd(cells + 5 * d + ((pack >> (2 * (d - 1))) & 3), 1);
 }
 
 }  // namespace
@@ -300,7 +419,8 @@ __global__ void __launch_bounds__(kThreads) fold_tags_kernel(
 // LP + S.  Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue, without a launch, for an S below 1, a W below 2
 // or odd, a negative count, a buffer of 2 LG + L_t columns past int32, or
-// more segments than one block's shared memory holds.
+// a direction's deposit planes of 2^31 cells or more, or more segments
+// than one block's shared memory holds.
 extern "C" int mecat_fold_planes(
     const void* v0_r, const void* ip_r, const void* ic_r, const void* v0_l,
     const void* ip_l, const void* ic_l, const void* toff_r, const void* ok_r,
@@ -315,6 +435,9 @@ extern "C" int mecat_fold_planes(
   const long long LG = L_t + LP + S;
   if (2 * LG + L_t > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (B == 0 || L_t == 0) return 0;
+  // deposit cells are addressed with int32 offsets
+  if ((long long)(G_r > G_l ? G_r : G_l) * B * LP > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = planes_smem(G_r, G_l);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem > kSmemDefault) {
@@ -323,7 +446,10 @@ extern "C" int mecat_fold_planes(
         (int)kSmemLimit);
     if (err != cudaSuccess) return (int)err;
   }
-  fold_planes_kernel<<<B, kThreads, smem,
+  const long long blocks =
+      (long long)B * ((L_t + kPlanesTile - 1) / kPlanesTile);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fold_planes_kernel<<<(unsigned)blocks, kPlanesThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(v0_r), static_cast<const int32_t*>(ip_r),
       static_cast<const int32_t*>(ic_r), static_cast<const int8_t*>(v0_l),
@@ -356,8 +482,10 @@ extern "C" int mecat_fold_tags(const void* g0, const void* gp,
   if (B < 0 || L_t < 0 || T < 0 || (long long)T * L_t * kCells > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0 || L_t == 0) return 0;   // nothing to add
-  const dim3 grid((unsigned)((L_t + kThreads - 1) / kThreads), (unsigned)B);
-  fold_tags_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((unsigned)((L_t + kFoldThreads - 1) / kFoldThreads),
+                  (unsigned)B);
+  fold_tags_kernel<<<grid, kFoldThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(g0), static_cast<const int32_t*>(gp),
       static_cast<const int32_t*>(gc), static_cast<const int32_t*>(tlen),
       static_cast<const int32_t*>(t_slot),

@@ -874,7 +874,12 @@ def deposit_scan_warp(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
             ac.astype(np.int32))
 
 
-def fold_inputs(S: int, W: int, B: int, L_t: int, T: int, seed: int):
+#: the planes kernel's tile of columns (``csrc/cns_fold.cu`` kPlanesTile)
+PLANES_TILE = 1024
+
+
+def fold_inputs(S: int, W: int, B: int, L_t: int, T: int, seed: int,
+                tile: int = PLANES_TILE, segs=(6, 5)):
     """Edge inputs of the tag fold's two kernels, as :func:`..ops.
     consensus_banded.plane_inputs` and the chunk hand them over: deposit
     planes (val0 in [-1, 4], ipack any int32, icnt 0-20), segments whose
@@ -889,7 +894,13 @@ def fold_inputs(S: int, W: int, B: int, L_t: int, T: int, seed: int):
     its second entry starts at off >= MAXD; 7 that chain on an unconsumed
     anchor (g0 < 0); 8 tend > tlen; 9 tlen and tend past L_t (b == L_t); 10
     that chain summing past 15 deltas (gcnt > 15); 11 a masked pair (B >=
-    12).  6 right and 5 left segments.
+    12), the first pair of slot T - 1 (T >= 2), which pair 17 shares.  With
+    B >= 18, for tiles of ``tile`` columns: 12-14 on slot 0, kept, masked,
+    kept; 15 and 16 the chain of pair 5 at a tile's last column and at the
+    next tile's first (tseed tile and tile + 1; where L_t <= tile + 1 at
+    the last column and at column 0); 17 tseed inside a tile.  ``segs``
+    right and left segments (at least 3 and 2; past 32 the kernel's lanes
+    take them in rounds).
 
     Returns a dict of numpy arrays: planes_r / planes_l (val0 int8, ipack,
     icnt int32 [G, B, LP]), side_r / side_l (toff, ok bool, lead, bnd_pack,
@@ -900,7 +911,7 @@ def fold_inputs(S: int, W: int, B: int, L_t: int, T: int, seed: int):
     rng = np.random.default_rng(seed)
     LP = S + W // 2 - 1
     LG = L_t + LP + S
-    G_r, G_l = 6, 5
+    G_r, G_l = segs
 
     def direction(G):
         v0 = rng.choice(np.array([-1, 0, 1, 2, 3, 4], np.int8), (G, B, LP),
@@ -930,8 +941,15 @@ def fold_inputs(S: int, W: int, B: int, L_t: int, T: int, seed: int):
     side_r[1][:, 4] = True
     side_r[0][:, 4] -= 37                        # clamped at 0 ...
     side_r[0][-1, 4] = LG - LP + 50              # ... and at LG - LP
-    for b, icnt, cnt in ((5, 3, (4, 5)), (6, 13, (2, 3)), (7, 3, (4, 5)),
-                         (10, 10, (5, 3))):
+    chains = [(5, 3, (4, 5)), (6, 13, (2, 3)), (7, 3, (4, 5)),
+              (10, 10, (5, 3))]
+    if B >= 18:
+        # the chain's cell is column tseed - 1
+        edge = (tile, tile + 1) if tile + 1 < L_t else (L_t, 1)
+        tseed[15], tseed[16] = edge
+        tseed[17] = tile + tile // 2 if tile + tile // 2 < L_t else L_t // 2
+        chains += [(15, 3, (4, 5)), (16, 3, (4, 5))]
+    for b, icnt, cnt in chains:
         # the left's last entry and the right's first at global column
         # tseed - 1; the right's first two segments at one offset
         side_l[0][:, b] -= side_l[0][0, b]
@@ -944,6 +962,7 @@ def fold_inputs(S: int, W: int, B: int, L_t: int, T: int, seed: int):
         side_r[4][1, b] = 2
         side_l[2][0, b] = 0
         tseed[b] = max(tseed[b], 1)              # the cell is a column
+        tseed[b] = min(tseed[b], L_t)
         planes_l[0][0, b, 0] = -1 if b == 7 else 2
         planes_l[2][0, b, 0] = icnt
     tlen = rng.integers(L_t // 2, L_t + 1, B).astype(np.int32)
@@ -954,10 +973,18 @@ def fold_inputs(S: int, W: int, B: int, L_t: int, T: int, seed: int):
     pair_ok = rng.random(B) < 0.85
     pair_ok[:11] = True
     pair_ok[11] = False
+    t_slot = rng.integers(0, T, B).astype(np.int32)
+    if T >= 2:
+        t_slot[:11][t_slot[:11] == T - 1] = 0
+        t_slot[11] = T - 1
+    if B >= 18:
+        t_slot[12:15] = 0
+        pair_ok[12:18] = True
+        pair_ok[13] = False
+        t_slot[17] = T - 1
     return dict(planes_r=tuple(planes_r), planes_l=tuple(planes_l),
                 side_r=tuple(side_r), side_l=tuple(side_l), lj_end=lj_end,
-                tseed=tseed, tlen=tlen,
-                t_slot=rng.integers(0, T, B).astype(np.int32),
+                tseed=tseed, tlen=tlen, t_slot=t_slot,
                 pair_ok=pair_ok, tbeg=tbeg, tend=tend,
                 counts=rng.integers(0, 3, (T, L_t, C.MAX_INS_DELTA + 1, 5)
                                     ).astype(np.int32),
@@ -971,11 +998,12 @@ FOLD_KEYS = ("tlen", "t_slot", "pair_ok", "tbeg", "tend")
 
 
 def fold_case(device, S: int, W: int, L_t: int, source: str, B: int = 128,
-              T: int = 16, seed: int = 7):
+              T: int = 16, seed: int = 7, segs=(6, 5)):
     """The tag fold's arguments as tensors on ``device``: (the arguments of
     ``ops.consensus_banded.banded_global_planes_plain`` but its keywords,
     [counts, cov_diff, tlen, t_slot, pair_ok, tbeg, tend] of
-    ``fold_tags_plain``).  ``"edge"``: :func:`fold_inputs`; ``"path"``: the
+    ``fold_tags_plain``).  ``"edge"``: :func:`fold_inputs` (``segs``
+    right and left segments); ``"path"``: the
     deposit and side arrays of the row walks (``ops.align.
     extend_pair_batch_rows``, L_t // S + 2 segments a direction) of
     :func:`extend_inputs` pairs of L_t bases, as a cns chunk hands them
@@ -987,7 +1015,7 @@ def fold_case(device, S: int, W: int, L_t: int, source: str, B: int = 128,
         return torch.as_tensor(np.array(a), device=device)
 
     if source == "edge":
-        fi = fold_inputs(S, W, B, L_t, T, seed)
+        fi = fold_inputs(S, W, B, L_t, T, seed, segs=segs)
         return ([on(fi[k]) for k in PLANE_KEYS],
                 [on(fi["counts"]), on(fi["cov_diff"]),
                  *(on(fi[k]) for k in FOLD_KEYS)])
@@ -1016,8 +1044,9 @@ def _i32(x):
 
 def global_planes_pairwise(planes_r, planes_l, side_r, side_l, lj_end, tseed,
                            L_t: int, S: int, W: int):
-    """The global planes as ``csrc/cns_fold.cu``'s planes kernel makes them,
-    on numpy arrays, pair by pair: each output column's value found, not
+    """The global planes found pair by pair, the order of a planes kernel
+    with one block a pair (:func:`global_planes_tiled` is the tiled
+    kernel's), on numpy arrays: each output column's value found, not
     replayed (the right placement if it covers the column, else the left
     one, flipped; in that direction the highest segment whose clamped
     window holds it: GAP below its lead, the empties where it is not ok or
@@ -1109,6 +1138,121 @@ def global_planes_pairwise(planes_r, planes_l, side_r, side_l, lj_end, tseed,
             if last and acc_cnt > 0:
                 gp[b, cell - LG] = _i32(at_gp | acc_pack)
                 gc[b, cell - LG] = _i32(base + acc_cnt)
+    return g0, gp, gc
+
+
+def global_planes_tiled(planes_r, planes_l, side_r, side_l, lj_end, tseed,
+                        L_t: int, S: int, W: int, tile: int = PLANES_TILE):
+    """The global planes as ``csrc/cns_fold.cu``'s planes kernel makes them,
+    on numpy arrays, a (pair, tile of ``tile`` columns) at a time: the
+    tile's columns in each direction's local columns (the left flipped), the
+    segments whose clamped windows meet them listed in segment order, each
+    column's last writer the last listed segment whose window holds it
+    (right over left, a non-ok segment's empties included), then the
+    pair's side-band entries whose cell is a column of the tile, in order
+    (a group ends where the cell changes or an entry outside the tile came
+    between; the kernel splits them further by the warp that holds the
+    cell, which keeps every group whole), each reading the placed value of
+    its cell, chained by one loop that writes a group's sum at its last
+    entry.  Same arguments and results as ``ops.consensus_banded.
+    banded_global_planes_plain``, as numpy."""
+    planes_r = [np.asarray(a) for a in planes_r]
+    planes_l = [np.asarray(a) for a in planes_l]
+    side_r = [np.asarray(a) for a in side_r]
+    side_l = [np.asarray(a) for a in side_l]
+    lj_end, tseed = np.asarray(lj_end), np.asarray(tseed)
+    B = len(tseed)
+    LP = S + W // 2 - 1
+    LG = L_t + LP + S
+    Lb = 2 * LG + L_t
+    g0 = np.empty((B, L_t), np.int8)
+    gp = np.empty((B, L_t), np.int32)
+    gc = np.empty((B, L_t), np.int32)
+
+    def listed(side, b, lo, hi):
+        start = np.clip(side[0][:, b].astype(np.int64), 0, LG - LP)
+        hit = (start <= hi) & (start + LP > lo) & (lo <= hi)
+        return [(int(start[g]), bool(side[1][g, b]), int(side[2][g, b]), g)
+                for g in np.nonzero(hit)[0]]
+
+    def search(planes, segs, b, u):
+        v0, ip, ic = planes
+        val = np.full(u.shape, -1, np.int64)
+        pk = np.zeros(u.shape, np.int64)
+        cn = np.zeros(u.shape, np.int64)
+        found = np.zeros(u.shape, bool)
+        for start, ok, lead, g in reversed(segs):
+            c = u - start
+            hit = ~found & (c >= 0) & (c < LP)
+            found |= hit
+            if ok:
+                cc = c[hit]
+                val[hit] = np.where(cc < lead, 4, v0[g, b, cc])
+                pk[hit], cn[hit] = ip[g, b, cc], ic[g, b, cc]
+        return val, pk, cn
+
+    for b in range(B):
+        ts = int(tseed[b])
+        rs = min(max(int(_i32(LG + ts)), 0), Lb - LG)
+        ls = min(max(ts, 0), Lb - LG)
+        entries = []
+        for g in range(lj_end.shape[0] - 1, -1, -1):
+            cell = _i32(LG + ts - 1 - _i32(int(side_l[0][g, b])
+                                           + max(int(lj_end[g, b]), 0)))
+            entries.append((int(cell), side_l[3][g, b], side_l[4][g, b],
+                            side_l[1][g, b]))
+        for g in range(side_r[0].shape[0]):
+            cell = _i32(LG + ts + int(side_r[0][g, b]) - 1)
+            entries.append((int(cell), side_r[3][g, b], side_r[4][g, b],
+                            side_r[1][g, b]))
+        for l0 in range(0, L_t, tile):
+            l1 = min(l0 + tile, L_t)
+            segs_r = listed(side_r, b, max(LG + l0 - rs, 0),
+                            min(LG + l1 - 1 - rs, LG - 1))
+            lo, hi = max(LG + l0 - ls, 0), min(LG + l1 - 1 - ls, LG - 1)
+            segs_l = listed(side_l, b, LG - 1 - hi, LG - 1 - lo)
+
+            def placed(x):
+                out = [np.full(x.shape, -1, np.int64),
+                       np.zeros(x.shape, np.int64),
+                       np.zeros(x.shape, np.int64)]
+                r, lf = x - rs, x - ls
+                in_r = (r >= 0) & (r < LG)
+                in_l = ~in_r & (lf >= 0) & (lf < LG)
+                for sel, vals in (
+                        (in_r, search(planes_r, segs_r, b, r[in_r])),
+                        (in_l, search(planes_l, segs_l, b,
+                                      LG - 1 - lf[in_l]))):
+                    for o, v in zip(out, vals):
+                        o[sel] = v
+                return out
+
+            v, p, c = placed(LG + np.arange(l0, l1))
+            g0[b, l0:l1], gp[b, l0:l1], gc[b, l0:l1] = v, p, c
+            prep = []
+            for k, (cell, pack, cnt, ok) in enumerate(entries):
+                if not l0 <= cell - LG < l1:
+                    continue
+                cnt = int(cnt) if ok else 0
+                at = placed(np.array([cell]))
+                live = cnt > 0 and at[0][0] >= 0
+                prep.append((k, cell, int(pack), cnt if live else 0,
+                             int(at[2][0]), int(at[1][0])))
+            acc_cnt = acc_pack = 0
+            for i, (k, cell, pack, cnt, base, at_gp) in enumerate(prep):
+                if i == 0 or (cell, k) != (prep[i - 1][1],
+                                           prep[i - 1][0] + 1):
+                    acc_cnt = acc_pack = 0
+                off = int(_i32(base + acc_cnt))
+                shift = min(max(int(_i32(2 * off)), 0), 2 * C.MAX_INS_DELTA)
+                if cnt > 0 and off < C.MAX_INS_DELTA:
+                    acc_pack |= ((pack % (1 << 32)) << shift) & ((1 << 30) - 1)
+                acc_cnt = int(_i32(acc_cnt + cnt))
+                last = (i == len(prep) - 1
+                        or (prep[i + 1][1], prep[i + 1][0]) != (cell, k + 1))
+                if last and acc_cnt > 0:
+                    gp[b, cell - LG] = _i32(at_gp | acc_pack)
+                    gc[b, cell - LG] = _i32(base + acc_cnt)
     return g0, gp, gc
 
 

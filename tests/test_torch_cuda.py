@@ -823,6 +823,62 @@ def test_tag_fold_kernels_match_plain(cuda, S, W, L_t, source):
         "walk_launches_fold": 1}
 
 
+def _select_pairs(plane_args, fold_args, idx):
+    """The tag fold's arguments of pairs ``idx`` alone (contiguous)."""
+    pick = lambda t, dim: t.index_select(dim, idx).contiguous()
+    planes_r, planes_l, side_r, side_l, lj_end, tseed = plane_args
+    return ([tuple(pick(t, 1) for t in planes_r),
+             tuple(pick(t, 1) for t in planes_l),
+             tuple(pick(t, 1) for t in side_r),
+             tuple(pick(t, 1) for t in side_l), pick(lj_end, 1),
+             pick(tseed, 0)],
+            [*fold_args[:2], *(pick(t, 0) for t in fold_args[2:])])
+
+
+@pytest.mark.parametrize("case", ["one pair", "ragged tile", "tile + 1",
+                                  "deep pile", "one slot", "many segments",
+                                  "many pairs"])
+def test_tag_fold_kernels_match_plain_at_tile_edges(cuda, case):
+    """The planes kernel's tiles of 1,024 columns and the fold at their
+    edges, every element against the plain versions:
+    one pair of a path chunk; an L_t of 2,500 (a last tile of 452
+    columns), whose edge pairs put side-band cells at tile 0's last and
+    tile 1's first column; an L_t of 1,025 (a last tile of one column,
+    which holds a side-band cell); the path pairs of a chunk on 4 slots;
+    every edge pair on one slot; 40 right and 36 left segments (more than
+    a warp's lanes: the planes kernel lists them in rounds); 600 edge
+    pairs on 3 slots."""
+    S, W = 512, 128
+    if case in ("one pair", "deep pile"):
+        L_t = 4096
+        plane_args, fold_args = fold_case(cuda, S, W, L_t, "path", B=128,
+                                          T=4 if case == "deep pile" else 16)
+        if case == "one pair":
+            kept = int(torch.nonzero(fold_args[4])[0])
+            plane_args, fold_args = _select_pairs(
+                plane_args, fold_args, torch.tensor([kept], device=cuda))
+    else:
+        L_t = {"ragged tile": 2500, "tile + 1": 1025, "one slot": 2048,
+               "many segments": 3000, "many pairs": 1500}[case]
+        plane_args, fold_args = fold_case(
+            cuda, S, W, L_t, "edge", B=600 if case == "many pairs" else 64,
+            T={"one slot": 1, "many pairs": 3}.get(case, 16),
+            segs=(40, 36) if case == "many segments" else (6, 5))
+    got = consensus_banded.global_planes(*plane_args, L_t=L_t, S=S, W=W)
+    want = consensus_banded.banded_global_planes_plain(*plane_args, L_t=L_t,
+                                                       S=S, W=W)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    counts, cov = fold_args[0].clone(), fold_args[1].clone()
+    consensus_banded.fold_tags(counts, cov, *got, *fold_args[2:], L_t)
+    consensus_banded.fold_tags_plain(fold_args[0], fold_args[1], *want,
+                                     *fold_args[2:], L_t)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, fold_args[0]) and torch.equal(cov, fold_args[1])
+    assert int(counts.sum()) > 100
+
+
 def test_planes_kernel_writes_every_element_of_uninitialised_buffers(
         cuda, monkeypatch):
     """torch.empty hands the planes kernel buffers full of ones; its planes

@@ -1,11 +1,12 @@
 """The tag fold's two kernels (``csrc/cns_fold.cu``) on the CPU: their NumPy
 models against the plain versions and the JAX package, exact equality.
 
-``testing.global_planes_pairwise`` makes the global planes in the planes
-kernel's order (each output column's last writer found, then one pair's
-side-band chains in order) and ``testing.fold_tags_cells`` folds them as the
-fold kernel does (one add a present cell).  Each is held element for
-element against the port's plain version (``banded_global_planes_plain``,
+``testing.global_planes_tiled`` makes the global planes in the planes
+kernel's order (a tile at a time: the tile's segments listed, each output
+column's last writer found among them, the side-band chains of the tile's
+cells in order), ``testing.global_planes_pairwise`` the same a pair at a
+time; ``testing.fold_tags_cells`` folds them as the fold kernel does (one
+add a present cell).  Each is held element for element against the port's plain version (``banded_global_planes_plain``,
 ``fold_tags_plain``) and against ``mecat_tpu.ops.consensus_banded.
 banded_global_planes`` / ``banded_accumulate_tags``: on the correction piles
 of ``test_torch_cns_banded._pile`` (rows from the JAX extension) and on the
@@ -30,8 +31,10 @@ from mecat_tpu.ops import consensus_banded as ref
 from mecat_tpu_torch.ops import consensus_banded as port
 from mecat_tpu_torch.ops import cuda_build, walk_kernel
 from mecat_tpu_torch.pipeline import cns as port_cns
-from mecat_tpu_torch.testing import (FOLD_KEYS, PLANE_KEYS, fold_inputs,
-                                     fold_tags_cells, global_planes_pairwise)
+from mecat_tpu_torch.testing import (FOLD_KEYS, PLANE_KEYS, PLANES_TILE,
+                                     fold_inputs, fold_tags_cells,
+                                     global_planes_pairwise,
+                                     global_planes_tiled)
 from test_torch_cns_banded import _pile
 
 D1 = ref_C.MAX_INS_DELTA + 1
@@ -41,6 +44,10 @@ PILE_WIDTHS = [(256, 64), (512, 128), (512, 640)]
 #: (S, W, L_t) of the edge inputs; W = 1024 is a band past 512
 EDGE_WIDTHS = [(64, 32, 300), (256, 64, 1200), (512, 128, 2000),
                (128, 1024, 900)]
+#: tiles of the tiled planes model: boundaries inside every window (64,
+#: 300; the edge pairs' side-band cells a column before and after one) and
+#: the kernel's own
+PLANE_TILES = [64, 300, PLANES_TILE]
 
 
 def _tt(a):
@@ -95,10 +102,14 @@ def test_global_planes_on_piles_match_jax(S, W):
     _assert_planes_equal(got, want, "plain vs JAX")
     inputs = port.plane_inputs(_tt(rr), _tt(lr), _tt(c["q"]), _tt(c["qs"]),
                                S, W)
-    model = global_planes_pairwise(
+    for model in (global_planes_pairwise, global_planes_tiled):
+        got = model(*(tuple(t.numpy() for t in x) for x in inputs[:4]),
+                    inputs[4].numpy(), c["ts"], c["L_t"], S, W)
+        _assert_planes_equal(got, want, f"{model.__name__} vs JAX")
+    got = global_planes_tiled(
         *(tuple(t.numpy() for t in x) for x in inputs[:4]),
-        inputs[4].numpy(), c["ts"], c["L_t"], S, W)
-    _assert_planes_equal(model, want, "model vs JAX")
+        inputs[4].numpy(), c["ts"], c["L_t"], S, W, tile=S // 2 + 7)
+    _assert_planes_equal(got, want, "tiles of S/2 + 7 vs JAX")
     assert int((np.asarray(want[2]) > 0).sum()) > 5     # insertions landed
 
 
@@ -125,8 +136,9 @@ def test_accumulate_tags_on_piles_match_jax(S, W):
                                        _tt(c["qs"]), _tt(c["ts"]), L_t=L_t,
                                        S=S, W=W)
     model_c, model_v = fold_tags_cells(
-        np.zeros((T, L_t, D1, 5), np.int32), np.zeros((T, L_t + 1), np.int32),
-        *(p.numpy() for p in planes), *(c[k] for k in FOLD_KEYS), L_t)
+        np.zeros((T, L_t, D1, 5), np.int32),
+        np.zeros((T, L_t + 1), np.int32), *(p.numpy() for p in planes),
+        *(c[k] for k in FOLD_KEYS), L_t)
     np.testing.assert_array_equal(model_c, np.asarray(want_c))
     np.testing.assert_array_equal(model_v, np.asarray(want_v))
     assert int(np.asarray(want_c).sum()) > 1000
@@ -204,6 +216,46 @@ def test_fold_on_edge_inputs_matches_jax(S, W, L_t, monkeypatch):
     assert int(want_v[slot, L_t]) < int(fi["cov_diff"][slot, L_t])
 
 
+@pytest.mark.parametrize("tile", PLANE_TILES)
+@pytest.mark.parametrize("S,W,L_t", EDGE_WIDTHS)
+def test_tiled_planes_model_matches_plain(S, W, L_t, tile):
+    """The planes kernel's tiles, modelled: per-tile segment lists and
+    side-band groups against the plain version, on edge pairs placed for
+    these tiles (side-band cells at a tile's first and last column, a seed
+    inside a tile)."""
+    fi = fold_inputs(S, W, 24, L_t, 5, seed=S + W + tile, tile=tile)
+    want = port.banded_global_planes_plain(
+        *(_tt(fi[k]) for k in PLANE_KEYS), L_t=L_t, S=S, W=W)
+    got = global_planes_tiled(*(fi[k] for k in PLANE_KEYS), L_t, S, W, tile)
+    _assert_planes_equal(got, want, f"tiles of {tile} vs plain")
+
+
+@pytest.mark.parametrize("T", [5, 2, 1])
+@pytest.mark.parametrize("S,W,L_t", EDGE_WIDTHS)
+def test_fold_model_on_shared_slots_matches_plain(S, W, L_t, T):
+    """The fold kernel's adds, modelled, against the plain version from the
+    same tables where pairs share slots: several kept pairs on a slot with
+    a masked one between them, a slot whose first pair is masked (T >= 2),
+    every pair on one slot (T = 1).  A masked pair's slot is never read,
+    even one outside [0, T); the plain version raises on a kept one."""
+    fi = fold_inputs(S, W, 24, L_t, T, seed=S + W + T)
+    planes = port.banded_global_planes_plain(
+        *(_tt(fi[k]) for k in PLANE_KEYS), L_t=L_t, S=S, W=W)
+    counts, cov = _tt(fi["counts"]), _tt(fi["cov_diff"])
+    port.fold_tags_plain(counts, cov, *planes,
+                         *(_tt(fi[k]) for k in FOLD_KEYS), L_t)
+    args = [*(p.numpy() for p in planes), *(fi[k] for k in FOLD_KEYS)]
+    slot = args[4] = fi["t_slot"].copy()
+    slot[13] = 1 << 20                          # pair 13 is masked
+    got_c, got_v = fold_tags_cells(fi["counts"], fi["cov_diff"], *args, L_t)
+    np.testing.assert_array_equal(got_c, counts.numpy())
+    np.testing.assert_array_equal(got_v, cov.numpy())
+    slot[13], slot[12] = 0, T                   # pair 12 is kept
+    with pytest.raises((IndexError, RuntimeError)):
+        port.fold_tags_plain(_tt(fi["counts"]), _tt(fi["cov_diff"]),
+                             *planes, *(_tt(a) for a in args[3:]), L_t)
+
+
 def test_fold_inputs_reach_every_edge():
     """The edge pairs of ``fold_inputs`` do what its docstring says: the
     clamped windows, the non-ok segment, the boundary chains and their
@@ -228,6 +280,20 @@ def test_fold_inputs_reach_every_edge():
     assert fi["tend"][8] > fi["tlen"][8] and fi["pair_ok"][8]
     assert min(fi["tlen"][9], fi["tend"][9]) > L_t and fi["pair_ok"][9]
     assert not fi["pair_ok"][11]
+    # the slots: 12-14 on slot 0 kept, masked, kept; pair 11 (masked) the
+    # first of slot T - 1, which pair 17 shares
+    slot, ok = fi["t_slot"], fi["pair_ok"]
+    assert list(slot[12:15]) == [0, 0, 0] and list(ok[12:15]) == [1, 0, 1]
+    assert slot[11] == 4 and 4 not in slot[:11] and slot[17] == 4 and ok[17]
+    # the tiles of 1024: the chain at the last column of tile 0 and at the
+    # first of tile 1; a seed inside a tile (tile 1 ends past L_t)
+    for b, col in ((15, 1023), (16, 1024)):
+        assert int(fi["tseed"][b]) - 1 == col
+        assert int(gc[b, col]) == 3 + 4 + 5 + 2, b
+    assert fi["tseed"][17] == L_t // 2
+    small = fold_inputs(S, W, 24, 600, 1, seed=3)
+    assert list(small["tseed"][15:17]) == [600, 1]      # one tile
+    assert not small["t_slot"].any()                    # every pair on one
 
 
 def _small_chunk():
