@@ -32,12 +32,15 @@ non-zero exit and no result line:
    slot < G, one launch a call and none of the other DP kernels; at (512,
    128) the wrapper alone as for the counts loop.  Every DP-family kernel
    (both per-segment kernels, both loops, the row and the column walk) at
-   the band widths 32, 48, 96, 160, 256, 272, 384, 512, 528, 1024 and 2048
-   (past 512 a DP lane of several warps) against its plain version, the
-   deposit scan on the rows of that row walk and on random rows, and the
-   tag fold's two kernels on 64 pairs of ``testing.fold_inputs`` (L_t 900
-   and 2,100: one tile and three of the planes kernel); at 512,
-   1024 and 2048 each wrapper's ms of one launch from the host.
+   the band widths 32, 48, 96, 160, 256, 272, 384, 512, 528, 1024, 2048,
+   3072, 3088, 4096, 8192 and 24576 (past 512 a DP lane of several warps,
+   past 3072 a thread-block cluster, whose four DP launches at each such
+   width the wrappers' cluster counter must show) against its plain
+   version, the deposit scan on the rows of that row walk and on random
+   rows, and the tag fold's two kernels on 64 pairs of
+   ``testing.fold_inputs`` (L_t 900 and 2,100: one tile and three of the
+   planes kernel); at 512, 1024, 2048, 4096 and 8192 each wrapper's ms of
+   one launch from the host beside its bound on those inputs.
    Then both DP wrappers alone
    (``ops/dp_kernel``, nothing around them) at the shapes the paths
    launch: (512, 128), full-length segments, 64 / 256 / 1,024 / 4,096 live
@@ -81,7 +84,9 @@ non-zero exit and no result line:
    --align-band 384`` on the same pile with ``--device cuda`` and with
    ``--device cpu``: byte-equal corrected reads, and the CUDA run's summary
    must show the move loop, both correction walks and the tag fold's two
-   kernels (as must the golden cns run);
+   kernels (as must the golden cns run); the same at ``--align-band 4096``
+   (a DP lane of a cluster of two blocks) on the candidates of the pile's
+   first two query reads;
 4. the bench workload (500 kb genome, 15x, mean 5 kb, 12 % error, seeds
    91/92; k 13, stride 10, N 16, S 512, W 128, 30 segments, B 128, L 8192)
    through ``overlap_step``: a warm-up batch, then ``--passes`` (default 3)
@@ -113,9 +118,10 @@ non-zero exit and no result line:
    junk), ``run_ref(device="cuda")`` and ``run_ref(device="cpu")`` in this
    process give byte-equal SAM and byte-equal M4-format output; the junk
    read is FLAG 4; both DP kernels were launched by the CUDA SAM run; then
-   the same SAM run at ``align_band`` 1024 (two warps a DP lane) on cuda
-   and cpu, byte-equal, the CUDA run through the counts loop, the move loop
-   and the column walk at that width;
+   the same SAM run at ``align_band`` 1024 (two warps a DP lane) and at
+   4096 (a cluster of two blocks a DP lane, every DP launch on the cluster
+   route) on cuda and cpu, byte-equal, the CUDA run through the counts
+   loop, the move loop and the column walk at that width;
 9. mapping at a real reference size: one 46 Mb contig (seed 301), 2,000
    simulated reads of mean 10 kb at 12 % error (seed 302), default
    ``RefOptions``, SAM out, through ``python -m
@@ -308,15 +314,26 @@ FOLD_OPS = dict(planes_col=12, planes_entry=40, fold_col=10, fold_add=4)
 #: padding cells, the row walk's odd word counts and each of its thread
 #: groups (1-32 threads a lane); past 512 a DP lane of several warps (528:
 #: a second warp of one real thread; 1024, 2048: two and four whole
-#: slices) and walks of 16 and 8 lanes a block
-BAND_SWEEP = (32, 48, 96, 160, 256, 272, 384, 512, 528, 1024, 2048)
+#: slices; 3072: the widest lane of one block) and walks of 16 and 8 lanes
+#: a block; past 3072 a DP lane of a thread-block cluster (3088: two
+#: blocks of four slices, one of padding; 4096: two of four; 8192: three of
+#: six, two of padding; BAND_MAX = 24576: eight of six) and walks of 4, 2
+#: and 1 lanes a block
+BAND_SWEEP = (32, 48, 96, 160, 256, 272, 384, 512, 528, 1024, 2048, 3072,
+              3088, 4096, 8192, 24576)
 #: widths at which phase 2 times every DP-family kernel (S = 128, 256 lanes)
-BAND_TIMED = (512, 1024, 2048)
-#: the band of phase 8's wide mapping run (a DP lane of two warps)
+BAND_TIMED = (512, 1024, 2048, 4096, 8192)
+#: the widest band a block holds a DP lane for (ops/dp_kernel.BAND_BLOCK_MAX)
+BLOCK_BAND = 3072
+#: the band of phase 8's wide mapping run (a DP lane of two warps) and of
+#: its cluster run (a DP lane of two blocks of four warps)
 REF_WIDE_BAND = 1024
+REF_CLUSTER_BAND = 4096
 #: the band of phase 3's wide CLI run: a width past the paths' 64 and 128
 #: that the reference takes (C = 12 cells a thread, 32 threads a row walk)
 WIDE_BAND = 384
+#: the band of phase 3's cluster CLI run
+CLUSTER_BAND = 4096
 #: the four DP kernels' launch counters: record key -> summary key
 DP_KEYS = (("counts", "dp_launches"), ("moves", "dp_launches_moves"),
            ("extend", "dp_launches_extend"),
@@ -362,11 +379,13 @@ def need_walks(where: str, counts: dict,
 
 
 def zero_dp_counts() -> None:
-    """Set the four DP kernels' launch counters to 0."""
+    """Set the four DP kernels' launch counters to 0, and the count of
+    their launches on the cluster route."""
     from mecat_tpu_torch.ops import dp_kernel
 
     dp_kernel.LAUNCHES = dp_kernel.LAUNCHES_MOVES = 0
     dp_kernel.LAUNCHES_EXTEND = dp_kernel.LAUNCHES_EXTEND_MOVES = 0
+    dp_kernel.LAUNCHES_CLUSTER = 0
 
 
 def dp_launches_of(counts: dict, prefix: str = "") -> dict:
@@ -863,16 +882,22 @@ def phase_widths() -> tuple:
     ``extend_inputs`` pairs and the move loop on the same pairs, each
     against its plain version.  At the widths of BAND_TIMED each kernel's
     wrapper alone on those inputs, ms of one launch from the host (median
-    of 11).  Returns ({kernel: largest difference}, {W: {kernel: ms}})."""
+    of 11), and its bound on them.  Past BLOCK_BAND each of the four DP
+    kernels must have launched once on the cluster route (their wrappers'
+    cluster counter).  Returns ({kernel: largest difference}, {W: {kernel:
+    ms}}, {W: {kernel: bound numbers}})."""
     import torch
 
     from mecat_tpu_torch import constants as C
-    from mecat_tpu_torch.ops import align, consensus_banded
+    from mecat_tpu_torch.ops import align, consensus_banded, dp_kernel
     from mecat_tpu_torch.testing import (deposit_inputs, dp_inputs,
                                          extend_inputs, fold_case)
 
     dev = torch.device("cuda")
     S = 128
+    if (dp_kernel.BAND_MAX, dp_kernel.BAND_BLOCK_MAX) != (BAND_SWEEP[-1],
+                                                          BLOCK_BAND):
+        raise AssertionError("BAND_SWEEP must end at the kernels' BAND_MAX")
     err = dict.fromkeys(("dp_segment_best", "dp_segment_best_moves",
                          "extend_counts", "extend_moves", "traceback_rows",
                          "traceback_ops", "deposit_scan", *FOLD_REPLACES), 0)
@@ -883,8 +908,9 @@ def phase_widths() -> tuple:
             if not torch.equal(g, w):
                 raise AssertionError(f"{name} kernel != plain at S={S} W={W}")
 
-    timed = {}
+    timed, bounds = {}, {}
     for W in BAND_SWEEP:
+        cluster0 = dp_kernel.LAUNCHES_CLUSTER
         args = [torch.as_tensor(a, device=dev)
                 for a in dp_inputs(S, W, 256, seed=211 + W)]
         want = align.dp_segment_best_plain(*args, S, W, want_moves=True)
@@ -922,19 +948,31 @@ def phase_widths() -> tuple:
                  for a in extend_inputs(128, 20 * S, S, seed=221 + W)]
         lanes = [x.contiguous() for x in align.direction_lanes(*pairs, S, W)]
         kw = dict(S=S, W=W, min_seg_identity=C.MIN_SEGMENT_IDENTITY)
-        check("extend_counts",
-              align._extend_direction_impl(*lanes, **kw, max_segs=16)[0],
-              align._extend_direction_impl(
-                  *lanes, **kw, max_segs=16,
-                  dp=align.dp_segment_best_plain)[0], W)
+        got_counts = align._extend_direction_impl(*lanes, **kw,
+                                                  max_segs=16)[0]
+        # the plain loops, with the cells they run for the bounds
+        want_counts, _, b_counts, chain_counts, _ = loop_bound(
+            lambda dp: (align._extend_direction_impl(
+                *lanes, **kw, max_segs=16, dp=dp)[0], None), S, W, False)
+        check("extend_counts", got_counts, want_counts, W)
         kw.update(max_segs=16, max_segs_left=9)
+        got_moves = align._extend_both_with_moves(*pairs, **kw,
+                                                  dp=align.dp_segment_best)
+
+        def host_loop(dp):
+            res = align._extend_both_with_moves(*pairs, **kw, dp=dp)
+            return res, res[3]
+
+        want_moves, _, b_moves, chain_moves, _ = loop_bound(host_loop, S, W,
+                                                            True)
         err["extend_moves"] = max(err["extend_moves"], check_moves_loop(
-            align._extend_both_with_moves(*pairs, **kw,
-                                          dp=align.dp_segment_best),
-            align._extend_both_with_moves(*pairs, **kw,
-                                          dp=align.dp_segment_best_plain),
-            pairs, S, W, f"S={S} W={W}"))
+            got_moves, want_moves, pairs, S, W, f"S={S} W={W}"))
+        del got_moves, want_moves
         torch.cuda.synchronize()
+        on_cluster = dp_kernel.LAUNCHES_CLUSTER - cluster0
+        if on_cluster != (4 if W > BLOCK_BAND else 0):
+            raise AssertionError(f"at W={W} the DP kernels made {on_cluster} "
+                                 f"launches on the cluster route")
         if W in BAND_TIMED:
             from mecat_tpu_torch.ops import dp_kernel
             from mecat_tpu_torch.ops import walk_kernel as wk
@@ -960,16 +998,28 @@ def phase_widths() -> tuple:
                     *ffold[:2], *fwant, *ffold[2:], 900)}
             timed[W] = {name: cuda_median_ms(fn, 11)
                         for name, fn in runs.items()}
+            ops = align.traceback_ops_plain(moves, r_best, w_best, W, TC)
+            bounds[W] = {
+                "dp_segment_best": dp_bound(*args[2:], S, W, False),
+                "dp_segment_best_moves": dp_bound(*args[2:], S, W, True),
+                "extend_counts": dict(b_counts, chain_steps=chain_counts),
+                "extend_moves": dict(b_moves, chain_steps=chain_moves),
+                **{k: dict(v[0], chain_steps=v[1]) for k, v in walk_bounds(
+                    S, W, TC, r_best, rows, ops, dep).items()},
+                **fold_bound(fplanes, ffold, fwant, 900, S)}
             say(f"phase 2: band W={W} (S={S}, 256 lanes), ms of one launch "
                 f"from the host: " + ", ".join(
-                    f"{k} {v:.4f}" for k, v in timed[W].items()))
+                    f"{k} {v:.4f} (bound {bounds[W][k]['bound_ms']:.4f} by "
+                    f"{bounds[W][k]['bound_by']})"
+                    for k, v in timed[W].items()))
         say(f"phase 2: band W={W} (S={S}): both per-segment DP kernels (256 "
             f"lanes, every move word), the row and the column walk on their "
             f"words, the deposit on that walk's rows and on random rows, "
             f"the counts loop and the move loop (256 direction lanes, 16 / 9 "
             f"segments), the tag fold's planes and fold (64 pairs of "
-            f"fold_inputs, L_t 900 and 2,100) == their plain versions")
-    return err, timed
+            f"fold_inputs, L_t 900 and 2,100) == their plain versions; "
+            f"{on_cluster} DP launches on the cluster route")
+    return err, timed, bounds
 
 
 def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
@@ -1513,39 +1563,64 @@ def phase_golden(work: str) -> dict:
     return dict(launches, walks=walks)
 
 
-def phase_golden_wide(work: str) -> dict:
-    """The golden pile through the cns CLI at ``--align-band`` WIDE_BAND,
-    on the card and on the CPU (each a process of its own): byte-equal
+def phase_golden_wide(work: str, band: int = WIDE_BAND,
+                      queries: int | None = None) -> dict:
+    """The golden pile through the cns CLI at ``--align-band`` ``band``, on
+    the card and on the CPU (each a process of its own): byte-equal
     corrected reads; the CUDA run must take the move loop and both
-    correction walks.  Returns its walk and DP launches."""
+    correction walks.  ``queries``: only the candidate lines of the pile's
+    first ``queries`` query reads (in file order), whose supports then
+    correct those reads.  Returns its walk and DP launches."""
     golden = os.path.join(ROOT, "tests", "golden")
+    candidates = os.path.join(golden, "candidates.txt")
+    what = "the golden pile"
+    if queries is not None:
+        with open(candidates) as fh:
+            lines = fh.read().splitlines(keepends=True)
+        first = list(dict.fromkeys(ln.split()[0] for ln in lines))[:queries]
+        kept = [ln for ln in lines if ln.split()[0] in first]
+        candidates = os.path.join(work, f"candidates_w{band}.txt")
+        with open(candidates, "w") as fh:
+            fh.writelines(kept)
+        what = (f"the golden pile's candidates of its first {queries} query "
+                f"reads ({len(kept)} of {len(lines)} lines)")
     outs, summaries = {}, {}
     for device in ("cuda", "cpu"):
-        outs[device] = os.path.join(work, f"corrected_w{WIDE_BAND}_{device}"
+        outs[device] = os.path.join(work, f"corrected_w{band}_{device}"
                                           ".fasta")
         wall, summaries[device] = run_cli(
             "mecat2cns", ["-i", "0", "-a", "300", "-l", "500",
                           "--extend-batch", "32", "--align-band",
-                          str(WIDE_BAND), "--device", device,
-                          os.path.join(golden, "candidates.txt"),
+                          str(band), "--device", device, candidates,
                           os.path.join(golden, "reads.fasta"),
                           outs[device]], "cns")
-        say(f"phase 3: CLI mecat2cns --align-band {WIDE_BAND} --device "
-            f"{device} on the golden pile: exit 0, "
+        say(f"phase 3: CLI mecat2cns --align-band {band} --device "
+            f"{device} on {what}: exit 0, "
             f"{summaries[device].get('corrected_reads')} corrected reads, "
             f"wall {wall:.2f} s")
     with open(outs["cuda"], "rb") as fh, open(outs["cpu"], "rb") as gh:
         cuda_bytes, cpu_bytes = fh.read(), gh.read()
     if not cuda_bytes or cuda_bytes != cpu_bytes:
-        raise AssertionError(f"mecat2cns --align-band {WIDE_BAND}: the card's "
+        raise AssertionError(f"mecat2cns --align-band {band}: the card's "
                              "corrected reads differ from the CPU's (or are "
                              "empty)")
     launches = dp_launches_of(summaries["cuda"])
-    need_moves_loop(f"the cns CLI at W={WIDE_BAND}", launches)
-    walks = need_walks(f"the cns CLI at W={WIDE_BAND}", summaries["cuda"])
-    say(f"phase 3: W={WIDE_BAND}: {len(cuda_bytes)} bytes of corrected reads, "
-        f"CUDA == CPU; DP launches {launches}, walk launches {walks}")
+    need_moves_loop(f"the cns CLI at W={band}", launches)
+    walks = need_walks(f"the cns CLI at W={band}", summaries["cuda"])
+    say(f"phase 3: W={band}: {len(cuda_bytes)} bytes of corrected reads, "
+        f"CUDA == CPU; DP launches {launches}, walk launches {walks}"
+        + (" (at this band every DP launch takes the cluster route)"
+           if band > BLOCK_BAND else ""))
     return dict(walks=walks, launches=launches)
+
+
+def phase_golden_cluster(work: str) -> dict:
+    """Phase 3's CLI run at ``--align-band`` CLUSTER_BAND, where a DP lane
+    is a thread-block cluster.  The CPU side of a run at this band does 32x
+    the cells of one at 128, and the whole pile took 64 s on the card's
+    host at 384, so it runs on the candidates of the pile's first two query
+    reads (24 lines): two corrected reads, about 25 s on the CPU."""
+    return phase_golden_wide(work, CLUSTER_BAND, queries=2)
 
 
 def bench_reads():
@@ -2053,30 +2128,35 @@ def phase_ref_small(work: str) -> dict:
     return launches
 
 
-def phase_ref_wide(work: str) -> dict:
-    """Phase 8's mapping at ``--align-band`` REF_WIDE_BAND (a DP lane of two
-    warps, walks of 16 lanes a block): ``run_ref`` on cuda and on cpu give
-    byte-equal SAM; the CUDA run must launch the counts loop, the move loop
-    and the column walk at that width.  Returns the CUDA run's launches, as
-    phase_ref_small's."""
+def phase_ref_wide(work: str, band: int = REF_WIDE_BAND) -> dict:
+    """Phase 8's mapping at ``--align-band`` ``band``: REF_WIDE_BAND (a DP
+    lane of two warps, walks of 16 lanes a block) or REF_CLUSTER_BAND (a DP
+    lane of a cluster of two blocks, walks of 8 lanes a block).
+    ``run_ref`` on cuda and on cpu give byte-equal SAM; the CUDA run must
+    launch the counts loop, the move loop and the column walk at that
+    width, past BLOCK_BAND every DP launch on the cluster route.  Returns
+    the CUDA run's launches, as phase_ref_small's, with those on the
+    cluster route."""
     from mecat_tpu_torch.ops import dp_kernel, walk_kernel
     from mecat_tpu_torch.pipeline.ref import RefOptions, run_ref
 
     ref, reads, n_seqs = small_mapping_case(work)
     opts = RefOptions(output_format="sam",
-                      **dict(REF_SMALL, align_band=REF_WIDE_BAND))
+                      **dict(REF_SMALL, align_band=band))
     outs, launches = {}, {}
     for dev in ("cuda", "cpu"):
-        out = os.path.join(work, f"wide_{dev}.sam")
+        out = os.path.join(work, f"wide{band}_{dev}.sam")
         if dev == "cuda":
             zero_dp_counts()
             zero_walk_counts()
         t0 = time.time()
-        stats = run_ref(reads, ref, out, os.path.join(work, f"wide_w_{dev}"),
-                        opts, device=dev)
+        stats = run_ref(reads, ref, out,
+                        os.path.join(work, f"wide{band}_w_{dev}"), opts,
+                        device=dev)
         dt = time.time() - t0
         if dev == "cuda":
             launches = dict(dp_launches_of(dp_kernel.launches()),
+                            cluster=dp_kernel.LAUNCHES_CLUSTER,
                             walks=need_walks("the wide CUDA SAM run",
                                              walk_kernel.launches(),
                                              ("cols",)))
@@ -2085,14 +2165,19 @@ def phase_ref_wide(work: str) -> dict:
         if stats.mapped != n_seqs - 1:
             raise AssertionError(f"wide mapping ({dev}): {stats.mapped} of "
                                  f"{n_seqs} mapped")
-        say(f"phase 8: run_ref sam at W={REF_WIDE_BAND} on {dev}: "
+        say(f"phase 8: run_ref sam at W={band} on {dev}: "
             f"{stats.mapped}/{stats.reads} mapped in {dt:.2f} s")
     if outs["cuda"] != outs["cpu"] or len(outs["cpu"]) < 200:
         raise AssertionError(f"wide mapping: SAM bytes differ between cuda "
-                             f"and cpu at W={REF_WIDE_BAND}")
+                             f"and cpu at W={band}")
     need_loop("the wide CUDA SAM run", launches["extend"], launches["counts"])
     need_moves_loop("the wide CUDA SAM run", launches)
-    say(f"phase 8: SAM byte-equal between cuda and cpu at W={REF_WIDE_BAND} "
+    dp_total = sum(launches[k] for k, _ in DP_KEYS)
+    if launches["cluster"] != (dp_total if band > BLOCK_BAND else 0):
+        raise AssertionError(f"wide mapping at W={band}: {launches['cluster']}"
+                             f" of {dp_total} DP launches on the cluster "
+                             "route")
+    say(f"phase 8: SAM byte-equal between cuda and cpu at W={band} "
         f"({len(outs['cpu'])} bytes), launches on the CUDA run: {launches}")
     return launches
 
@@ -3142,7 +3227,7 @@ def main(argv=None) -> int:
               for S, W in shapes}
     extend_moves = {(S, W): phase_extend_moves(S, W, (S, W) == main_sw)
                     for S, W in shapes}
-    widths, widths_ms = phase_widths()
+    widths, widths_ms, widths_bound = phase_widths()
     path_shapes = phase_kernel_path_shapes(*main_sw)
     walks = {(S, W): phase_walks(S, W) for S, W in shapes}
     fold = phase_fold(*main_sw)
@@ -3150,6 +3235,7 @@ def main(argv=None) -> int:
         say(json.dumps({"extend": extend[main_sw],
                         "extend_moves": extend_moves[main_sw],
                         "widths": widths, "widths_ms": widths_ms,
+                        "widths_bound": widths_bound,
                         "path_shapes": {
             "moves" if m else "counts": v for m, v in path_shapes.items()},
             "walks": walks[main_sw], "fold": fold}))
@@ -3165,6 +3251,7 @@ def main(argv=None) -> int:
         say(f"bench reads simulated in {time.time() - t0:.2f} s")
         golden_cns = phase_golden(work)
         golden_wide = phase_golden_wide(work)
+        golden_cluster = phase_golden_cluster(work)
         bench = phase_bench(db, args.passes, args.profile)
         from mecat_tpu_torch.io.fasta import write_fasta
 
@@ -3180,6 +3267,7 @@ def main(argv=None) -> int:
         cli_cns = phase_cli_cns(reads_cut, len(cut), work)
         ref_small = phase_ref_small(work)
         ref_wide = phase_ref_wide(work)
+        ref_cluster = phase_ref_wide(work, REF_CLUSTER_BAND)
         ref_cli = phase_ref_genome(work, args.profile)
         phase_rounds_small(work)
         rounds = phase_rounds(db, bench["supports"], cns)
@@ -3221,10 +3309,12 @@ def main(argv=None) -> int:
                       else bench_launches[key]),
             launches_golden_cns=golden_cns[key],
             launches_cns_cli_wide=golden_wide["launches"][key],
+            launches_cns_cli_cluster=golden_cluster["launches"][key],
             launches_pw_cli=staged_cli["summary"].get(cli_key, 0),
             launches_cns_cli=cli_cns["launches"][key],
             launches_mapping=ref_small[key],
             launches_mapping_wide=ref_wide[key],
+            launches_mapping_cluster=ref_cluster[key],
             launches_mapping_cli=ref_cli.get(cli_key, 0),
             launches_rounds=rounds["launches"][key],
             launches_pipeline_cli=pipeline["launches"][key],
@@ -3272,6 +3362,11 @@ def main(argv=None) -> int:
     for k in kernels:
         k["band_widths"] = [64, 128, *BAND_SWEEP]
         k["ms_by_band"] = {W: t[k["name"]] for W, t in widths_ms.items()}
+        k["bound_by_band"] = {W: b[k["name"]]
+                              for W, b in widths_bound.items()}
+        # phase 8's CUDA run at REF_CLUSTER_BAND: every DP launch on the
+        # cluster route, counted by the wrappers
+        k["launches_cluster_route_mapping"] = ref_cluster["cluster"]
     def correction_paths(short):
         # the correction paths: phase 6's cns pass (the main path), phase
         # 3's golden cns run and its cns CLI at WIDE_BAND, the cns CLI of
@@ -3283,6 +3378,7 @@ def main(argv=None) -> int:
             launches_golden_cns=golden_cns["walks"][short],
             launches_cns_cli=cli_cns["walks"][short],
             launches_cns_cli_wide=golden_wide["walks"][short],
+            launches_cns_cli_cluster=golden_cluster["walks"][short],
             launches_rounds=rounds["walks"][short],
             launches_pipeline_cli=pipeline["walks"][short],
             launches_assembly_cli=assembly["walks"][short],
@@ -3302,6 +3398,7 @@ def main(argv=None) -> int:
             # phase 9
             paths = dict(launches=ref_small["walks"][short],
                          launches_mapping_wide=ref_wide["walks"][short],
+                         launches_mapping_cluster=ref_cluster["walks"][short],
                          launches_mapping_cli=ref_cli[f"walk_launches_{short}"])
         else:
             paths = correction_paths(short)
@@ -3317,6 +3414,7 @@ def main(argv=None) -> int:
                if k in walk_main[name]},
             "band_widths": [64, 128, *BAND_SWEEP],
             "ms_by_band": {W: t[name] for W, t in widths_ms.items()},
+            "bound_by_band": {W: b[name] for W, b in widths_bound.items()},
             # the same wrapper at (S, W) = (128, 64)
             "at_128_64": {k: walks[(128, 64)][name][k]
                           for k in ("ms", "graph_ms", "chain_steps",
@@ -3338,7 +3436,8 @@ def main(argv=None) -> int:
                          "sector_ms", "chunks", "probe")
                if k in fold[name]},
             "band_widths": [128, *BAND_SWEEP],
-            "ms_by_band": {W: t[name] for W, t in widths_ms.items()}})
+            "ms_by_band": {W: t[name] for W, t in widths_ms.items()},
+            "bound_by_band": {W: b[name] for W, b in widths_bound.items()}})
     # the tool runs S 512, W 128; the family's headline numbers are `full`'s
     roll_main = roll[(512, 128)]
     kernels.append({

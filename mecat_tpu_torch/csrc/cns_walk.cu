@@ -59,7 +59,8 @@
 //     and the copying warp stops copying.  33 KB of shared memory a block
 //     at W = 128 (131 KB at W = 512), one block an SM at 4,096 lanes.  A
 //     lane's ring is 32 rows of W/16 words, so past W = 512 a block walks
-//     fewer lanes (16 up to W = 1024, 8 up to 3072: 197 KB), the other
+//     fewer lanes (16 up to W = 1024, 8 up to 3,616: 197 KB at 3072; 4 up
+//     to 7,248, 2 up to 14,512, then 1: 197 KB at 24,576), the other
 //     threads of both warps idle.  The work counted for the bound is the
 //     old one-thread design's, about 20 int32 operations a 32-cell chunk
 //     and 12 a row.
@@ -86,8 +87,8 @@
 //     stores of ipack and icnt), the unaligned head and tail char by char.
 //     Up to 8 warps a block, 7 KB a warp at (512, 128): 32 lanes an SM, so
 //     4,096 lanes in one wave (18 KB a warp at (512, 2048), 25 KB at (512,
-//     3072): 8 warps a block still).  About 24 int32 operations a row, 3 a
-//     gap cell and 6 an output char.
+//     3072): 8 warps a block still; 150 KB at (512, 24576): one).  About 24
+//     int32 operations a row, 3 a gap cell and 6 an output char.
 //   * walk_cols, the row walk's machinery: a walking warp of 32 lanes, a
 //     thread a lane, and a copying warp that streams each lane's rows,
 //     descending, into the same ring.  The column walk visits its rows in
@@ -138,7 +139,7 @@ constexpr int kVert = 2;                 // ops.align.MOVE_VERT
 constexpr int kHoriz = 3;                // ops.align.MOVE_HORIZ
 constexpr int kGap = 4;                  // ops.consensus.GAP
 constexpr int kMaxD = 15;                // constants.MAX_INS_DELTA
-constexpr int kMaxW = 3072;              // the widest band (as the DP
+constexpr int kMaxW = 24576;             // the widest band (as the DP
                                          // kernels', csrc/dp_segment.cu)
 constexpr int kRowRing = 32;             // rows of moves a row-walk thread
                                          // holds
@@ -893,7 +894,7 @@ walk_cols_kernel(const uint32_t* __restrict__ moves,
 // written.  All device pointers, row-major, contiguous.  Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue, without a launch, for a W that is not a multiple
-// of 16 in [16, 3072] or an S below 1.
+// of 16 in [16, 24576] or an S below 1.
 extern "C" int mecat_walk_rows(const void* moves, const void* seg_qlen,
                                const void* w_end, void* mv, void* h, void* wo,
                                void* w0, int N, int S, int W, void* stream) {
@@ -960,7 +961,7 @@ extern "C" int mecat_walk_deposit(const void* wo, const void* aw,
 // [N, max_cols] (the tape, right-aligned, -1 before it) and n_cols int32
 // [N], uninitialised: every element is written.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue, without a launch, for a W that
-// is not a multiple of 16 in [16, 3072], an S below 1 or max_cols below 1.
+// is not a multiple of 16 in [16, 24576], an S below 1 or max_cols below 1.
 extern "C" int mecat_walk_cols(const void* moves, const void* seg_qlen,
                                const void* w_end, void* ops, void* n_cols,
                                int N, int S, int W, int max_cols,

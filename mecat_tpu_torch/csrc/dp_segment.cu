@@ -29,18 +29,18 @@
 //     inactive lane are written as zeros, so the caller allocates the
 //     buffer uninitialised; no traceback reads a row above its r_best.
 //
-// Band widths: every W with W % 16 == 0 and 16 <= W <= kMaxW = 3072, as
-// the reference computes them.  Up to 512 the warp holds Wp = 32 * C band
-// cells, C = 2, 4, ..., 16 cells a thread (Wp = 64, 128, ..., 512, the
-// least that covers W); the real W comes at run time, except in the
-// instances of the paths' widths, 64 and 128, which fix it, so that their
-// code folds as a compile-time band allows (a runtime W cost the counts
-// loop 12 % and the move kernel 15 % at W = 128 on an H100).  Cells w >= W
-// are padding: their target index is pushed out of [0, tmax], so every
-// update leaves them at VINF, and the last real cell's vertical input is
-// then VINF + 4097 as in the plain version.  They never score and no move
-// of theirs is stored.  Where W < Wp every iteration keeps the validity
-// select (the fast iterations below need W == Wp).
+// Band widths: every W with W % 16 == 0 and 16 <= W <= kClusterMaxW =
+// 24576, as the reference computes them.  Up to 512 the warp holds Wp =
+// 32 * C band cells, C = 2, 4, ..., 16 cells a thread (Wp = 64, 128, ...,
+// 512, the least that covers W); the real W comes at run time, except in
+// the instances of the paths' widths, 64 and 128, which fix it, so that
+// their code folds as a compile-time band allows (a runtime W cost the
+// counts loop 12 % and the move kernel 15 % at W = 128 on an H100).  Cells
+// w >= W are padding: their target index is pushed out of [0, tmax], so
+// every update leaves them at VINF, and the last real cell's vertical input
+// is then VINF + 4097 as in the plain version.  They never score and no
+// move of theirs is stored.  Where W < Wp every iteration keeps the
+// validity select (the fast iterations below need W == Wp).
 //
 // Past 512 a lane is a block of n = ceil(W / 512) warps ("a wide lane"),
 // warp k holding the 512-cell slice [512k, 512k + 512) of the band at
@@ -56,10 +56,37 @@
 // the move ring of its slice (288 rows of 128 bytes, 36 KB) and flushes
 // the rows its slice has finished on its own schedule; the best cell is
 // reduced in each warp, then across the lane's warps through shared
-// memory in the same order.  What sets kMaxW is shared memory a lane: six
-// move rings (216 KB) and the staging fit the block's 227 KB, seven rings
-// (252 KB) do not.  Lanes are handed out by a counter to persistent
-// blocks, as many as the card holds at once.
+// memory in the same order.  Six move rings (216 KB) and the staging fit
+// the block's 227 KB, seven rings (252 KB) do not, so a block holds at most
+// kMaxSlices = 6 slices (W <= kMaxW = 3072).  Lanes are handed out by a
+// counter to persistent blocks, as many as the card holds at once.
+//
+// Past 3072 a lane is a thread-block cluster ("a cluster lane") of m =
+// ceil(n / 6) blocks of p = ceil(n / m) warps, block r holding slices
+// r p .. r p + p - 1 (the m p - n slices past the band's last are padding
+// throughout).  It is the wide lane with three changes.  (1) The border
+// values of a block's first and last slice cross to the neighbouring block
+// through distributed shared memory (a ld.shared::cluster of the
+// neighbour's slot, its address taken by mapa once), and every block
+// barrier of the lane is a cluster barrier (barrier.cluster.arrive.release
+// + wait.acquire), which also orders the slots' writes before the reads.
+// (2) Each block stages only the bytes its slices read: the query rows
+// 0..S-1 and the framed target from its first cell on, S + 512 p bytes
+// (a row i <= S reads target byte i - 1 + w); the reads of the predicated
+// iterations, whose cells lie off rows 1..last, are clamped into those
+// windows, as their bytes are never used.  (3) Block rank 0 takes the
+// lane from the counter and reduces the best cell across the cluster,
+// every block's slices in rank order, and each block reads both from rank
+// 0's shared memory, so every block runs the same lane to the same
+// endpoint, and every bound derived from it is the lane's: the blocks
+// pass the same barriers and leave together.  A cluster barrier after each
+// reading of rank 0's slots keeps every block, and rank 0 above all, from
+// writing them, taking a next lane or exiting while another block can
+// still read its shared memory.  Eight blocks are the portable cluster
+// size of an H100, so kClusterMaxW = 8 * 3072; past it a lane would need
+// more than 8 SMs (a non-portable cluster of 16, or a lane spread over the
+// grid).  The persistent grid is as many clusters as the card holds at
+// once (cudaOccupancyMaxActiveClusters), launched by cudaLaunchKernelEx.
 //
 // What bounds it on an H100.  In operations: int32 ALU, 12 per cell (char
 // compare, three adds, two mins; for the best cell a shift, a multiply-add,
@@ -139,9 +166,12 @@ constexpr int kNeg = -(1 << 26);        // pick_end_local's masked score
 constexpr int kTwoPenalty = 4;          // 2 * constants.ALIGN_TRIM_PENALTY
 constexpr int kFar = 1 << 30;           // target offset of a padding cell
 constexpr int kMinW = 16;               // band widths taken: multiples of 16
-constexpr int kSliceW = 512;            //   in [kMinW, kMaxW]; past kSliceW a
-constexpr int kMaxSlices = 6;           //   lane takes a warp a 512-cell
-constexpr int kMaxW = kSliceW * kMaxSlices;  // slice, at most kMaxSlices
+constexpr int kSliceW = 512;            //   in [kMinW, kClusterMaxW]; past
+constexpr int kMaxSlices = 6;           //   kSliceW a lane takes a warp a
+constexpr int kMaxW = kSliceW * kMaxSlices;  // 512-cell slice, at most
+                                        //   kMaxSlices a block; past kMaxW
+constexpr int kMaxBlocks = 8;           //   a cluster of at most kMaxBlocks
+constexpr int kClusterMaxW = kMaxW * kMaxBlocks;  // (the portable size)
 constexpr int kWarps = 4;               // warps per block
 // Blocks per SM, so warps per scheduler.  On an H100 with 1,024 live lanes
 // scattered over 4,096, 2 / 3 / 4 / 6 took 0.075 / 0.104 / 0.134 / 0.181 ms
@@ -154,6 +184,8 @@ constexpr int kFlush = 32;              // move rows written out at a time
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kSmemDefault = 48 * 1024;  // without an opt-in attribute
 constexpr size_t kSmemLimit = 227 * 1024;   // with it
+constexpr int kWideHead = 176;          // slots of a wide lane's block
+constexpr int kClusterHead = kWideHead + 16;  // and a cluster lane's
 
 // compile-time switch handed to the loop body
 template <bool kValue>
@@ -246,13 +278,78 @@ __device__ __forceinline__ void zero_words(uint32_t* __restrict__ dst,
 // This warp's place in a wide lane (see "Past 512" above): slice k of the
 // lane's n, and the shared-memory slots through which the values at the
 // warp borders cross, xh[k] (slice k's last cell) and xv[k] (its first).
+// In a cluster lane (see "Past 3072") the slots are the block's, indexed by
+// the warp's kb of the block's p, and the warp reads its neighbours' at
+// shared::cluster addresses, in another block's shared memory at a block
+// border.
 struct Wide {
   int k = 0;
   int n = 1;
   volatile uint32_t* xh = nullptr;
   volatile uint32_t* xv = nullptr;
   int4* red = nullptr;                  // red[k]: slice k's best (s, f, v)
+  int kb = 0;                           // a cluster lane's: the warp in its
+  int p = 1;                            //   block, the block's warps, the
+  int m = 1;                            //   cluster's blocks and this one's
+  int rank = 0;
+  uint32_t xh_left = 0;                 // the left slice's xh slot
+  uint32_t xv_right = 0;                // the right slice's xv slot
+  int y0 = 0;                           // the block's first band cell, where
+  int ty = 0;                           //   its target window starts, and the
+                                        //   window's bytes
 };
+
+// Thread-block clusters: the block's rank, the cluster's blocks, a barrier
+// over the cluster (which orders shared-memory writes before it with reads
+// after it in every block), and shared::cluster addresses.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return (int)n;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// shared memory of block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 const int rank) {
+  const uint32_t local = (uint32_t)__cvta_generic_to_shared(p);
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(local), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ uint32_t ld_cluster(const uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int4 ld_cluster4(const uint32_t addr) {
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 // The segment of one lane, by one warp, from its staged bytes: `qs` is
 // this warp's share of the block's shared memory (see lane_smem), holding
@@ -263,9 +360,13 @@ struct Wide {
 // mv_out, through `ring`.  kWide: the warp is slice `wide.k` of a wide lane
 // (C = 16; `qs` is the lane's staging, Wp = 512 n wide, and `ring` the
 // warp's own); every warp of the block must call it with the same lane.
-// Returns the endpoint (r, w, packed v) on every thread of the warp (of
-// the lane, for a wide lane).
-template <int C, bool kMoves, int kW, bool kWide = false>
+// kCluster: the block is one of a cluster lane's (kWide too; `qs` is the
+// block's staging: the query at qs[0 ..], its target window at qs[S ..]);
+// every warp of the cluster must call it with the same lane.  Returns the
+// endpoint (r, w, packed v) on every thread of the warp (of the lane, for
+// a wide or a cluster lane).
+template <int C, bool kMoves, int kW, bool kWide = false,
+          bool kCluster = false>
 __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
                                         const int sq, const int S,
                                         const int W_rt, const int lane,
@@ -277,6 +378,7 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   static_assert(ring_rows(C) % kFlush == 0, "a flush never wraps the ring");
   static_assert(!kWide || (C == 16 && kW == 0),
                 "a wide lane's warps hold 512-cell slices");
+  static_assert(!kCluster || kWide, "a cluster lane is a wide lane");
   constexpr int Wp = 32 * C;            // band cells a warp holds
   constexpr int P = C / 2;              // cell pairs per thread
   constexpr int kRing = ring_rows(C);
@@ -286,8 +388,19 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   const int row_words = W / 16;         // one row of moves
   const int row_bytes = W / 4;
   const int Wq = kWide ? Wp * wide.n : Wp;  // band cells the lane holds
-  const uint8_t* qsp = qs + Wq / 2;     // qsp[x] = q[x], x in [-Wq/2, S + Wq/2)
-  const uint8_t* ts = qs + S + Wq;      // ts[x] = tpad[x]
+  // qsp[x] = q[x], x in [-Wq/2, S + Wq/2); ts[x] = tpad[x].  A cluster
+  // lane's block holds q[0 .. S) and tpad[y0 .. y0 + ty), and a read
+  // outside them, which only a cell off rows 1..last makes, is clamped in
+  const uint8_t* qsp = kCluster ? qs : qs + Wq / 2;
+  const uint8_t* ts = kCluster ? qs + S : qs + S + Wq;
+  auto q_at = [&](int x) -> int {
+    if constexpr (kCluster) x = min(max(x, 0), S - 1);
+    return qsp[x];
+  };
+  auto t_at = [&](int y) -> int {
+    if constexpr (kCluster) y = min(max(y - wide.y0, 0), wide.ty - 1);
+    return ts[y];
+  };
   const int w0 = (kWide ? wide.k * 32 + lane : lane) * C;
   const int hw0 = w0 / 2;               // the thread's first cell pair
   const bool padded = W < Wq;
@@ -337,7 +450,11 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   const bool band_last = lane == 31 && (!kWide || wide.k == wide.n - 1);
   const uint32_t h_add = kK1 + (band_first ? kVinf : 0u);
   const uint32_t v_add = kK1 + (band_last ? kVinf : 0u);
-  if constexpr (kWide) {
+  if constexpr (kCluster) {
+    // row 0's last cell of each slice, for the first even step
+    if (lane == 31) wide.xh[wide.kb] = val[C - 1];
+    cluster_sync();
+  } else if constexpr (kWide) {
     // row 0's last cell of each slice, for the first even step
     if (lane == 31) wide.xh[wide.k] = val[C - 1];
     __syncthreads();
@@ -349,11 +466,11 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
   // the two new bytes of an iteration are read one iteration ahead.
   int qc[P], tc[P + 1];
 #pragma unroll
-  for (int p = 0; p < P; ++p) qc[p] = qsp[-hw0 - 1 - p];
+  for (int p = 0; p < P; ++p) qc[p] = q_at(-hw0 - 1 - p);
   tc[0] = 0;
 #pragma unroll
-  for (int m = 1; m <= P; ++m) tc[m] = ts[hw0 - 1 + m];
-  int q_next = qsp[-hw0], t_next = ts[hw0 + P];
+  for (int m = 1; m <= P; ++m) tc[m] = t_at(hw0 - 1 + m);
+  int q_next = q_at(-hw0), t_next = t_at(hw0 + P);
 
   uint32_t prev[P];                     // each pair's nibble one iteration ago
 #pragma unroll
@@ -376,8 +493,8 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
 #pragma unroll
     for (int m = 0; m < P; ++m) tc[m] = tc[m + 1];
     tc[P] = t_next;
-    q_next = qsp[k - hw0];
-    t_next = ts[k + hw0 + P];
+    q_next = q_at(k - hw0);
+    t_next = t_at(k + hw0 + P);
 
     uint32_t code[C];
 #pragma unroll
@@ -385,7 +502,14 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
       // the one value that crosses the thread border this step
       uint32_t edge_in = par == 0 ? __shfl_up_sync(kFull, val[C - 1], 1)
                                   : __shfl_down_sync(kFull, val[0], 1);
-      if constexpr (kWide) {
+      if constexpr (kCluster) {
+        // at a warp border through shared memory, the cluster's at a
+        // block border
+        if (par == 0 && lane == 0 && wide.k > 0)
+          edge_in = ld_cluster(wide.xh_left);
+        if (par == 1 && lane == 31 && wide.k < wide.n - 1)
+          edge_in = ld_cluster(wide.xv_right);
+      } else if constexpr (kWide) {
         // at a warp border it crosses through shared memory
         if (par == 0 && lane == 0 && wide.k > 0)
           edge_in = wide.xh[wide.k - 1];
@@ -420,7 +544,12 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
           best_v[c] = cur;
         }
       }
-      if constexpr (kWide) {
+      if constexpr (kCluster) {
+        // publish this step's border values, then wait for the cluster
+        if (par == 0 && lane == 0) wide.xv[wide.kb] = val[0];
+        if (par == 1 && lane == 31) wide.xh[wide.kb] = val[C - 1];
+        cluster_sync();
+      } else if constexpr (kWide) {
         // publish this step's border values, then wait for the lane's warps
         if (par == 0 && lane == 0) wide.xv[wide.k] = val[0];
         if (par == 1 && lane == 31) wide.xh[wide.k] = val[C - 1];
@@ -534,7 +663,33 @@ __device__ __forceinline__ int3 dp_body(const uint8_t* qs, const int tm,
       v = vo;
     }
   }
-  if constexpr (kWide) {
+  if constexpr (kCluster) {
+    // then rank 0 across the cluster, each block's slices in rank order,
+    // and every block reads rank 0's result
+    if (lane == 0) wide.red[wide.kb] = make_int4(s, f, v, 0);
+    cluster_sync();
+    int4* res = reinterpret_cast<int4*>(reinterpret_cast<uint8_t*>(wide.red) +
+                                        kWideHead);
+    if (wide.rank == 0 && threadIdx.x == 0) {
+      for (int c = 0; c < wide.m; ++c) {
+        const uint32_t red_c = cluster_addr(wide.red, c);
+        for (int u = c == 0 ? 1 : 0; u < wide.p; ++u) {
+          const int4 o = ld_cluster4(red_c + 16 * u);
+          if (better(o.x, o.y, s, f)) {
+            s = o.x;
+            f = o.y;
+            v = o.z;
+          }
+        }
+      }
+      *res = make_int4(s, f, v, 0);
+    }
+    cluster_sync();
+    const int4 o = ld_cluster4(cluster_addr(res, 0));
+    s = o.x;
+    f = o.y;
+    v = o.z;
+  } else if constexpr (kWide) {
     // then across the lane's warps, in the same order
     if (lane == 0) wide.red[wide.k] = make_int4(s, f, v, 0);
     __syncthreads();
@@ -568,8 +723,9 @@ __device__ __forceinline__ void warp_smem(uint8_t* smem, const int warp,
 // A wide lane's block: its warps' rings (first: they stay 16-byte aligned),
 // then kWideHead bytes of slots (red, xh, xv and the lane counter's word),
 // then the lane's staging (the query and the target window, each with
-// room for the 512 n band cells).
-constexpr int kWideHead = 176;
+// room for the 512 n band cells).  A cluster lane's block: its warps'
+// rings, the same slots and rank 0's reduced best (kClusterHead bytes),
+// then the block's staging, S + S + 512 p bytes (see "Past 3072").
 static_assert(16 * kMaxSlices <= 96 && 4 * kMaxSlices <= 32,
               "the slots of kWideHead hold kMaxSlices warps");
 __host__ __device__ constexpr size_t wide_smem(int S, int n, bool moves) {
@@ -596,11 +752,69 @@ __device__ __forceinline__ void wide_lane_smem(uint8_t* smem, const int S,
   *qs = head + kWideHead;
 }
 
+// A cluster lane: m blocks of p warps; the target window of block r
+// starts at band cell 512 p r.
+__host__ __device__ constexpr int cluster_size(int n) {
+  return (n + kMaxSlices - 1) / kMaxSlices;
+}
+__host__ __device__ constexpr int cluster_warps(int n) {
+  return (n + cluster_size(n) - 1) / cluster_size(n);
+}
+__host__ __device__ constexpr size_t cluster_smem(int S, int p, bool moves) {
+  return (moves ? (size_t)p * ring_rows(16) * (kSliceW / 4) : 0) +
+         kClusterHead + 2 * (size_t)S + (size_t)kSliceW * p;
+}
+
+template <bool kMoves>
+__device__ __forceinline__ void cluster_lane_smem(uint8_t* smem, const int S,
+                                                  Wide* wide, uint8_t** ring,
+                                                  uint8_t** qs, int** next) {
+  const int p = blockDim.x >> 5;
+  const int kb = threadIdx.x >> 5;
+  const int rank = cluster_rank();
+  const int m = cluster_blocks();
+  const size_t ring_bytes =
+      kMoves ? (size_t)ring_rows(16) * (kSliceW / 4) : 0;
+  uint8_t* head = smem + (size_t)p * ring_bytes;
+  *ring = smem + (size_t)kb * ring_bytes;
+  wide->kb = kb;
+  wide->p = p;
+  wide->m = m;
+  wide->rank = rank;
+  wide->k = rank * p + kb;
+  wide->n = m * p;
+  wide->red = reinterpret_cast<int4*>(head);
+  wide->xh = reinterpret_cast<uint32_t*>(head + 96);
+  wide->xv = reinterpret_cast<uint32_t*>(head + 128);
+  // the neighbours' slots: this block's, or the next block's at a border
+  // (the first and the last slice of the lane read none)
+  wide->xh_left = kb > 0 ? cluster_addr((const void*)(wide->xh + kb - 1),
+                                        rank)
+                         : cluster_addr((const void*)(wide->xh + p - 1),
+                                        rank > 0 ? rank - 1 : rank);
+  wide->xv_right = kb < p - 1 ? cluster_addr((const void*)(wide->xv + kb + 1),
+                                             rank)
+                              : cluster_addr((const void*)wide->xv,
+                                             rank < m - 1 ? rank + 1 : rank);
+  wide->y0 = rank * p * kSliceW;
+  wide->ty = S + p * kSliceW;
+  *next = reinterpret_cast<int*>(head + 160);
+  *qs = head + kClusterHead;
+}
+
 // The next lane from the counter, on every thread of the lane's warp (of
-// its block, for a wide lane; `slot` is the block's word for it).
-template <bool kWide>
+// its block, for a wide lane; `slot` is the block's word for it; of the
+// cluster, for a cluster lane, from rank 0's word).
+template <bool kWide, bool kCluster = false>
 __device__ __forceinline__ int take_lane(int32_t* next_lane, int* slot) {
-  if constexpr (kWide) {
+  if constexpr (kCluster) {
+    if (threadIdx.x == 0 && cluster_rank() == 0)
+      *slot = atomicAdd(next_lane, 1);
+    cluster_sync();
+    const int b = (int)ld_cluster(cluster_addr(slot, 0));
+    cluster_sync();  // read by all before the next lane's write (or exit)
+    return b;
+  } else if constexpr (kWide) {
     if (threadIdx.x == 0) *slot = atomicAdd(next_lane, 1);
     __syncthreads();
     const int b = *reinterpret_cast<volatile int*>(slot);
@@ -613,21 +827,39 @@ __device__ __forceinline__ int take_lane(int32_t* next_lane, int* slot) {
   }
 }
 
-// Waits for the threads that run one lane: the warp, or a wide lane's block.
-template <bool kWide>
+// Waits for the threads that run one lane: the warp, a wide lane's block
+// or a cluster lane's cluster.
+template <bool kWide, bool kCluster = false>
 __device__ __forceinline__ void lane_sync() {
-  if constexpr (kWide)
+  if constexpr (kCluster)
+    cluster_sync();
+  else if constexpr (kWide)
     __syncthreads();
   else
     __syncwarp();
+}
+
+// A cluster lane's block stages its windows (see "Past 3072"): the query's
+// S bytes from qg and the target's ty bytes from tg + y0, of the S + W
+// there, zeros past them; by the block's threads.
+__device__ __forceinline__ void cluster_stage(uint8_t* qs, const uint8_t* qg,
+                                              const uint8_t* tg, const int S,
+                                              const int W, const Wide& wide) {
+  uint8_t* ts = qs + S;
+  for (int x = threadIdx.x; x < S; x += blockDim.x) qs[x] = qg[x];
+  for (int u = threadIdx.x; u < wide.ty; u += blockDim.x) {
+    const int y = wide.y0 + u;
+    ts[u] = y < S + W ? tg[y] : 0;
+  }
 }
 
 // One launch lane of the per-segment kernels, by one warp (a wide lane's
 // block): stage its q and framed target rows, run the segment, write the
 // endpoint (or the skip record of an inactive lane, with zero moves).
 // `ring` and `qs` are this warp's shares of the block's shared memory (see
-// warp_smem, wide_lane_smem).
-template <int C, bool kMoves, int kW, bool kWide>
+// warp_smem, wide_lane_smem; a cluster lane's block stages its own
+// windows, cluster_lane_smem).
+template <int C, bool kMoves, int kW, bool kWide, bool kCluster = false>
 __device__ __forceinline__ void dp_lane(
     const uint8_t* __restrict__ q, const uint8_t* __restrict__ tpad,
     const int32_t* __restrict__ tmax, const int32_t* __restrict__ segq,
@@ -661,8 +893,11 @@ __device__ __forceinline__ void dp_lane(
   uint8_t* ts = qs + S + Wp;
   const uint8_t* qg = q + (size_t)b * S;
   const uint8_t* tg = tpad + (size_t)b * (S + W);
-  if ((S & 15) == 0 && ((reinterpret_cast<uintptr_t>(q) |
-                         reinterpret_cast<uintptr_t>(tpad)) & 15) == 0) {
+  if constexpr (kCluster) {
+    cluster_stage(qs, qg, tg, S, W, wide);
+  } else if ((S & 15) == 0 && ((reinterpret_cast<uintptr_t>(q) |
+                                reinterpret_cast<uintptr_t>(tpad)) & 15) ==
+                                   0) {
     // rows and staging are 16-byte aligned
     const uint4* qg4 = reinterpret_cast<const uint4*>(qg);
     const uint4* tg4 = reinterpret_cast<const uint4*>(tg);
@@ -674,9 +909,9 @@ __device__ __forceinline__ void dp_lane(
     for (int x = t; x < S; x += nt) qsp[x] = qg[x];
     for (int x = t; x < S + W; x += nt) ts[x] = tg[x];
   }
-  lane_sync<kWide>();
+  lane_sync<kWide, kCluster>();
 
-  const int3 best = dp_body<C, kMoves, kW, kWide>(
+  const int3 best = dp_body<C, kMoves, kW, kWide, kCluster>(
       qs, tmax[b], segq[b], S, W, lane, ring, mv_out, wide);
   if (t == 0) {
     r_out[b] = best.x;
@@ -692,8 +927,10 @@ __device__ __forceinline__ void dp_lane(
 // one scheduler while others idle: an inactive lane costs its warp one
 // counter round trip, and a scheduler runs at most kResident live lanes at
 // a time wherever they lie in the batch.  A wide lane's block takes its
-// lanes the same way, every block the card holds at once.
-template <int C, bool kMoves, int kW, bool kWide = false>
+// lanes the same way, every block the card holds at once, and a cluster
+// lane's cluster, every cluster the card holds at once.
+template <int C, bool kMoves, int kW, bool kWide = false,
+          bool kCluster = false>
 __global__ void __launch_bounds__(32 * (kWide ? kMaxSlices : kWarps))
 dp_segment_kernel(const uint8_t* __restrict__ q,
                   const uint8_t* __restrict__ tpad,
@@ -710,20 +947,23 @@ dp_segment_kernel(const uint8_t* __restrict__ q,
   uint8_t *ring, *qs;
   Wide wide;
   int* slot = nullptr;
-  if constexpr (kWide)
+  if constexpr (kCluster)
+    cluster_lane_smem<kMoves>(reinterpret_cast<uint8_t*>(smem_vec), S,
+                              &wide, &ring, &qs, &slot);
+  else if constexpr (kWide)
     wide_lane_smem<kMoves>(reinterpret_cast<uint8_t*>(smem_vec), S, &wide,
                            &ring, &qs, &slot);
   else
     warp_smem<C, kMoves>(reinterpret_cast<uint8_t*>(smem_vec), warp, S, W,
                          &ring, &qs);
   for (;;) {
-    const int b = take_lane<kWide>(next_lane, slot);
+    const int b = take_lane<kWide, kCluster>(next_lane, slot);
     if (b >= B) return;
-    dp_lane<C, kMoves, kW, kWide>(q, tpad, tmax, segq, active, r_out, w_out,
-                                  v_out, moves_out, S, W, b, lane, ring, qs,
-                                  wide);
+    dp_lane<C, kMoves, kW, kWide, kCluster>(q, tpad, tmax, segq, active,
+                                            r_out, w_out, v_out, moves_out,
+                                            S, W, b, lane, ring, qs, wide);
     // the next lane restages this warp's shared memory (a wide lane's
-    // block waits in take_lane)
+    // block, a cluster lane's cluster, waits in take_lane)
     if constexpr (!kWide) __syncwarp();
   }
 }
@@ -812,7 +1052,11 @@ __device__ __forceinline__ int window_start(int start, const int width,
   return min(max(start, 0), width - size);
 }
 
-template <int C, bool kMoves, int kW, bool kWide = false>
+// A cluster lane's blocks keep the lane's state each: it follows from the
+// lane's inputs and the endpoints rank 0 reduced, the same in every block,
+// so the blocks run the same segments and leave together.
+template <int C, bool kMoves, int kW, bool kWide = false,
+          bool kCluster = false>
 __global__ void __launch_bounds__(32 * (kWide ? kMaxSlices : kWarps))
 extend_kernel(const ExtendArgs a) {
   extern __shared__ uint4 smem_vec[];
@@ -823,7 +1067,10 @@ extend_kernel(const ExtendArgs a) {
   uint8_t *ring, *qs;
   Wide wide;
   int* slot = nullptr;
-  if constexpr (kWide)
+  if constexpr (kCluster)
+    cluster_lane_smem<kMoves>(reinterpret_cast<uint8_t*>(smem_vec), S,
+                              &wide, &ring, &qs, &slot);
+  else if constexpr (kWide)
     wide_lane_smem<kMoves>(reinterpret_cast<uint8_t*>(smem_vec), S, &wide,
                            &ring, &qs, &slot);
   else
@@ -831,12 +1078,12 @@ extend_kernel(const ExtendArgs a) {
                          &ring, &qs);
   const int Wp = kWide ? 32 * C * wide.n : 32 * C;  // cells the lane holds
   // this thread among the lane's
-  const int t = kWide ? threadIdx.x : lane;
+  const int t = kCluster ? wide.k * 32 + lane : (kWide ? threadIdx.x : lane);
   const int nt = kWide ? blockDim.x : 32;
   const int slack = max(1, S / 4);
   const size_t lane_words = (size_t)S * (W / 16);
   for (;;) {
-    const int b = take_lane<kWide>(a.next_lane, slot);
+    const int b = take_lane<kWide, kCluster>(a.next_lane, slot);
     if (b >= a.N) return;
     const int max_segs = b < a.split ? a.max_segs : a.max_segs_b;
     const int qlen = a.qlen[b], tlen = a.tlen[b];
@@ -850,12 +1097,17 @@ extend_kernel(const ExtendArgs a) {
       const int rem_t = min(max(tlen - toff, 0), S + half);
       const uint8_t* qg = qrow + window_start(q0 + qoff, a.Lq, S);
       const uint8_t* tg = trow + window_start(t0 + toff, a.Lt, S + W);
-      lane_sync<kWide>();               // the last segment's reads are done
-      for (int x = t; x < S; x += nt) qs[Wp / 2 + x] = qg[x];
-      for (int x = t; x < S + W; x += nt) qs[S + Wp + x] = tg[x];
-      lane_sync<kWide>();
+      // the last segment's reads are done
+      lane_sync<kWide, kCluster>();
+      if constexpr (kCluster) {
+        cluster_stage(qs, qg, tg, S, W, wide);
+      } else {
+        for (int x = t; x < S; x += nt) qs[Wp / 2 + x] = qg[x];
+        for (int x = t; x < S + W; x += nt) qs[S + Wp + x] = tg[x];
+      }
+      lane_sync<kWide, kCluster>();
       const size_t sl = (size_t)nsegs * a.N + b;
-      const int3 e = dp_body<C, kMoves, kW, kWide>(
+      const int3 e = dp_body<C, kMoves, kW, kWide, kCluster>(
           qs, rem_t, seg_q, S, W, lane, ring,
           kMoves ? reinterpret_cast<uint32_t*>(a.moves) + sl * lane_words
                  : nullptr,
@@ -949,10 +1201,51 @@ cudaError_t wide_grid(Kernel kernel, int B, int n, size_t smem,
   return err;
 }
 
-bool band_ok(int W) { return W % 16 == 0 && W >= kMinW && W <= kMaxW; }
+bool band_ok(int W) {
+  return W % 16 == 0 && W >= kMinW && W <= kClusterMaxW;
+}
 
 // warps of a lane at band W: one up to kSliceW, then a warp a slice
 int slices_for(int W) { return (W + kSliceW - 1) / kSliceW; }
+
+// Launches `kernel` (a cluster lane's instance) with `args` for B lanes at
+// band W: persistent clusters of m blocks of p warps (see "Past 3072"), as
+// many as the card holds at once, or fewer when the launch has fewer lanes;
+// cudaErrorInvalidValue where the block's shared memory passes the limit
+// or not one cluster fits the card.  Zeroes the lane counter on the stream
+// first.
+template <bool kMoves, typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), const int B,
+                           const int S, const int W, void* next_lane,
+                           cudaStream_t stream, Args... args) {
+  const int n = slices_for(W);
+  const int m = cluster_size(n), p = cluster_warps(n);
+  const size_t smem = cluster_smem(S, p, kMoves);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = m;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(m);
+  cfg.blockDim = dim3(32 * p);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(next_lane, 0, 4, stream);
+  if (err != cudaSuccess) return err;
+  cfg.gridDim = dim3((unsigned)((B < clusters ? B : clusters) * m));
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 template <int C, bool kMoves, int kW>
 cudaError_t launch(const void* q, const void* tpad, const void* tmax,
@@ -1032,6 +1325,15 @@ int dispatch(const void* q, const void* tpad, const void* tmax,
   if (B <= 0) return 0;
   if (S <= 0 || !band_ok(W)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W > kMaxW)
+    return static_cast<int>(launch_cluster<kMoves>(
+        dp_segment_kernel<16, kMoves, 0, true, true>, B, S, W, next_lane, st,
+        static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(tpad),
+        static_cast<const int32_t*>(tmax), static_cast<const int32_t*>(segq),
+        static_cast<const uint8_t*>(active), static_cast<int32_t*>(r),
+        static_cast<int32_t*>(w), static_cast<int32_t*>(v),
+        static_cast<int32_t*>(moves), static_cast<int32_t*>(next_lane), B, S,
+        W));
   if (W > kSliceW)
     return static_cast<int>(launch_wide<kMoves>(q, tpad, tmax, segq, active,
                                                 r, w, v, moves, next_lane, B,
@@ -1062,6 +1364,10 @@ int dispatch_extend(const ExtendArgs& a, void* stream) {
   if (a.S <= 0 || !band_ok(a.W) || a.Lq < a.S || a.Lt < a.S + a.W)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.W > kMaxW)
+    return static_cast<int>(launch_cluster<kMoves>(
+        extend_kernel<16, kMoves, 0, true, true>, a.N, a.S, a.W, a.next_lane,
+        st, a));
   if (a.W > kSliceW)
     return static_cast<int>(launch_extend_wide<kMoves>(a, st));
 #define MECAT_LAUNCH(C, kW) \
@@ -1091,8 +1397,8 @@ int dispatch_extend(const ExtendArgs& a, void* stream) {
 // call zeroes and the kernel counts lanes in.  All device pointers,
 // row-major, contiguous.  Returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue, without a launch, for a W that is not
-// a multiple of 16 in [16, 3072], an S below 1 or an S whose staging does not
-// fit the block's shared memory.
+// a multiple of 16 in [16, 24576], an S below 1 or an S whose staging does
+// not fit the block's shared memory.
 extern "C" int mecat_dp_segment_best(const void* q, const void* tpad,
                                      const void* tmax, const void* segq,
                                      const void* active, void* r, void* w,
@@ -1121,7 +1427,7 @@ extern "C" int mecat_dp_segment_best_moves(const void* q, const void* tpad,
 // of scratch.  All device pointers, row-major, contiguous.  Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue, without a launch, for a W that is not a multiple
-// of 16 in [16, 3072], rows narrower than a window, or an S whose staging
+// of 16 in [16, 24576], rows narrower than a window, or an S whose staging
 // does not fit the block's shared memory.
 extern "C" int mecat_extend_counts(const void* q_pad, const void* t_pad,
                                    const void* q0, const void* t0,

@@ -20,7 +20,9 @@ import this module freely.
 ``LAUNCHES``, ``LAUNCHES_MOVES``, ``LAUNCHES_EXTEND`` and
 ``LAUNCHES_EXTEND_MOVES`` count the launches of the four kernels, so a run
 can show that its DP went through them; :func:`launches` reads them under
-the keys the metrics summaries print.
+the keys the metrics summaries print.  ``LAUNCHES_CLUSTER`` counts those of
+them made at a band past ``BAND_BLOCK_MAX``, where a lane is a thread-block
+cluster (the cluster route).
 """
 from __future__ import annotations
 
@@ -46,13 +48,19 @@ LAUNCHES_MOVES = 0
 LAUNCHES_EXTEND = 0
 #: launches of the move-writing segment-loop kernel
 LAUNCHES_EXTEND_MOVES = 0
+#: launches of any of the four at a band past BAND_BLOCK_MAX (the cluster
+#: route), not among :func:`launches`' keys
+LAUNCHES_CLUSTER = 0
 
 #: the band widths the kernels take: multiples of 16 in [BAND_MIN, BAND_MAX].
 #: Past 512 a lane of the DP kernels is a block of W/512 warps (rounded up),
 #: each with a ring of move rows of 36 KB in shared memory; six rings fit
-#: the 227 KB a block can have, seven do not (see :func:`check_band`)
+#: the 227 KB a block can have, seven do not, so past BAND_BLOCK_MAX a lane
+#: is a thread-block cluster of up to eight such blocks (see
+#: :func:`check_band`)
 BAND_MIN = 16
-BAND_MAX = 3072
+BAND_BLOCK_MAX = 3072
+BAND_MAX = 8 * BAND_BLOCK_MAX
 
 _lib = None
 
@@ -83,14 +91,35 @@ def check_band(W: int) -> None:
     """Raise ValueError unless the kernels take band width ``W``: every
     multiple of 16 from BAND_MIN to BAND_MAX.
 
-    The reference computes any multiple of 16.  What sets BAND_MAX is
-    shared memory a lane: up to 512 a warp holds the band, past it a lane
-    takes a warp for each 512 cells, and each warp of the move-writing
-    kernels keeps its own ring of 288 move rows of 128 bytes (36 KB).  Six
-    rings and the lane's staging fit the 227 KB of shared memory a block of
-    an H100 can have, seven (252 KB) do not, so W <= 6 * 512.  The walks'
-    rings fit at that width (8 lanes a row-walk block).  Checked before
-    anything is built or launched."""
+    The reference computes any multiple of 16.  What sets the ceiling, for
+    each kernel at S = 512:
+
+    - the DP kernels (both per-segment kernels and both loops): shared
+      memory and the cluster size.  Up to 512 a warp holds the band; past
+      it a lane takes a warp for each 512 cells, and each warp of the
+      move-writing kernels keeps its own ring of 288 move rows of 128 bytes
+      (36 KB).  Six rings and the lane's staging fit the 227 KB of shared
+      memory a block of an H100 can have, seven (252 KB) do not, so a block
+      holds a lane up to BAND_BLOCK_MAX = 6 * 512.  Past it a lane is a
+      thread-block cluster of up to 8 such blocks, the portable cluster
+      size, their border values crossing through distributed shared
+      memory: W <= 8 * 3072.  Further, a lane would need more than 8 SMs.
+      S limits too, through the staging beside the rings: a block lane
+      stages 2 (S + 512 n) bytes (S <= 2,560 at W = 3072), a cluster
+      lane's block 2 S + 512 p for its p slices (S <= 4,000 at p = 6);
+      past that the C side refuses the shape (ValueError);
+    - the row and the column walk: a lane's ring of 32 rows of W/4 bytes
+      in shared memory, fewer lanes a block as W grows, one from 14,528 on
+      (192 KB at 24,576; one lane would fit up to about 29,000);
+    - the deposit scan: three accumulators of S + W/2 - 1 words a lane in
+      shared memory, 150 KB at (512, 24,576); they fit while S + W/2 stays
+      below about 19,300 (W about 37,000 at S = 512), and the C side
+      refuses beyond;
+    - the tag fold's two kernels: no limit of their own but int32
+      addressing (deposit planes below 2^31 cells, which their C side
+      checks).
+
+    Checked before anything is built or launched."""
     if W % 16 or not BAND_MIN <= W <= BAND_MAX:
         raise ValueError(f"the CUDA kernels take band widths W that are "
                          f"multiples of 16 in [{BAND_MIN}, {BAND_MAX}], "
@@ -107,6 +136,13 @@ def launches() -> dict:
 def launches_since(before: dict) -> dict:
     """Launches of each kernel since ``before`` (a :func:`launches`)."""
     return {k: v - before[k] for k, v in launches().items()}
+
+
+def _counted(W: int) -> None:
+    """Count a launch at band W on the cluster route, if it takes it."""
+    global LAUNCHES_CLUSTER
+    if W > BAND_BLOCK_MAX:
+        LAUNCHES_CLUSTER += 1
 
 
 def _launch(q_seg, tpad, tmax, seg_q, active, S: int, W: int,
@@ -165,6 +201,7 @@ def dp_segment_best_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
     r, w, v, _ = _launch(q_seg, tpad, tmax, seg_q, active, S, W, False)
     if q_seg.shape[0]:
         LAUNCHES += 1
+        _counted(W)
     return r, w, v
 
 
@@ -180,6 +217,7 @@ def dp_segment_best_moves_cuda(q_seg: torch.Tensor, tpad: torch.Tensor,
     r, w, v, moves = _launch(q_seg, tpad, tmax, seg_q, active, S, W, True)
     if q_seg.shape[0]:
         LAUNCHES_MOVES += 1
+        _counted(W)
     return moves, r, w, v
 
 
@@ -244,6 +282,7 @@ def extend_counts_cuda(q_pad: torch.Tensor, t_pad: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
         _extend_rc(rc, "segment-loop", S, W, Lq, Lt)
         LAUNCHES_EXTEND += 1
+        _counted(W)
     return tuple(out.unbind(0))
 
 
@@ -290,4 +329,5 @@ def extend_moves_cuda(q_pad: torch.Tensor, t_pad: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
         _extend_rc(rc, "move-loop", S, W, Lq, Lt)
         LAUNCHES_EXTEND_MOVES += 1
+        _counted(W)
     return tuple(out.unbind(0)), (moves, *small, ok)

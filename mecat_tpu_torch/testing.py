@@ -450,14 +450,32 @@ def roll_micro_inputs(S: int, W: int, n: int, seed: int):
 
 #: band cells a warp of a wide lane holds (``csrc/dp_segment.cu``, kSliceW)
 SLICE_W = 512
+#: the widest band one block holds a lane for (``csrc/dp_segment.cu``,
+#: kMaxW: six slices); past it a lane is a thread-block cluster
+BLOCK_W = 3072
+
+
+def cluster_shape(W: int):
+    """(m, p) of ``csrc/dp_segment.cu`` for a band of W past 512: the
+    blocks of the lane and the warps (slices) of each.  Up to 3072 one block
+    of n = ceil(W / 512) warps; past it a cluster of m = ceil(n / 6) blocks
+    of p = ceil(n / m) warps, the m p - n slices past the band's last all
+    padding."""
+    n = -(-W // SLICE_W)
+    if W <= BLOCK_W:
+        return 1, n
+    m = -(-n // 6)
+    return m, -(-n // m)
 
 
 def band_cells(W: int):
     """(C, Wp) of ``csrc/dp_segment.cu`` for a band of W: band cells a
     thread (even) and the band cells the lane holds, Wp >= W: Wp = 32 * C
-    up to 512, past it C = 16 and a warp for each 512 cells."""
+    up to 512, past it C = 16 and a warp for each 512 cells of the lane's
+    m blocks of p warps (:func:`cluster_shape`)."""
     if W > SLICE_W:
-        return 16, SLICE_W * -(-W // SLICE_W)
+        m, p = cluster_shape(W)
+        return 16, SLICE_W * m * p
     C = 2 * -(-W // 64)
     return C, 32 * C
 
@@ -480,7 +498,8 @@ def move_rows_ring(codes: np.ndarray, last: int, S: int, W: int):
     writes lies on a row of the lane.
 
     Past 512 each warp of the wide lane does this for its 512-cell slice
-    (:func:`_move_rows_slice`).
+    (:func:`_move_rows_slice`), past 3072 each warp of each block of the
+    cluster lane, a padding slice's writing nothing.
     """
     C, Wp = band_cells(W)
     if W > SLICE_W:
@@ -545,7 +564,8 @@ def _move_rows_slice(codes: np.ndarray, last: int, S: int, W: int, k: int,
     half = W // 2
     codes = np.asarray(codes, np.int64)
     m0 = k * rb                                  # the slice's first byte
-    nw = min(SLICE_W // 16, W // 16 - m0 // 4)   # its words in a row
+    # its words in a row (none for a slice of padding cells only)
+    nw = max(min(SLICE_W // 16, W // 16 - m0 // 4), 0)
     g_hi = min(k * (SLICE_W // 2) + SLICE_W // 2 - 1, half - 1)
     ring = np.full(R * rb, 0xEE, np.uint8)
     dst = out.view(np.uint8).reshape(S, W // 4)
@@ -560,9 +580,10 @@ def _move_rows_slice(codes: np.ndarray, last: int, S: int, W: int, k: int,
     odd = np.arange(1, P, 2)
     k_end = last + half - 1 if last > 0 else 0
     # the slice's pairs meet rows 1..last in iterations g_lo + 1 ..
-    # g_hi + last; no other iteration writes, so only its flushes run
+    # g_hi + last; no other iteration writes, so only its flushes run, and
+    # none before g_hi + 32
     first, top = k * (SLICE_W // 2) + 1, min(k_end, g_hi + last)
-    for it in range(1, k_end + 1):
+    for it in range(min(first, g_hi + 1), k_end + 1):
         if first <= it <= top:
             edge = it <= half - 1 or it > last
             row = it - g
@@ -1356,21 +1377,32 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
     first cell after the even step, its last after the odd step; the last
     cells first after row 0), each warp keeps the move ring of its slice,
     and the best cell is reduced in each slice and then across the slices
-    in order.
+    in order.  Past 3072 the slices are those of m blocks of p warps
+    (:func:`cluster_shape`): the slots are each block's, and the first and
+    the last slice of a block read the neighbouring block's; each block
+    holds the query's S bytes and S + 512 p target bytes from its first
+    cell on, a read outside them clamped in (asserted to happen only off a
+    cell's rows 1..last); and the reduction runs over the blocks in rank
+    order, each block's slices in order.
     """
     B = q_seg.shape[0]
     half = W // 2
     _, Wp = band_cells(W)
     padded = W < Wp
     wide = W > SLICE_W
+    m_blocks, p_warps = cluster_shape(W) if wide else (1, 1)
+    cluster = m_blocks > 1
     K1 = IND_K + 1
     w_all = torch.arange(Wp, dtype=torch.int32)
     real = w_all < W
     tm = tmax[:, None]
     jo = torch.where(real, w_all - half, 1 << 30)
     ok0 = (jo[None, :] >= 0) & (jo[None, :] <= tm)
-    val = torch.where(ok0, (torch.where(real, jo, 0).clamp(min=0)
-                            * K1)[None, :], VINF).to(torch.int32)
+    # val[:, w] = valp[:, w + 1], VINF on either side of the band
+    valp = torch.full((B, Wp + 2), VINF, dtype=torch.int32)
+    val = valp[:, 1:Wp + 1]
+    val[:] = torch.where(ok0, (torch.where(real, jo, 0).clamp(min=0)
+                               * K1)[None, :], VINF)
     last_row = torch.minimum(seg_q.clamp(max=S), tmax + half)
     last_row = torch.where(tmax < 0, 0, last_row).clamp(min=0)[:, None]
     best_s = torch.where(ok0 & (seg_q[:, None] >= 0),
@@ -1379,32 +1411,63 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
     best_r = torch.zeros((B, Wp), dtype=torch.int32)
     best_v = val.clone()
     codes = torch.zeros((B, S, W), dtype=torch.int64)
-    vinf_col = torch.full((B, 1), VINF, dtype=torch.int32)
-    # a wide lane's border slots: xh[k] slice k's last cell, xv[k] its first
-    xh = val[:, SLICE_W - 1::SLICE_W].clone()
+    codes_flat = codes.view(B, S * W)
+    q_rev = q_seg.flip(1)
+    # a wide lane's border slots, [B, blocks, warps]: xh slice k's last
+    # cell, xv its first; slice k is warp k % p of block k // p
+    xh = val[:, SLICE_W - 1::SLICE_W].reshape(B, m_blocks, -1).clone()
     xv = None
+
+    def slot(x, k):                                   # slice k's slot
+        return x[:, k // p_warps, k % p_warps]
+
+    # a cluster lane's block stages target bytes y0 .. y0 + ty - 1, y0 its
+    # first cell; zeros past the window's S + W bytes (and, for the other
+    # lanes, past the padding cells' reads)
+    ty = S + SLICE_W * p_warps
+    tpad_z = torch.cat([tpad, tpad.new_zeros((B, Wp + ty))], 1)
     for tau in range(2, 2 * S + W):
-        ws = torch.arange(tau & 1, Wp, 2)
-        # a cell off rows 1..S changes nothing this step: left out
-        ws = ws[(tau - ws >= 2) & (tau - ws <= 2 * S + 1)]
+        # the cells of this step on rows 1..S (no other changes anything):
+        # w = lo, lo + 2, ..., hi, on rows i_hi, i_hi - 1, ..., i_lo
+        par = tau & 1
+        lo = max(tau - 2 * S, par)
+        hi = min(tau - 2, Wp - 2 + par)
+        sl = slice(lo, hi + 1, 2)
+        ws = torch.arange(lo, hi + 1, 2)
+        i_hi, i_lo = (tau - lo) // 2, (tau - hi) // 2
         i = (tau - ws) // 2                           # the row of each cell
         in_range = (i[None, :] >= 1) & (i[None, :] <= last_row)
-        ic = i.clamp(1, S)
-        tcol = (ic - 1 + ws).clamp(max=S + W - 1)     # padding: any byte
-        sub = (q_seg[:, ic - 1] != tpad[:, tcol]).to(torch.int32)
-        padded_row = torch.cat([vinf_col, val, vinf_col], dim=1)
-        diag = val[:, ws] + sub * IND_K
-        vert = padded_row[:, ws + 2] + K1             # cell w + 1, row i - 1
-        hor = padded_row[:, ws] + K1                  # cell w - 1, row i
-        if wide and tau & 1 == 0:
-            # a slice's first cell: the left warp's last, from its slot
-            at = ((ws % SLICE_W) == 0) & (ws > 0)
-            hor[:, at] = xh[:, ws[at] // SLICE_W - 1] + K1
+        # row i's query char q[i - 1]; target char tpad[i - 1 + w], one
+        # further a cell
+        qch = q_rev[:, S - i_hi:S - i_lo + 1]
+        y_lo = i_hi - 1 + lo
+        if cluster:
+            # the block's window, clamped
+            y = torch.arange(y_lo, y_lo + ws.numel())
+            y0 = (ws // (SLICE_W * p_warps)) * (SLICE_W * p_warps)
+            yc = y0 + (y - y0).clamp(0, ty - 1)
+            assert not bool((in_range & ((yc != y) | (y >= S + W))[None, :]
+                             & (ws < W)[None, :]).any())
+            tch = tpad_z[:, yc]
+        else:
+            tch = tpad_z[:, y_lo:y_lo + ws.numel()]   # padding cells: any
+        sub = (qch != tch).to(torch.int32)
+        diag = val[:, sl] + sub * IND_K
+        # cell w + 1 of row i - 1 and cell w - 1 of row i
+        vert = valp[:, lo + 2:hi + 3:2] + K1
+        hor = valp[:, lo:hi + 1:2] + K1
+        if wide and par == 0:
+            # a slice's first cell: the left warp's last, from its slot (the
+            # block to the left's, at a block border)
+            for w in range(-(-max(lo, 1) // SLICE_W) * SLICE_W, hi + 1,
+                           SLICE_W):
+                hor[:, (w - lo) // 2] = slot(xh, w // SLICE_W - 1) + K1
         elif wide:
             # a slice's last cell: the right warp's first, from its slot
-            at = ((ws % SLICE_W) == SLICE_W - 1) & (ws < Wp - 1)
-            vert[:, at] = xv[:, ws[at] // SLICE_W + 1] + K1
-        j = (i + jo[ws]).to(torch.int32)[None, :]
+            for w in range(-(-(lo + 1) // SLICE_W) * SLICE_W - 1,
+                           min(hi, Wp - 2) + 1, SLICE_W):
+                vert[:, (w - lo) // 2] = slot(xv, (w + 1) // SLICE_W) + K1
+        j = (i + jo[sl]).to(torch.int32)[None, :]
         valid = (j >= 0) & (j <= tm)
         cur = torch.minimum(torch.minimum(diag, vert), hor)
         # iterations k = tau // 2 in [W - 1, min(tmax - W/2 + 1, last)] hold
@@ -1418,22 +1481,28 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
                           torch.where(valid, cur.clamp(max=VINF), VINF))
         move = torch.where(cur == diag, sub,
                            torch.where(cur == vert, 2, 3)).long()
-        val[:, ws] = torch.where(in_range, cur, val[:, ws])
-        keep = ws < W
-        wr, ir = ws[keep], ic[keep]
-        codes[:, ir - 1, wr] = torch.where(in_range[:, keep], move[:, keep],
-                                           codes[:, ir - 1, wr])
+        val[:, sl] = torch.where(in_range, cur, val[:, sl])
+        # the real cells' codes: codes[:, i - 1, w] lie W - 2 apart in the
+        # flat [S * W] plane, the highest w first
+        hr = hi if hi < W else W - 2 + par
+        if hr >= lo:
+            n_real = (hr - lo) // 2 + 1
+            f_lo = ((tau - hr) // 2 - 1) * W + hr
+            f_sl = slice(f_lo, f_lo + (n_real - 1) * (W - 2) + 1, W - 2)
+            codes_flat[:, f_sl] = torch.where(
+                in_range[:, :n_real], move[:, :n_real],
+                codes_flat[:, f_sl].flip(1)).flip(1)
         score = i.to(torch.int32)[None, :] + j - 4 * (cur >> 12)
         better = (in_range & (fast | (cur < VINF))
-                  & (score > best_s[:, ws]))
-        best_s[:, ws] = torch.where(better, score, best_s[:, ws])
-        best_r[:, ws] = torch.where(better, i.to(torch.int32)[None, :],
-                                    best_r[:, ws])
-        best_v[:, ws] = torch.where(better, cur, best_v[:, ws])
-        if wide and tau & 1 == 0:                     # the slots, published
-            xv = val[:, ::SLICE_W].clone()
+                  & (score > best_s[:, sl]))
+        best_s[:, sl] = torch.where(better, score, best_s[:, sl])
+        best_r[:, sl] = torch.where(better, i.to(torch.int32)[None, :],
+                                    best_r[:, sl])
+        best_v[:, sl] = torch.where(better, cur, best_v[:, sl])
+        if wide and par == 0:                         # the slots, published
+            xv = val[:, ::SLICE_W].reshape(B, m_blocks, -1).clone()
         elif wide:
-            xh = val[:, SLICE_W - 1::SLICE_W].clone()
+            xh = val[:, SLICE_W - 1::SLICE_W].reshape(B, m_blocks, -1).clone()
     flat = best_r * W + w_all[None, :]
 
     def reduce(s_, f_):                               # score desc, flat asc
@@ -1442,14 +1511,19 @@ def dp_segment_best_wavefront(q_seg: torch.Tensor, tpad: torch.Tensor,
             dim=1).values
 
     if wide:
-        # in each slice, then across the slices in order
+        # in each slice, then across the slices in order: over the blocks in
+        # rank order, each block's slices in order
         s_red, f = reduce(best_s[:, :SLICE_W], flat[:, :SLICE_W])
-        for k in range(1, Wp // SLICE_W):
-            sl = slice(k * SLICE_W, (k + 1) * SLICE_W)
-            s_k, f_k = reduce(best_s[:, sl], flat[:, sl])
-            take = (s_k > s_red) | ((s_k == s_red) & (f_k < f))
-            s_red = torch.where(take, s_k, s_red)
-            f = torch.where(take, f_k, f)
+        for c in range(m_blocks):
+            for kb in range(p_warps):
+                k = c * p_warps + kb
+                if k == 0:
+                    continue
+                sl = slice(k * SLICE_W, (k + 1) * SLICE_W)
+                s_k, f_k = reduce(best_s[:, sl], flat[:, sl])
+                take = (s_k > s_red) | ((s_k == s_red) & (f_k < f))
+                s_red = torch.where(take, s_k, s_red)
+                f = torch.where(take, f_k, f)
     else:
         f = reduce(best_s, flat)[1]
     v = torch.gather(best_v, 1, (f % W).long()[:, None])[:, 0]

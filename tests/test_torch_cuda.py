@@ -382,15 +382,20 @@ def test_extend_moves_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("W", [32, 48, 96, 160, 256, 272, 384, 512, 528,
-                               1024, 2048])
+                               1024, 2048, 3088, 4096, 8192,
+                               dp_kernel.BAND_MAX])
 def test_dp_family_kernels_match_plain_at_every_band(cuda, W):
     """Each band width the reference computes: the two per-segment DP
     kernels, the counts and the move loop, the row and the column walk on
     the move kernel's words and the deposit on the rows of that walk and on
     random rows, each against its plain version.  Past 512 a lane is
     several warps (528: a second warp of one real thread, 1024 and 2048:
-    two and four whole slices)."""
+    two and four whole slices); past 3072 a thread-block cluster (3088:
+    two blocks of four slices, the last one padding; 4096: two of four;
+    8192: three of six, the last two padding; BAND_MAX: eight of six), and
+    each of the four DP kernels' launches goes the cluster route."""
     S = 128
+    cluster0 = dp_kernel.LAUNCHES_CLUSTER
     args = [torch.as_tensor(a, device=cuda)
             for a in dp_inputs(S, W, 256, seed=W)]
     got = align.dp_segment_best(*args, S, W)
@@ -428,6 +433,42 @@ def test_dp_family_kernels_match_plain_at_every_band(cuda, W):
         assert torch.equal(g, w), name
     _assert_move_loop_matches_plain(_pairs(cuda, S, W, "pairs", n=128), S, W,
                                     8, 3)
+    assert dp_kernel.LAUNCHES_CLUSTER - cluster0 == (
+        4 if W > dp_kernel.BAND_BLOCK_MAX else 0)
+
+
+def test_kernels_refuse_past_band_max_before_a_build(cuda, monkeypatch):
+    """BAND_MAX + 16 (and BAND_MAX + 8): every DP and walk wrapper raises
+    ValueError naming the ceiling before anything is built."""
+    from mecat_tpu_torch.ops import cuda_build
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel was built for a band it refuses")
+
+    monkeypatch.setattr(cuda_build, "build", no_build)
+    monkeypatch.setattr(dp_kernel, "_lib", None)
+    monkeypatch.setattr(walk_kernel, "_libs", {})
+    S = 64
+    for W in (dp_kernel.BAND_MAX + 16, dp_kernel.BAND_MAX + 8):
+        q, tpad, tmax, seg_q, active = (
+            torch.as_tensor(a, device=cuda) for a in dp_inputs(S, 64, 16,
+                                                               seed=4))
+        tpad = tpad.new_zeros(16, S + W)
+        match = str(dp_kernel.BAND_MAX)
+        for fn in (dp_kernel.dp_segment_best_cuda,
+                   dp_kernel.dp_segment_best_moves_cuda):
+            with pytest.raises(ValueError, match=match):
+                fn(q, tpad, tmax, seg_q, active, S, W)
+        lanes = _extend_lanes(cuda, S, 64, "pairs", n=16)
+        lanes[1] = lanes[1].new_zeros(32, lanes[1].shape[1] + W)
+        for fn in (dp_kernel.extend_counts_cuda, dp_kernel.extend_moves_cuda):
+            with pytest.raises(ValueError, match=match):
+                fn(*lanes, S=S, W=W, max_segs=4, min_seg_identity=0.65)
+        moves = torch.zeros((16, S, W // 16), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match=match):
+            walk_kernel.traceback_rows_cuda(moves, seg_q, tmax, W)
+        with pytest.raises(ValueError, match=match):
+            walk_kernel.traceback_ops_cuda(moves, seg_q, tmax, W, 64)
 
 
 def test_overlap_step_kernel_matches_plain(cuda):
@@ -798,10 +839,13 @@ def _on(dev, a):
     (512, 128, 4096, "path"), (512, 128, 2000, "edge"), (128, 64, 2048,
                                                            "path"),
     (128, 64, 1200, "edge"), (128, 1024, 900, "edge"),
-    (128, 2048, 700, "edge")])
+    (128, 2048, 700, "edge"), (128, 3088, 900, "edge"),
+    (128, 4096, 900, "edge"), (128, 8192, 700, "edge"),
+    (128, dp_kernel.BAND_MAX, 700, "edge")])
 def test_tag_fold_kernels_match_plain(cuda, S, W, L_t, source):
     """The planes kernel and the fold kernel against their plain versions,
-    every element (planes, counts, cov_diff), one launch each."""
+    every element (planes, counts, cov_diff), one launch each; at the band
+    widths past 3072 too, where the deposit planes are S + W/2 - 1 wide."""
     plane_args, fold_args = fold_case(cuda, S, W, L_t, source)
     before = walk_kernel.launches()
     got = consensus_banded.global_planes(*plane_args, L_t=L_t, S=S, W=W)

@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from mecat_tpu_torch.ops import align as port
-from mecat_tpu_torch.testing import (dp_inputs, dp_inputs_full,
+from mecat_tpu_torch.ops.dp_kernel import BAND_MAX
+from mecat_tpu_torch.testing import (BLOCK_W, dp_inputs, dp_inputs_full,
                                      dp_segment_best_wavefront,
                                      move_rows_ring)
 
@@ -31,15 +32,22 @@ def _readable(moves, r_best, S):
                                  (96, 48), (128, 96), (128, 160),
                                  (128, 208), (128, 256), (64, 272),
                                  (64, 384), (48, 512), (48, 528),
-                                 (48, 1024), (48, 1040), (48, 2048)])
+                                 (48, 1024), (48, 1040), (48, 2048),
+                                 (48, 3088), (48, 4096), (48, 6160),
+                                 (40, BAND_MAX)])
 def test_wavefront_matches_plain(S, W):
     """dp_inputs carries the edge lanes: tmax / seg_q of 0 and -1, inactive
     lanes; lane 4 has its endpoint restricted to early rows.  Past 512 the
     lane is a warp a 512-cell slice (the border exchange, the slices' move
     rings, the reduction across slices): 528 adds a slice of 16 real cells,
     1040 a third, 1024 and 2048 are whole slices; 32 lanes there keep every
-    kind of edge lane."""
-    n = 100 if W <= 512 else 32
+    kind of edge lane.  Past 3072 the lane is a cluster of blocks (the
+    exchange across a block border, each block's staged windows, the
+    reduction over the blocks in rank order): 3088 two blocks of four
+    slices, the last one padding, 4096 two of four whole ones, 6160 three
+    of five, BAND_MAX eight of six; 21 lanes there keep every kind of edge
+    lane, fewer as the model takes a step a band cell."""
+    n = 100 if W <= 512 else 32 if W <= BLOCK_W else 21
     q, tpad, tmax, seg_q, active = dp_inputs(S, W, n, seed=3 * S + W)
     seg_q[4] = S // 3
     args = [torch.as_tensor(a) for a in (q, tpad, tmax, seg_q, active)]
@@ -122,8 +130,8 @@ def _packed(codes, last, W):
     return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
-@pytest.mark.parametrize("W", list(range(16, 513, 16)) + [528, 1024, 1040,
-                                                          2048])
+@pytest.mark.parametrize("W", list(range(16, 513, 16)) + [
+    528, 1024, 1040, 2048, 3088, 4096, 6160, BAND_MAX])
 def test_move_ring_assembles_every_row_at_every_band(W):
     """The kernel's move bytes: nibbles joined across iterations and
     threads, a ring of 128 rows (160 at W > 192, up to 288 at W > 448)
@@ -131,7 +139,8 @@ def test_move_ring_assembles_every_row_at_every_band(W):
     for each band width the kernels take up to 512, at lasts around the
     flush and ring boundaries; past 512 a ring of 288 rows for each warp's
     slice, flushed on the slice's own schedule, and partial slices (528,
-    1040) written word by word."""
+    1040) written word by word; past 3072 the slices of every block of a
+    cluster lane, 3088's padding slice writing nothing."""
     S = 512
     rng = np.random.default_rng(W)
     for last in (0, 1, 31, 32, 33, 127, 160, 161, 287, 288, 289, 300, S):

@@ -179,9 +179,10 @@ def test_plain_rows_equal_jax_at_every_band(W):
 
 
 def test_band_check_takes_the_multiples_of_16_up_to_band_max():
-    """Every multiple of 16 up to BAND_MAX, which six 36 KB move rings a
-    lane set at 3072; nothing else, past it or not a multiple of 16."""
-    assert dp_kernel.BAND_MAX == 3072
+    """Every multiple of 16 up to BAND_MAX, which a cluster of eight blocks
+    of six 36 KB move rings a lane sets at 24,576; nothing else, past it or
+    not a multiple of 16."""
+    assert dp_kernel.BAND_MAX == 24576
     for W in range(16, dp_kernel.BAND_MAX + 1, 16):
         dp_kernel.check_band(W)
     for W in (0, -16, 8, 24, 40, 100, 255, 520, dp_kernel.BAND_MAX + 16):
