@@ -2010,8 +2010,8 @@ def phase_cli(reads: str, n_reads: int, work: str) -> dict:
         f"run_pw (process start, imports, CUDA set-up) "
         f"{wall - summary.get('seconds', 0.0):.2f} s")
     keys = ("seconds", "index_build_seconds", "volume_pair_seconds",
-            "staged_prep_s", "staged_scan_s", "staged_pull_s",
-            "staged_extend_s", "candidates", "overlaps", "dp_gcells_per_s",
+            "staged_prep_s", "staged_pull_s", "staged_extend_s",
+            "candidates", "overlaps", "dp_gcells_per_s",
             "dp_gcells_per_s_useful", "dp_launches", "dp_launches_extend")
     say("phase 5: CLI summary " + json.dumps(
         {k: summary[k] for k in keys if k in summary}))
@@ -2758,7 +2758,7 @@ def phase_fused_cli(reads: str, n_reads: int, work: str,
                      os.path.join(work, "wrk_fused"), "-n", "16", "-a",
                      "1000", "--device", "cuda"], "pw")
     n_rec = count_lines(out)
-    keys = ("seconds", "index_build_seconds", "fused_prep_s", "fused_scan_s",
+    keys = ("seconds", "index_build_seconds", "fused_prep_s",
             "fused_extend_s", "candidates", "overlaps", "dp_gcells_issued",
             "dp_gcells_useful", "dp_launches", "dp_launches_moves",
             "dp_launches_extend", "dp_launches_extend_moves")

@@ -37,6 +37,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import constants as C
+from ..utils.metrics import kernel_span, span
 
 INF = 1 << 20
 Q_SENTINEL = 255
@@ -561,9 +562,11 @@ def extend_both_directions(q: torch.Tensor, t: torch.Tensor,
     version runs ``max(n_segs)`` segments over all 2B lanes, so it issues
     ``2B * max(n_segs)`` lane-segments.
     """
+    with kernel_span("dp.lanes"):
+        lanes = direction_lanes(q, t, qlen, tlen, qseed, tseed, S, W)
     both, _ = _extend_direction_impl(
-        *direction_lanes(q, t, qlen, tlen, qseed, tseed, S, W), S=S, W=W,
-        max_segs=max_segs, min_seg_identity=min_seg_identity, dp=dp)
+        *lanes, S=S, W=W, max_segs=max_segs,
+        min_seg_identity=min_seg_identity, dp=dp)
     return both
 
 
@@ -736,7 +739,9 @@ def _extend_both_with_moves(q, t, qlen, tlen, qseed, tseed, *, S, W,
     the plain version.
     """
     B = q.shape[0]
-    lanes = direction_lanes(q, t, qlen, tlen, qseed, tseed, S, W)
+    # a host span: correction opens this once a chunk, hundreds a slice
+    with span("dp.lanes"):
+        lanes = direction_lanes(q, t, qlen, tlen, qseed, tseed, S, W)
     max_left = max_segs_left or max_segs
     if dp is dp_segment_best and q.device.type == "cuda":
         from .dp_kernel import extend_moves_cuda

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants as C
+from ..utils.metrics import span
 from .align import (MOVE_MATCH, MOVE_MISMATCH, MOVE_VERT,
                     dynamic_slice_start)
 from .consensus import GAP
@@ -469,7 +470,8 @@ def banded_accumulate_tags(counts, cov_diff, right_rows, left_rows,
     updated in place and returned.  On CUDA tensors the deposit, the
     planes and the fold are one kernel launch each.
     """
-    g0, gpk, gcn = banded_global_planes(
-        right_rows, left_rows, support, qseed, tseed, L_t=L_t, S=S, W=W)
-    return fold_tags(counts, cov_diff, g0, gpk, gcn, tlen, t_slot, pair_ok,
-                     tbeg, tend, L_t)
+    with span("cns.tags"):
+        g0, gpk, gcn = banded_global_planes(
+            right_rows, left_rows, support, qseed, tseed, L_t=L_t, S=S, W=W)
+        return fold_tags(counts, cov_diff, g0, gpk, gcn, tlen, t_slot,
+                         pair_ok, tbeg, tend, L_t)

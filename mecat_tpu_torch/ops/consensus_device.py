@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.metrics import kernel_span
 from .consensus import GAP, VoteParams, default_vote_params
 
 
@@ -170,53 +171,55 @@ def call_tables(counts: torch.Tensor,        # int32 [T, L, D1, 5]
     supported template keep the template base, so the draft is full-length
     and seed coordinates can be mapped through it.
     """
-    vote = vote or default_vote_params()
-    T, L, D1, _ = counts.shape
-    dev = counts.device
-    tmpl = template.to(torch.int32)
-    l_idx = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
-    in_read = l_idx < tlen[:, None]
-    self_vote = 0 if keep_template else 1
-    if not keep_template:
-        # template self-votes, only where a support produced a table
-        counts[:, :, 0, :].scatter_add_(
-            2, tmpl.long()[:, :, None],
-            (in_read & has_support[:, None]).to(torch.int32)[:, :, None])
+    with kernel_span("cns.vote"):
+        vote = vote or default_vote_params()
+        T, L, D1, _ = counts.shape
+        dev = counts.device
+        tmpl = template.to(torch.int32)
+        l_idx = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+        in_read = l_idx < tlen[:, None]
+        self_vote = 0 if keep_template else 1
+        if not keep_template:
+            # template self-votes, only where a support produced a table
+            counts[:, :, 0, :].scatter_add_(
+                2, tmpl.long()[:, :, None],
+                (in_read & has_support[:, None]).to(torch.int32)[:, :, None])
 
-    coverage = torch.cumsum(cov_diff[:, :L], dim=1, dtype=torch.int32)
-    cov_ok = (coverage >= min_coverage) & in_read & has_support[:, None]
-    base_win = _first_argmax(counts[:, :, 0, :4])             # [T, L] no GAP
-    deleted = _run_pooled_deletions_dev(tmpl, counts, coverage, tlen,
-                                        self_vote=self_vote, vote=vote)
-    ins = counts[:, :, 1:, :4]
-    ins_tot = ins.sum(dim=3, dtype=torch.int32)               # [T, L, D1-1]
-    ins_win = _first_argmax(ins)
-    ins_emit = torch.cumprod(
-        (ins_tot * 2 > coverage.clamp(min=1)[:, :, None]).to(torch.int32),
-        dim=2).bool()
+        coverage = torch.cumsum(cov_diff[:, :L], dim=1, dtype=torch.int32)
+        cov_ok = (coverage >= min_coverage) & in_read & has_support[:, None]
+        base_win = _first_argmax(counts[:, :, 0, :4])         # [T, L] no GAP
+        deleted = _run_pooled_deletions_dev(tmpl, counts, coverage, tlen,
+                                            self_vote=self_vote, vote=vote)
+        ins = counts[:, :, 1:, :4]
+        ins_tot = ins.sum(dim=3, dtype=torch.int32)           # [T, L, D1-1]
+        ins_win = _first_argmax(ins)
+        ins_emit = torch.cumprod(
+            (ins_tot * 2 > coverage.clamp(min=1)[:, :, None]).to(torch.int32),
+            dim=2).bool()
 
-    base0 = torch.where(cov_ok & ~deleted, base_win, -1)
-    if keep_template or draft_mode:
-        # thin coverage keeps the template verbatim (polish: always; draft:
-        # where the normal call would leave a split gap)
-        kept = in_read & has_support[:, None] if draft_mode else in_read
-        base0 = torch.where(cov_ok, base0, torch.where(kept, tmpl, -1))
-    ins_slots = torch.where(cov_ok[:, :, None] & ins_emit, ins_win, -1)
-    extra = _run_pooled_insertions_dev(tmpl, counts, coverage, ins_emit,
-                                       ins_win, tlen, self_vote=self_vote,
-                                       vote=vote)
-    gate = (coverage >= min_coverage) if keep_template else cov_ok
-    extra = torch.where(gate, extra, 0)
-    # fill the first `extra` free slots at each run start with the run letter
-    free = ins_slots < 0
-    frank = torch.cumsum(free.to(torch.int32), dim=2, dtype=torch.int32)
-    fill = free & (frank <= extra[:, :, None])
-    ins_slots = torch.where(fill, tmpl[:, :, None], ins_slots)
-    if not keep_template:
-        ins_slots = _window_pooled_insertions_dev(counts, coverage,
-                                                  ins_slots, cov_ok, vote)
-    emit = torch.cat([base0[:, :, None], ins_slots], dim=2)
-    return emit, cov_ok
+        base0 = torch.where(cov_ok & ~deleted, base_win, -1)
+        if keep_template or draft_mode:
+            # thin coverage keeps the template verbatim (polish: always; draft:
+            # where the normal call would leave a split gap)
+            kept = in_read & has_support[:, None] if draft_mode else in_read
+            base0 = torch.where(cov_ok, base0, torch.where(kept, tmpl, -1))
+        ins_slots = torch.where(cov_ok[:, :, None] & ins_emit, ins_win, -1)
+        extra = _run_pooled_insertions_dev(tmpl, counts, coverage, ins_emit,
+                                           ins_win, tlen, self_vote=self_vote,
+                                           vote=vote)
+        gate = (coverage >= min_coverage) if keep_template else cov_ok
+        extra = torch.where(gate, extra, 0)
+        # fill the first `extra` free slots at each run start with the run
+        # letter
+        free = ins_slots < 0
+        frank = torch.cumsum(free.to(torch.int32), dim=2, dtype=torch.int32)
+        fill = free & (frank <= extra[:, :, None])
+        ins_slots = torch.where(fill, tmpl[:, :, None], ins_slots)
+        if not keep_template:
+            ins_slots = _window_pooled_insertions_dev(counts, coverage,
+                                                      ins_slots, cov_ok, vote)
+        emit = torch.cat([base0[:, :, None], ins_slots], dim=2)
+        return emit, cov_ok
 
 
 def _window_pooled_insertions_dev(counts, coverage, ins_slots, gate,

@@ -22,6 +22,7 @@ import torch
 from .. import constants as C
 
 from ..index.kmer_index import kmer_codes, probe_index
+from ..utils.metrics import kernel_span
 
 #: diagonals are shifted by this before binning so they are non-negative
 _DIAG_SHIFT = 1 << 20
@@ -136,11 +137,12 @@ def scan_candidates(bases, lengths, offsets, pos_rid, pos_loc, cutoff: int,
                     diag_shift: int = _DIAG_SHIFT, code_lo: int = 0,
                     code_hi: int = 1 << 30) -> Candidates:
     """Single-device candidate scan: probe_hits -> score_hits."""
-    hits = probe_hits(bases, lengths, offsets, pos_rid, pos_loc, cutoff,
-                      self_id, k=k, stride=stride, max_occ=max_occ,
-                      diag_bin=diag_bin, diag_shift=diag_shift,
-                      code_lo=code_lo, code_hi=code_hi)
-    return score_hits(*hits, num_candidates=num_candidates)
+    with kernel_span("ddf.scan"):
+        hits = probe_hits(bases, lengths, offsets, pos_rid, pos_loc, cutoff,
+                          self_id, k=k, stride=stride, max_occ=max_occ,
+                          diag_bin=diag_bin, diag_shift=diag_shift,
+                          code_lo=code_lo, code_hi=code_hi)
+        return score_hits(*hits, num_candidates=num_candidates)
 
 
 def merge_strand_candidates_device(c0: Candidates, c1: Candidates,

@@ -51,7 +51,7 @@ from ..ops.consensus import (CnsTable, VoteParams, columns_to_tags,
 from ..ops.consensus_banded import banded_accumulate_tags
 from ..ops.consensus_device import call_tables, split_called
 from ..utils.log import get_logger
-from ..utils.metrics import Metrics
+from ..utils.metrics import Metrics, span
 from .common import bucket_length, max_segs_for, pad_to_batch
 
 log = get_logger("cns")
@@ -560,21 +560,22 @@ def make_cns_chunk(*, L_s, L_t, S, W, max_segs, max_segs_left,
     def chunk(counts, cov_diff, has, vol_cat, starts, lengths, n_bases,
               s_ids, t_ids, qlen, tlen, qs, ts, t_slot, sdir, real,
               tally: Optional[list] = None):
-        sid = s_ids.long()
-        full = lengths[sid].to(torch.int32)
-        qs_c = torch.minimum(qs.clamp(min=0), (full - 1).clamp(min=0))
-        w0 = torch.minimum((qs_c - L_s // 2).clamp(min=0),
-                           (full - L_s).clamp(min=0))
-        # int64 only here, for offsets into vol_cat
-        start = torch.where(sdir == 0, starts[sid] + w0,
-                            2 * n_bases - starts[sid] - full + w0)
-        rows = _gather_windows(vol_cat, start, L_s)
-        w_len = (full - w0).clamp(max=L_s).to(torch.int32)
-        col = torch.arange(L_s, dtype=torch.int32,
-                           device=vol_cat.device)[None, :]
-        q = torch.where(col < w_len[:, None], rows, 0)
-        qs_w = (qs_c - w0).to(torch.int32)
-        t = _gather_rows_dev(vol_cat, starts, lengths, t_ids, L_t)
+        with span("dp.lanes"):
+            sid = s_ids.long()
+            full = lengths[sid].to(torch.int32)
+            qs_c = torch.minimum(qs.clamp(min=0), (full - 1).clamp(min=0))
+            w0 = torch.minimum((qs_c - L_s // 2).clamp(min=0),
+                               (full - L_s).clamp(min=0))
+            # int64 only here, for offsets into vol_cat
+            start = torch.where(sdir == 0, starts[sid] + w0,
+                                2 * n_bases - starts[sid] - full + w0)
+            rows = _gather_windows(vol_cat, start, L_s)
+            w_len = (full - w0).clamp(max=L_s).to(torch.int32)
+            col = torch.arange(L_s, dtype=torch.int32,
+                               device=vol_cat.device)[None, :]
+            q = torch.where(col < w_len[:, None], rows, 0)
+            qs_w = (qs_c - w0).to(torch.int32)
+            t = _gather_rows_dev(vol_cat, starts, lengths, t_ids, L_t)
         pa, right_r, left_r = extend_pair_batch_rows(
             q, t, w_len, tlen, qs_w, ts, S=S, W=W, max_segs=max_segs,
             max_segs_left=max_segs_left, dp=dp)
@@ -612,46 +613,54 @@ def _dispatch_slice_device(db: PackedDB, templates: List[int], by_template,
     function of L_t and the longest read, and msegs bounds per-direction
     consumption at ~1.4x the template.
     """
-    T, L_t, L_s, msegs, P, D1 = _slice_shapes(db, templates, opts)
-    plan = plan_pairs(db, templates, by_template, opts, L_t, msegs)
-    if plan is None:
-        return None
-    S, W = opts.align_segment, opts.align_band
-    vol_cat, starts_d, lengths_d, n_bases = dev_vol
-    dev = vol_cat.device
+    with span("cns.plan"):
+        T, L_t, L_s, msegs, P, D1 = _slice_shapes(db, templates, opts)
+        plan = plan_pairs(db, templates, by_template, opts, L_t, msegs)
+        if plan is None:
+            return None
+        S, W = opts.align_segment, opts.align_band
+        vol_cat, starts_d, lengths_d, n_bases = dev_vol
+        dev = vol_cat.device
 
-    counts = torch.zeros((T, L_t, D1, 5), dtype=torch.int32, device=dev)
-    cov_diff = torch.zeros((T, L_t + 1), dtype=torch.int32, device=dev)
-    has = torch.zeros(T, dtype=torch.bool, device=dev)
-    ids_pad = np.asarray(
-        list(templates) + [templates[0]] * (T - len(templates)), np.int32)
-    tmpl_mat = _gather_rows_dev(vol_cat, starts_d, lengths_d,
-                                torch.as_tensor(ids_pad, device=dev), L_t)
-    tmpl_len = np.minimum(db.lengths[ids_pad], L_t).astype(np.int32)
+        counts = torch.zeros((T, L_t, D1, 5), dtype=torch.int32, device=dev)
+        cov_diff = torch.zeros((T, L_t + 1), dtype=torch.int32, device=dev)
+        has = torch.zeros(T, dtype=torch.bool, device=dev)
+        ids_pad = np.asarray(
+            list(templates) + [templates[0]] * (T - len(templates)),
+            np.int32)
+        tmpl_mat = _gather_rows_dev(vol_cat, starts_d, lengths_d,
+                                    torch.as_tensor(ids_pad, device=dev), L_t)
+        tmpl_len = np.minimum(db.lengths[ids_pad], L_t).astype(np.int32)
 
     pairs_a = plan["pairs"]
     tally: list = []
     for ofs in range(0, len(pairs_a), P):
-        sl = slice(ofs, ofs + P)
-        n = len(pairs_a[sl])
-        chunk = make_cns_chunk(
-            L_s=L_s, L_t=L_t, S=S, W=W,
-            max_segs=seg_bucket(int(plan["segs_r"][sl].max()), msegs),
-            max_segs_left=seg_bucket(int(plan["segs_l"][sl].max()), msegs),
-            min_identity=opts.min_identity,
-            min_align_size=opts.min_align_size,
-            min_mapping_ratio=opts.min_mapping_ratio, dp=dp)
-        args = pad_to_batch(
-            [pairs_a[sl, 1].astype(np.int32), pairs_a[sl, 0].astype(np.int32),
-             plan["qlen"][sl], plan["tlen"][sl], plan["qs"][sl],
-             plan["ts"][sl], plan["slot"][sl],
-             pairs_a[sl, 2].astype(np.int32), np.ones(n, dtype=bool)], P)
-        chunk(counts, cov_diff, has, vol_cat, starts_d, lengths_d, n_bases,
-              *(torch.as_tensor(a, device=dev) for a in args), tally=tally)
+        with span("cns.chunk"):
+            sl = slice(ofs, ofs + P)
+            n = len(pairs_a[sl])
+            chunk = make_cns_chunk(
+                L_s=L_s, L_t=L_t, S=S, W=W,
+                max_segs=seg_bucket(int(plan["segs_r"][sl].max()), msegs),
+                max_segs_left=seg_bucket(int(plan["segs_l"][sl].max()),
+                                         msegs),
+                min_identity=opts.min_identity,
+                min_align_size=opts.min_align_size,
+                min_mapping_ratio=opts.min_mapping_ratio, dp=dp)
+            args = pad_to_batch(
+                [pairs_a[sl, 1].astype(np.int32),
+                 pairs_a[sl, 0].astype(np.int32),
+                 plan["qlen"][sl], plan["tlen"][sl], plan["qs"][sl],
+                 plan["ts"][sl], plan["slot"][sl],
+                 pairs_a[sl, 2].astype(np.int32), np.ones(n, dtype=bool)], P)
+            chunk(counts, cov_diff, has, vol_cat, starts_d, lengths_d,
+                  n_bases, *(torch.as_tensor(a, device=dev) for a in args),
+                  tally=tally)
         stats.supports_aligned += n
     stats.table_slices += 1
-    stats.dp_lane_segs_issued += sum(i for i, _ in tally)
-    stats.dp_lane_segs_useful += int(torch.stack([u for _, u in tally]).sum())
+    with span("cns.tally"):
+        stats.dp_lane_segs_issued += sum(i for i, _ in tally)
+        stats.dp_lane_segs_useful += int(
+            torch.stack([u for _, u in tally]).sum())
 
     emit, cov_ok = call_tables(counts, cov_diff, tmpl_mat,
                                torch.as_tensor(tmpl_len, device=dev), has,
@@ -673,15 +682,17 @@ def _collect_slice_device(db: PackedDB, pending, opts: CnsOptions,
     """Pull one slice's emit arrays (:func:`_pull_emit`, cov_ok as bool) and
     yield its corrected segments."""
     templates, emit, cov_ok, has = pending
-    emit = _pull_emit(emit)
-    cov_ok = cov_ok.cpu().numpy()
-    has_support = has.cpu().numpy()
-    for i, t in enumerate(templates):
+    with span("cns.emit"):
+        emit = _pull_emit(emit)
+        cov_ok = cov_ok.cpu().numpy()
+        has_support = has.cpu().numpy()
+        called = [split_called(emit[i], cov_ok[i], int(db.lengths[t]),
+                               opts.min_length) if has_support[i] else None
+                  for i, t in enumerate(templates)]
+    for t, segs in zip(templates, called):
         stats.templates += 1
-        if not has_support[i]:
+        if segs is None:
             continue
-        segs = split_called(emit[i], cov_ok[i], int(db.lengths[t]),
-                            opts.min_length)
         for k, seg in enumerate(segs):
             stats.corrected_reads += 1
             stats.corrected_bases += len(seg)

@@ -19,6 +19,7 @@ from .. import constants as C
 from ..ops.align import (PairAlignment, dp_segment_best, dynamic_slice_start,
                          extend_pair_batch)
 from ..ops.ddf import Candidates, scan_candidates
+from ..utils.metrics import kernel_span
 
 
 class OverlapStepOut(NamedTuple):
@@ -152,15 +153,16 @@ def probe_survivors(cand: Candidates, bases, lengths, vol_codes, read_starts,
     returns survive bool [B, N].  The thresholds are float32 and integer
     comparisons, as the reference's."""
     B, N = cand.target.shape
-    tgt = cand.target.clamp(0, read_starts.shape[0] - 1).reshape(-1).long()
-    t, t_len_w, ts_local, _ = _target_windows(
-        vol_codes, read_starts, read_lengths, tgt, cand.tseed.reshape(-1),
-        L_target)
-    probe = extend_pair_batch(
-        bases.repeat_interleave(N, dim=0), t,
-        lengths.repeat_interleave(N), t_len_w,
-        cand.qseed.reshape(-1).clamp(min=0), ts_local,
-        S=S, W=W, max_segs=1, dp=dp)
+    with kernel_span("dp.lanes"):
+        tgt = cand.target.clamp(0, read_starts.shape[0] - 1).reshape(-1).long()
+        t, t_len_w, ts_local, _ = _target_windows(
+            vol_codes, read_starts, read_lengths, tgt, cand.tseed.reshape(-1),
+            L_target)
+        q = bases.repeat_interleave(N, dim=0)
+        qlen = lengths.repeat_interleave(N)
+        qseed = cand.qseed.reshape(-1).clamp(min=0)
+    probe = extend_pair_batch(q, t, qlen, t_len_w, qseed, ts_local,
+                              S=S, W=W, max_segs=1, dp=dp)
     short = probe.align_len < 96          # too little evidence: keep
     looks_ok = probe.identity >= 55.0
     survive = (cand.valid.reshape(-1)
@@ -215,16 +217,18 @@ def extend_selected(bases, lengths, vol_codes, read_starts, read_lengths,
     ``sel_valid`` the padded tail lanes (False) get qlen = 0, so they are
     dead from segment 0 and the kernel skips them.
     """
-    sel = sel.long()
-    rowi = torch.div(sel, N, rounding_mode="floor")
-    tgt = tgt_flat[sel].clamp(0, read_starts.shape[0] - 1).long()
-    q = bases[rowi]
-    qlen = lengths[rowi]
-    if sel_valid is not None:
-        qlen = torch.where(sel_valid, qlen, 0)
-    t, t_len_w, ts_local, win0 = _target_windows(
-        vol_codes, read_starts, read_lengths, tgt, tseed_flat[sel], L_target)
-    res = extend_pair_batch(
-        q, t, qlen, t_len_w, qseed_flat[sel].clamp(min=0), ts_local,
-        S=S, W=W, max_segs=max_segs, dp=dp)
+    with kernel_span("dp.lanes"):
+        sel = sel.long()
+        rowi = torch.div(sel, N, rounding_mode="floor")
+        tgt = tgt_flat[sel].clamp(0, read_starts.shape[0] - 1).long()
+        q = bases[rowi]
+        qlen = lengths[rowi]
+        if sel_valid is not None:
+            qlen = torch.where(sel_valid, qlen, 0)
+        t, t_len_w, ts_local, win0 = _target_windows(
+            vol_codes, read_starts, read_lengths, tgt, tseed_flat[sel],
+            L_target)
+        qseed = qseed_flat[sel].clamp(min=0)
+    res = extend_pair_batch(q, t, qlen, t_len_w, qseed, ts_local,
+                            S=S, W=W, max_segs=max_segs, dp=dp)
     return res, win0

@@ -47,7 +47,7 @@ from ..ops import dp_kernel, walk_kernel
 from ..ops.align import extend_pair_batch
 from ..ops.ddf import merge_strand_candidates_device, scan_candidates
 from ..utils.log import get_logger
-from ..utils.metrics import Metrics
+from ..utils.metrics import Metrics, span
 from .common import (bucket_length, gather_rows, max_segs_for,
                      oriented_batch, pad_to_batch)
 from .device_step import extend_selected, probe_step
@@ -89,7 +89,6 @@ class PwStats:
     cells: int = 0         # DP cells issued (shape budgets incl. padded lanes)
     cells_useful: int = 0  # DP cells computed by live lanes (n_segs x S x W)
     prep_s: float = 0.0    # host batch preparation
-    scan_s: float = 0.0    # candidate scan dispatch
     pull_s: float = 0.0    # strand merge (device for -j 0), sync, pull
     emit_s: float = 0.0    # candidate text emit
     extend_s: float = 0.0  # extension: gather, DP, pull, M4 records
@@ -147,7 +146,6 @@ def process_query_batch(db: PackedDB, vol_base: int, index: TorchKmerIndex,
     self_dev = torch.as_tensor(self_p, device=device)
     stats.prep_s += time.time() - t_ph
 
-    t_ph = time.time()
     cands_by_strand = []
     for strand, bases in ((0, fwd_p), (1, rev_p)):
         cand = scan_candidates(
@@ -156,7 +154,6 @@ def process_query_batch(db: PackedDB, vol_base: int, index: TorchKmerIndex,
             k=opts.kmer_size, stride=opts.scan_stride, max_occ=opts.max_occ,
             num_candidates=opts.num_candidates, diag_bin=opts.diag_bin)
         cands_by_strand.append((strand, cand))
-    stats.scan_s += time.time() - t_ph
 
     t_ph = time.time()
     if opts.task == 0:
@@ -318,33 +315,33 @@ def dispatch_query_batch_fused(db: PackedDB, vol_base: int,
     device = index.offsets.device
     B = batch_rows or opts.scan_batch
     t_ph = time.time()
-    fwd, rev, lens = oriented_batch(db, query_ids, L_query)
-    fwd_p, rev_p, lens_p = pad_to_batch([fwd, rev, lens], B)
-    lens_p = lens_p.copy()
-    lens_p[len(query_ids):] = 0
-    self_ids = np.array(
-        [qid - vol_base if vol_base <= qid < vol_base + vol_db.n_reads else -1
-         for qid in query_ids], dtype=np.int32)
-    self_p, = pad_to_batch([self_ids], B)
-    lens_dev = torch.as_tensor(lens_p.astype(np.int32), device=device)
-    self_dev = torch.as_tensor(self_p, device=device)
+    with span("pw.prep"):
+        fwd, rev, lens = oriented_batch(db, query_ids, L_query)
+        fwd_p, rev_p, lens_p = pad_to_batch([fwd, rev, lens], B)
+        lens_p = lens_p.copy()
+        lens_p[len(query_ids):] = 0
+        self_ids = np.array(
+            [qid - vol_base if vol_base <= qid < vol_base + vol_db.n_reads
+             else -1 for qid in query_ids], dtype=np.int32)
+        self_p, = pad_to_batch([self_ids], B)
+        lens_dev = torch.as_tensor(lens_p.astype(np.int32), device=device)
+        self_dev = torch.as_tensor(self_p, device=device)
     stats.prep_s += time.time() - t_ph
 
-    t_ph = time.time()
     S, W = opts.align_segment, opts.align_band
     outs = {}
     for strand, bases in ((0, fwd_p), (1, rev_p)):
-        bases_dev = torch.as_tensor(bases, device=device)
-        cand, survive = probe_step(
-            bases_dev, lens_dev, self_dev, vol_codes, index.offsets,
-            index.pos_rid, index.pos_loc, index.read_starts,
-            index.read_lengths, index.max_occ_cutoff, k=opts.kmer_size,
-            stride=opts.scan_stride, max_occ=opts.max_occ,
-            num_candidates=opts.num_candidates, diag_bin=opts.diag_bin,
-            L_target=L_target, S=S, W=W,
-            min_block_score=opts.min_block_score)
+        with span("pw.probe"):
+            bases_dev = torch.as_tensor(bases, device=device)
+            cand, survive = probe_step(
+                bases_dev, lens_dev, self_dev, vol_codes, index.offsets,
+                index.pos_rid, index.pos_loc, index.read_starts,
+                index.read_lengths, index.max_occ_cutoff, k=opts.kmer_size,
+                stride=opts.scan_stride, max_occ=opts.max_occ,
+                num_candidates=opts.num_candidates, diag_bin=opts.diag_bin,
+                L_target=L_target, S=S, W=W,
+                min_block_score=opts.min_block_score)
         outs[strand] = (cand, survive, bases_dev)
-    stats.scan_s += time.time() - t_ph
     return (outs, np.asarray(query_ids, dtype=np.int64), lens, lens_dev,
             vol_codes, index, L_target,
             max_segs_for(max(L_query, L_target), S))
@@ -454,63 +451,73 @@ def collect_query_batch_fused(pending, vol_base: int, vol_db: PackedDB,
     cols = new_m4_cols()
     phase2 = {}
     for strand, (cand, survive, bases_dev) in outs.items():
-        # the probe issued 1 segment x 2 directions for every candidate
-        stats.cells += 2 * S * W * survive.numel()
-        surv = survive.cpu().numpy().copy()
-        surv[n:, :] = False
-        sel_np = np.flatnonzero(surv.reshape(-1)).astype(np.int32)
-        if len(sel_np) == 0:
-            continue
-        score_np = cand.score.reshape(-1).cpu().numpy()
-        # probe useful cells: 1 segment x 2 directions a valid candidate
-        # of the real rows
-        n_valid_cand = int((score_np[:n * N] >= opts.min_block_score).sum())
-        stats.cells_useful += 2 * S * W * n_valid_cand
-        sel_np = sel_np[np.argsort(-score_np[sel_np], kind="stable")]
-        parts = ([sel_np] if len(sel_np) <= _SPLIT_MIN else
-                 [sel_np[:len(sel_np) // 2], sel_np[len(sel_np) // 2:]])
+        with span("pw.select"):
+            # the probe issued 1 segment x 2 directions for every candidate
+            stats.cells += 2 * S * W * survive.numel()
+            surv = survive.cpu().numpy().copy()
+            surv[n:, :] = False
+            sel_np = np.flatnonzero(surv.reshape(-1)).astype(np.int32)
+            if len(sel_np) == 0:
+                continue
+            score_np = cand.score.reshape(-1).cpu().numpy()
+            # probe useful cells: 1 segment x 2 directions a valid
+            # candidate of the real rows
+            n_valid_cand = int(
+                (score_np[:n * N] >= opts.min_block_score).sum())
+            stats.cells_useful += 2 * S * W * n_valid_cand
+            sel_np = sel_np[np.argsort(-score_np[sel_np], kind="stable")]
+            parts = ([sel_np] if len(sel_np) <= _SPLIT_MIN else
+                     [sel_np[:len(sel_np) // 2], sel_np[len(sel_np) // 2:]])
+            padded = []
+            for part in parts:
+                K = _bucket_k(len(part))
+                sel_pad = np.zeros(K, np.int64)
+                sel_pad[:len(part)] = part
+                valid_pad = np.zeros(K, bool)
+                valid_pad[:len(part)] = True
+                padded.append((part, K,
+                               torch.as_tensor(sel_pad, device=device),
+                               torch.as_tensor(valid_pad, device=device)))
         tgt_flat = cand.target.reshape(-1)
         part_out = []
-        for part in parts:
-            K = _bucket_k(len(part))
-            sel_pad = np.zeros(K, np.int64)
-            sel_pad[:len(part)] = part
-            valid_pad = np.zeros(K, bool)
-            valid_pad[:len(part)] = True
-            res, win0 = extend_selected(
-                bases_dev, lens_dev, vol_codes, index.read_starts,
-                index.read_lengths, tgt_flat, cand.qseed.reshape(-1),
-                cand.tseed.reshape(-1),
-                torch.as_tensor(sel_pad, device=device),
-                torch.as_tensor(valid_pad, device=device), N=N,
-                L_target=L_target, S=S, W=W, max_segs=msegs)
+        for part, K, sel_dev, valid_dev in padded:
+            with span("pw.extend"):
+                res, win0 = extend_selected(
+                    bases_dev, lens_dev, vol_codes, index.read_starts,
+                    index.read_lengths, tgt_flat, cand.qseed.reshape(-1),
+                    cand.tseed.reshape(-1), sel_dev, valid_dev, N=N,
+                    L_target=L_target, S=S, W=W, max_segs=msegs)
             part_out.append((part, res, win0))
             stats.cells += 2 * msegs * S * W * K
         phase2[strand] = (cand, part_out)
         stats.candidates += len(sel_np)
         stats.extended += len(sel_np)
-        for part, res, _ in part_out:
-            stats.cells_useful += S * W * int(
-                res.n_segs[:len(part)].sum())
+        # the segment counts: the host waits for this strand's extension
+        with span("pw.extend"):
+            for part, res, _ in part_out:
+                stats.cells_useful += S * W * int(
+                    res.n_segs[:len(part)].sum())
 
-    for strand, (cand, part_out) in phase2.items():
-        target, score, qseed, tseed = (
-            x.reshape(-1).cpu().numpy()
-            for x in (cand.target, cand.score, cand.qseed, cand.tseed))
-        for sel_np, res, win0 in part_out:
-            m = len(sel_np)
-            w0 = win0[:m].cpu().numpy()
-            ident, qbeg, qend, tbeg, tend = (
-                x[:m].cpu().numpy() for x in (res.identity, res.qbeg,
-                                              res.qend, res.tbeg, res.tend))
-            r = sel_np // N
-            append_m4_columns(
-                cols, opts, strand=strand, vol_base=vol_base,
-                qids=qids[r], qsize=lens[r], tgt=target[sel_np],
-                tlens=vol_db.lengths, ident=ident, score=score[sel_np],
-                qbeg=qbeg, qend=qend, tbeg=tbeg + w0, tend=tend + w0,
-                qseed=qseed[sel_np], tseed=tseed[sel_np])
-    text = finalize_m4_text(cols, opts, stats)
+    with span("pw.m4"):
+        for strand, (cand, part_out) in phase2.items():
+            target, score, qseed, tseed = (
+                x.reshape(-1).cpu().numpy()
+                for x in (cand.target, cand.score, cand.qseed, cand.tseed))
+            for sel_np, res, win0 in part_out:
+                m = len(sel_np)
+                w0 = win0[:m].cpu().numpy()
+                ident, qbeg, qend, tbeg, tend = (
+                    x[:m].cpu().numpy() for x in (res.identity, res.qbeg,
+                                                  res.qend, res.tbeg,
+                                                  res.tend))
+                r = sel_np // N
+                append_m4_columns(
+                    cols, opts, strand=strand, vol_base=vol_base,
+                    qids=qids[r], qsize=lens[r], tgt=target[sel_np],
+                    tlens=vol_db.lengths, ident=ident, score=score[sel_np],
+                    qbeg=qbeg, qend=qend, tbeg=tbeg + w0, tend=tend + w0,
+                    qseed=qseed[sel_np], tseed=tseed[sel_np])
+        text = finalize_m4_text(cols, opts, stats)
     stats.extend_s += time.time() - t_ph
     return text
 
@@ -540,9 +547,11 @@ def run_pw(reads_path: str, out_path: str, wrk_dir: str,
     ``route`` is ``"staged"`` or ``"fused"`` (see the module text), or None
     for :func:`default_route`; the fused route computes ``-j 1`` only and
     raises ValueError for ``-j 0``.
-    The summary line names the route and its phase split: ``staged_prep_s``,
-    ``_scan_s``, ``_pull_s``, ``_emit_s``, ``_extend_s``; ``fused_prep_s``,
-    ``_scan_s`` (scan and probe), ``_extend_s`` (survivors, extension, M4).
+    The summary line names the route and its host phase split:
+    ``staged_prep_s``, ``_pull_s``, ``_emit_s``, ``_extend_s``;
+    ``fused_prep_s``, ``_extend_s`` (survivors, extension, M4).  The scan's
+    launches are asynchronous: its device time is in a profile, under the
+    ``ddf.scan`` kernel span.
     """
     opts = opts or PwOptions()
     if route is None:
@@ -637,8 +646,8 @@ def run_pw(reads_path: str, out_path: str, wrk_dir: str,
     met.set("dp_gcells_issued", stats.cells / 1e9)
     met.set("dp_gcells_useful", stats.cells_useful / 1e9)
     met.set("route", route)
-    phases = (("prep_s", "scan_s", "extend_s") if route == "fused" else
-              ("prep_s", "scan_s", "pull_s", "emit_s", "extend_s"))
+    phases = (("prep_s", "extend_s") if route == "fused" else
+              ("prep_s", "pull_s", "emit_s", "extend_s"))
     for ph in phases:
         met.set(f"{route}_{ph}", round(getattr(stats, ph), 3))
     # DP kernel launches of this run: 0 on CPU; on CUDA pw runs the
