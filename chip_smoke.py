@@ -36,8 +36,10 @@ non-zero exit and no result line:
    3072, 3088, 4096, 8192 and 24576 (past 512 a DP lane of several warps,
    past 3072 a thread-block cluster, whose four DP launches at each such
    width the wrappers' cluster counter must show) against its plain
-   version, the deposit scan on the rows of that row walk and on random
-   rows, and the tag fold's two kernels on 64 pairs of
+   version, the deposit (its row information inside) on the rows of that
+   row walk, on random rows and on walk-shaped edge rows (against the
+   plain composition, ``direction_rowinfo`` twice then
+   ``deposit_scan_plain``), and the tag fold's two kernels on 64 pairs of
    ``testing.fold_inputs`` (L_t 900 and 2,100: one tile and three of the
    planes kernel); at 512, 1024, 2048, 4096 and 8192 each wrapper's ms of
    one launch from the host beside its bound on those inputs.
@@ -51,8 +53,10 @@ non-zero exit and no result line:
    walk at mapping's MAXC) against their plain versions, every element of
    every lane, at both shapes on 4096 lanes: the move-writing DP kernel's
    words and endpoints, and random words with the edge lanes of
-   ``testing.walk_inputs``; the deposit on the rows of each walk and on
-   random rows.  Each wrapper alone on the first set: ms of one launch from
+   ``testing.walk_inputs``; the deposit on the rows of each walk, on
+   random rows and on the walk-shaped edge rows of
+   ``testing.deposit_rows_inputs``.  Each wrapper alone on the first set:
+   ms of one launch from
    the host and from a CUDA graph, the plain version's ms, the bound, ns a
    dependent step of the longest lane (for the column walk a row step,
    its columns beside it).  The tag fold's two kernels of
@@ -69,7 +73,14 @@ non-zero exit and no result line:
    version's ms and, for the fold, one ``index_add_`` of the int32
    presence buffer; the planes kernel's probe (graph ms on 16, 32, 64 and
    128 of the pairs, on them with no deposit cell read, and one
-   ``copy_`` of its bound's bytes) (``--kernels-only`` stops here).
+   ``copy_`` of its bound's bytes).  Then the deposit on the row walks of
+   the 128-pair cns chunk and of ``testing.cns_pile``'s correction pile
+   (through ``run_cns``'s chunk), every element against the plain
+   composition, and the host's side of the tag fold
+   (``phase_tag_fold_host``): ``plane_inputs`` of the cns chunk, host and
+   graph ms, and the torch ops dispatched and device operations launched
+   inside one ``banded_accumulate_tags`` (``--kernels-only`` stops
+   here).
    The ``roll_micro`` family, 2048
    lanes (the tool's own lanes plus lanes with varied tmax and segq): all 8
    output rows of each of the five variants equal on every lane; then the
@@ -255,7 +266,8 @@ WALK_SOURCE = "mecat_tpu_torch/csrc/cns_walk.cu"
 #: each walk kernel -> the reference's scan it replaces
 WALK_REPLACES = {
     "traceback_rows": "mecat_tpu/ops/align.py:300",           # scan :354
-    "deposit_scan": "mecat_tpu/ops/consensus_banded.py:87",   # scan :128
+    # direction_rowinfo :141 and the deposit _deposit_scan :87 (scan :128)
+    "deposit_scan": "mecat_tpu/ops/consensus_banded.py:141",
     "traceback_ops": "mecat_tpu/ops/align.py:234",            # scan :283
 }
 
@@ -300,10 +312,10 @@ ROLL_OPS_PER_CELL = {"full": 28, "noroll": 25, "nobest": 14, "elembest": 26,
 ROLL_LANES = 2048   # the tool's default
 #: int32 operations of the walk kernels, as the header of csrc/cns_walk.cu
 #: counts them: the row walk a 32-cell chunk of a walked row and a row
-#: besides; the deposit a row, a gap cell and an output char; the column
-#: walk a tape column
-WALK_OPS = dict(row_chunk=20, row=12, deposit_row=24, gap_cell=3,
-                deposit_char=6, col_step=16)
+#: besides; the deposit a row, its row information a row (three warp
+#: scans), a gap cell and an output char; the column walk a tape column
+WALK_OPS = dict(row_chunk=20, row=12, deposit_row=24, rowinfo_row=40,
+                gap_cell=3, deposit_char=6, col_step=16)
 #: int32 operations of the tag fold's kernels: the planes kernel an output
 #: column and a side-band entry; the fold a column and an add on a present
 #: cell
@@ -890,8 +902,7 @@ def phase_widths() -> tuple:
 
     from mecat_tpu_torch import constants as C
     from mecat_tpu_torch.ops import align, consensus_banded, dp_kernel
-    from mecat_tpu_torch.testing import (deposit_inputs, dp_inputs,
-                                         extend_inputs, fold_case)
+    from mecat_tpu_torch.testing import dp_inputs, extend_inputs, fold_case
 
     dev = torch.device("cuda")
     S = 128
@@ -927,12 +938,14 @@ def phase_widths() -> tuple:
         rows = align.traceback_rows(moves, r_best, w_best, W)
         check("traceback_rows", rows,
               align.traceback_rows_plain(moves, r_best, w_best, W), W)
-        walk = [a.cpu().numpy() for a in rows[:3]]
-        for dep in (deposit_inputs(S, W, 256, seed=231 + W, walk=walk),
-                    deposit_inputs(S, W, 256, seed=232 + W)):
-            dep = [torch.as_tensor(a, device=dev) for a in dep]
-            check("deposit_scan", consensus_banded._deposit_scan(*dep, W),
-                  consensus_banded.deposit_scan_plain(*dep, W), W)
+        deps = [deposit_case(dev, S, W, 255, 231 + W, walk=rows[:3]),
+                deposit_case(dev, S, W, 255, 232 + W, source="random"),
+                deposit_case(dev, S, W, 255, 233 + W)]
+        for dep in deps:
+            check("deposit_scan", flat(consensus_banded.plane_inputs(
+                *dep, S, W)), flat(consensus_banded.plane_inputs_plain(
+                    *dep, S, W)), W)
+        dep = deps[0]
         # L_t 2,100: three tiles of the planes kernel, side-band cells at
         # the first one's last column and the second one's first
         check_fold(err, *fold_case(dev, S, W, 2100, "edge", B=64,
@@ -991,7 +1004,8 @@ def phase_widths() -> tuple:
                     moves, r_best, w_best, W),
                 "traceback_ops": lambda: wk.traceback_ops_cuda(
                     moves, r_best, w_best, W, TC),
-                "deposit_scan": lambda: wk.deposit_scan_cuda(*dep, W),
+                "deposit_scan": lambda: wk.deposit_rows_cuda(
+                    *dep, S=S, W=W),
                 "global_planes": lambda: wk.global_planes_cuda(
                     *fplanes, L_t=900, S=S, W=W),
                 "fold_tags": lambda: wk.fold_tags_cuda(
@@ -1014,7 +1028,8 @@ def phase_widths() -> tuple:
                     for k, v in timed[W].items()))
         say(f"phase 2: band W={W} (S={S}): both per-segment DP kernels (256 "
             f"lanes, every move word), the row and the column walk on their "
-            f"words, the deposit on that walk's rows and on random rows, "
+            f"words, the deposit with its row information on that walk's "
+            f"rows, on random rows and on walk-shaped edge rows, "
             f"the counts loop and the move loop (256 direction lanes, 16 / 9 "
             f"segments), the tag fold's planes and fold (64 pairs of "
             f"fold_inputs, L_t 900 and 2,100) == their plain versions; "
@@ -1044,16 +1059,7 @@ def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
         n_rows * W // 4 + N * (8 + 12 * S + 4),
         n_rows * (WALK_OPS["row_chunk"] * W // 32 + WALK_OPS["row"])),
         int(rows_read.max()))}
-    wo, _, h, dmv = dep_args[:4]
-    lo = (wo + 1).clamp(min=0)
-    hi = torch.minimum(wo + h, torch.full_like(wo, W - 1))
-    gap_cells = int(torch.where(dmv >= 0, (hi - lo + 1).clamp(min=0),
-                                0).sum())
-    LP = S + W // 2 - 1
-    out["deposit_scan"] = (card_bound(
-        N * S * 25 + N * LP * 9,
-        N * S * WALK_OPS["deposit_row"] + gap_cells * WALK_OPS["gap_cell"]
-        + N * LP * WALK_OPS["deposit_char"]), S)
+    out["deposit_scan"] = (deposit_bound(dep_args, S, W), S)
     tape, n_cols = ops[0], ops[3]
     row_steps = ((tape >= 0) & (tape != 3)).sum(dim=1)
     col_rows = int(row_steps.sum())
@@ -1063,13 +1069,67 @@ def walk_bounds(S: int, W: int, maxc: int, seg_qlen, rows, ops, dep_args):
     return out
 
 
+def deposit_bound(dep, S: int, W: int) -> dict:
+    """The deposit's bound on ``dep`` (plane_inputs' arguments but S and
+    W): bytes, each input read once (a row's mv, h, wo and query char, a
+    lane's w0, qoff and ok, the seeds) and each output written once (9
+    bytes an output char, 12 of side arrays a lane, 4 of j_end a left
+    lane); operations as the source's header counts them, the row
+    information's on every row, the deposit's on the rows and gap cells of
+    the lanes that are ok."""
+    import torch
+
+    rr, lr, q, qseed = dep
+    LP = S + W // 2 - 1
+    N = sum(r[6].numel() for r in (rr, lr))
+    rows_ok = sum(int(r[6].sum()) for r in (rr, lr)) * S
+    gap_cells = 0
+    for mv, h, wo, *_, ok in (rr, lr):
+        lo = (wo + 1).clamp(min=0)
+        hi = torch.minimum(wo + h, torch.full_like(wo, W - 1))
+        gap_cells += int(torch.where((mv >= 0) & ok[..., None],
+                                     (hi - lo + 1).clamp(min=0), 0).sum())
+    return card_bound(
+        N * S * 13 + N * 9 + 4 * qseed.numel() + N * (LP * 9 + 12)
+        + 4 * lr[6].numel(),
+        N * S * WALK_OPS["rowinfo_row"] + rows_ok * WALK_OPS["deposit_row"]
+        + gap_cells * WALK_OPS["gap_cell"] + N * LP * WALK_OPS["deposit_char"])
+
+
+def deposit_case(dev, S: int, W: int, n: int, seed: int, walk=None,
+                 source: str = "walk"):
+    """The deposit's inputs (plane_inputs' arguments but S and W) on the
+    card for n lanes, 3 right and 2 left segments of n // 5 pairs
+    (``testing.deposit_rows_inputs``): on the rows of a walk (``walk`` =
+    its mv, h, wo tensors) or on generated rows, walk-shaped with the edge
+    lanes or random."""
+    import torch
+
+    from mecat_tpu_torch.testing import deposit_rows_inputs
+
+    if walk is not None:
+        walk = [a.cpu().numpy() for a in walk]
+    rr, lr, q, qseed = deposit_rows_inputs(S, W, n // 5, 3 * S, seed,
+                                           source=source, walk=walk)
+    on = lambda a: torch.as_tensor(np.array(a), device=dev)
+    return tuple(on(a) for a in rr), tuple(on(a) for a in lr), on(q), on(
+        qseed)
+
+
+def flat(out) -> list:
+    """plane_inputs' nested result as one list of tensors."""
+    return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+
+
 def phase_walks(S: int, W: int) -> dict:
     """The three walk kernels against their plain versions at one shape on
     every lane and every output element: the row walk and the column walk
     (at mapping's MAXC) on the move-writing DP kernel's words and endpoints
     for the dp_inputs lanes, and on random words with the edge lanes of
-    ``testing.walk_inputs``; the deposit scan on the rows of each of those
-    walks and on random rows.  Then, on the DP kernel's words and the rows
+    ``testing.walk_inputs``; the deposit with its row information on the
+    rows of each of those walks, on random rows and on walk-shaped edge
+    rows, against the plain composition.  Then, on the DP kernel's words
+    and the rows
     of their walk, each wrapper alone: ms of one launch from the host
     between two events (``ms``) and a launch replayed from a CUDA graph
     (``graph_ms``), the plain version's ms, the bound, and ns a dependent
@@ -1080,8 +1140,7 @@ def phase_walks(S: int, W: int) -> dict:
     from mecat_tpu_torch import constants as C
     from mecat_tpu_torch.ops import align, consensus_banded
     from mecat_tpu_torch.ops import walk_kernel as wk
-    from mecat_tpu_torch.testing import (deposit_inputs, dp_inputs,
-                                         walk_inputs)
+    from mecat_tpu_torch.testing import dp_inputs, walk_inputs
 
     dev = torch.device("cuda")
     maxc = align.max_tape_cols(S, W, C.MIN_SEGMENT_IDENTITY)
@@ -1112,22 +1171,24 @@ def phase_walks(S: int, W: int) -> dict:
         torch.cuda.synchronize()
         check("traceback_rows", rows, rows_plain, what)
         check("traceback_ops", ops, ops_plain, what)
-        walk = [a.cpu().numpy() for a in rows[:3]]
-        deps = [[torch.as_tensor(a, device=dev) for a in deposit_inputs(
-            S, W, DP_LANES, seed=171 + S + W + 2 * k + r,
-            walk=walk if r == 0 else None)] for r in (0, 1)]
+        seed = 171 + S + W + 3 * k
+        deps = [deposit_case(dev, S, W, DP_LANES - 1, seed, walk=rows[:3]),
+                deposit_case(dev, S, W, DP_LANES - 1, seed + 1,
+                             source="random"),
+                deposit_case(dev, S, W, DP_LANES - 1, seed + 2)]
         for dep, rows_what in zip(deps, ("the rows of that walk",
-                                         "random rows")):
-            got = consensus_banded._deposit_scan(*dep, W)
-            want = consensus_banded.deposit_scan_plain(*dep, W)
+                                         "random rows", "edge rows")):
+            got = flat(consensus_banded.plane_inputs(*dep, S, W))
+            want = flat(consensus_banded.plane_inputs_plain(*dep, S, W))
             torch.cuda.synchronize()
             check("deposit_scan", got, want, f"{what}, {rows_what}")
         say(f"phase 2: walk kernels == plain at S={S} W={W}, {DP_LANES} "
             f"lanes of {what}: row walk (mv, h, w_out, w0; "
             f"{int((rows[0] >= 0).sum())} rows visited), column walk at "
             f"MAXC {maxc} (ops, qi, tj, n_cols; {int(ops[3].sum())} "
-            f"columns), deposit scan on the rows of that walk and on random "
-            f"rows (val0, ipack, icnt): every element equal")
+            f"columns), the deposit with its row information on the rows "
+            f"of that walk, on random rows and on edge rows (planes and "
+            f"side arrays): every element equal")
         if timed is None:
             timed = (moves, seg_qlen, w_end, rows_plain, ops_plain, deps[0])
     moves, seg_qlen, w_end, rows_plain, ops_plain, dep = timed
@@ -1136,8 +1197,8 @@ def phase_walks(S: int, W: int) -> dict:
             lambda: wk.traceback_rows_cuda(moves, seg_qlen, w_end, W),
             lambda: align.traceback_rows_plain(moves, seg_qlen, w_end, W)),
         "deposit_scan": (
-            lambda: wk.deposit_scan_cuda(*dep, W),
-            lambda: consensus_banded.deposit_scan_plain(*dep, W)),
+            lambda: wk.deposit_rows_cuda(*dep, S=S, W=W),
+            lambda: consensus_banded.plane_inputs_plain(*dep, S, W)),
         "traceback_ops": (
             lambda: wk.traceback_ops_cuda(moves, seg_qlen, w_end, W, maxc),
             lambda: align.traceback_ops_plain(moves, seg_qlen, w_end, W,
@@ -1449,6 +1510,159 @@ def phase_fold(S: int, W: int) -> dict:
                if library else "no PyTorch call computes it"))
         out[name].update(out[name]["chunks"]["cns"], max_abs_err=err[name],
                          plain_ms=plain_ms, library_ms=library_ms)
+    return out
+
+
+def cns_chunk_rows(dev, S: int, W: int, B: int = 128, seed: int = 191):
+    """The row walks of a cns chunk at (S, W), as the chunk hands them to
+    the tag fold: ``ops.align.extend_pair_batch_rows`` of B
+    ``testing.extend_inputs`` pairs of FOLD_L_T bases (FOLD_L_T // S + 2
+    segments a direction), and the fold's arguments after them: (right
+    rows, left rows, q, qseed, tseed, pair arrays as ``fold_case``)."""
+    import torch
+
+    from mecat_tpu_torch import constants as C
+    from mecat_tpu_torch.ops.align import extend_pair_batch_rows
+    from mecat_tpu_torch.testing import extend_inputs
+
+    on = lambda a: torch.as_tensor(np.array(a), device=dev)
+    q, t, qlen, tlen, qs, ts = (on(a) for a in extend_inputs(B, FOLD_L_T, S,
+                                                             seed))
+    G = FOLD_L_T // S + 2
+    pa, rr, lr = extend_pair_batch_rows(q, t, qlen, tlen, qs, ts, S=S, W=W,
+                                        max_segs=G, max_segs_left=G)
+    T = 16
+    slot = on(np.random.default_rng(seed).integers(0, T, B).astype(np.int32))
+    pair_ok = (pa.identity >= 60.0) & ((pa.tend - pa.tbeg) >= 20)
+    counts = torch.zeros((T, FOLD_L_T, C.MAX_INS_DELTA + 1, 5),
+                         dtype=torch.int32, device=dev)
+    cov = torch.zeros((T, FOLD_L_T + 1), dtype=torch.int32, device=dev)
+    return rr, lr, q, qs, ts, [counts, cov, tlen, slot, pair_ok, pa.tbeg,
+                               pa.tend]
+
+
+def phase_deposit_chunks(S: int, W: int, work: str) -> dict:
+    """The deposit kernel with its row information against the plain
+    composition (``direction_rowinfo`` twice, then ``deposit_scan_plain``),
+    every element of the planes, the side arrays and j_end: on the row
+    walks of the 128-pair cns chunk at (S, W) and on every chunk of a
+    ``run_cns`` of ``testing.cns_pile``'s correction pile (golden options,
+    S 128, W 64), whose chunks each launch it once.  Returns {what: lanes
+    checked}."""
+    import torch
+
+    from mecat_tpu_torch.ops import consensus_banded as cb
+    from mecat_tpu_torch.ops import walk_kernel as wk
+    from mecat_tpu_torch.pipeline.cns import CnsOptions, run_cns
+    from mecat_tpu_torch.testing import PILE_CNS, cns_pile
+
+    dev = torch.device("cuda")
+    checked = {}
+    kernel = cb.plane_inputs
+
+    def check(args, what):
+        got = flat(kernel(*args))
+        want = flat(cb.plane_inputs_plain(*args))
+        torch.cuda.synchronize()
+        for k, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"deposit kernel != plain on {what}: output {k}, "
+                    f"{int((g != w).sum())} elements differ")
+        checked[what] = checked.get(what, 0) + got[0].shape[0] * got[
+            0].shape[1] + got[3].shape[0] * got[3].shape[1]
+
+    rr, lr, q, qs = cns_chunk_rows(dev, S, W)[:4]
+    check((rr, lr, q, qs, S, W), f"the cns chunk at ({S}, {W})")
+    d = os.path.join(work, "deposit_pile")
+    os.makedirs(d)
+    _, reads, cand = cns_pile(d, device="cuda")
+    chunks = []
+
+    def checked_plane_inputs(*a):
+        check(a, "the cns pile's chunks")
+        chunks.append(1)
+        return kernel(*a)
+
+    before = wk.launches()
+    cb.plane_inputs = checked_plane_inputs
+    try:
+        run_cns(cand, reads, os.path.join(d, "out.fasta"),
+                CnsOptions(**PILE_CNS), device="cuda")
+    finally:
+        cb.plane_inputs = kernel
+    launched = wk.launches_since(before)["walk_launches_deposit"]
+    if not chunks or launched != 2 * len(chunks):
+        raise AssertionError(f"the pile's {len(chunks)} chunks launched the "
+                             f"deposit {launched} times (once a chunk and "
+                             f"once a check expected)")
+    say(f"phase 2: deposit kernel == plain composition (row information and "
+        f"deposit: planes, side arrays, j_end) on every element: "
+        + ", ".join(f"{w} ({n} lanes)" for w, n in checked.items())
+        + f"; {len(chunks)} pile chunks, one deposit launch each")
+    return checked
+
+
+def phase_tag_fold_host(S: int, W: int) -> dict:
+    """The host's side of the tag fold at the cns chunk (128 pairs, S, W):
+    ``plane_inputs`` alone, ms of one call from the host between two
+    events and of a call replayed from a CUDA graph (median of 21 and of 7
+    replays of 20), the whole ``banded_accumulate_tags`` (the ``cns.tags``
+    span) from the host, and inside one ``banded_accumulate_tags`` the
+    torch ops dispatched (a dispatch mode counts every aten call) and the
+    device operations launched (kernels, copies and memsets in a
+    ``torch.profiler`` trace; None where the trace shows no device
+    activity).  Uses only names the tree has had since the tag fold's
+    kernels came, so one tree's package can be timed against another's in
+    turns."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from mecat_tpu_torch.ops import consensus_banded as cb
+
+    dev = torch.device("cuda")
+    rr, lr, q, qs, ts, fold = cns_chunk_rows(dev, S, W)
+    tags = lambda: cb.banded_accumulate_tags(
+        fold[0], fold[1], rr, lr, qs, ts, q, *fold[2:], L_t=FOLD_L_T, S=S,
+        W=W)
+    rows = lambda: cb.plane_inputs(rr, lr, q, qs, S, W)
+
+    class Dispatched(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Dispatched.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    tags()
+    torch.cuda.synchronize()
+    with Dispatched():
+        tags()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tags()
+        torch.cuda.synchronize()
+    device_ops = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    try:
+        graph_ms = cuda_graph_ms(rows)
+    except RuntimeError as e:            # a tree whose ops cannot be captured
+        say(f"phase 2: plane_inputs not captured in a CUDA graph: {e}")
+        graph_ms = None
+    out = dict(pairs=int(q.shape[0]), segments=[int(rr[0].shape[0]),
+                                                int(lr[0].shape[0])],
+               torch_ops=Dispatched.ops, device_ops=device_ops or None,
+               rows_ms=cuda_median_ms(rows, 21), rows_graph_ms=graph_ms,
+               tags_ms=cuda_median_ms(tags, 21))
+    say(f"phase 2: tag fold at the cns chunk ({out['pairs']} pairs, "
+        f"{out['segments'][0]} / {out['segments'][1]} segments, S={S} "
+        f"W={W}): plane_inputs from the host {out['rows_ms']:.4f} ms, "
+        f"replayed from a CUDA graph {out['rows_graph_ms']} ms; "
+        f"banded_accumulate_tags from the host {out['tags_ms']:.4f} ms, "
+        f"{out['torch_ops']} torch ops dispatched and "
+        f"{out['device_ops']} device operations launched inside one")
     return out
 
 
@@ -1803,9 +2017,10 @@ class StageTimers:
                       (align, "_extend_direction_impl", "segment loop + DP"),
                       (align, "_extend_both_with_moves",
                        "move loop + DP (both directions, cut to G)"),
-                      (consensus_banded, "_deposit_scan", "deposit scan"),
+                      (consensus_banded, "plane_inputs",
+                       "deposit (row information inside)"),
                       (consensus_banded, "banded_global_planes",
-                       "global planes (deposit scan + planes kernel)"),
+                       "global planes (deposit + planes kernel)"),
                       (consensus_banded, "global_planes", "planes kernel"),
                       (consensus_banded, "fold_tags", "fold kernel"),
                       (cns, "banded_accumulate_tags",
@@ -1848,6 +2063,7 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
     from mecat_tpu_torch import constants as C
     from mecat_tpu_torch.ops import dp_kernel, walk_kernel
     from mecat_tpu_torch.ops.align import dp_segment_best_plain
+    from mecat_tpu_torch.pipeline import cns as cns_module
     from mecat_tpu_torch.pipeline.cns import (CnsOptions, CnsStats,
                                               correct_batch_device,
                                               device_volume)
@@ -1872,11 +2088,25 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
 
     _, _, warm_s = one_pass(templates)
     torch.cuda.reset_peak_memory_stats()
+    chunks = []
+    tags = cns_module.banded_accumulate_tags
+
+    def counted_tags(*a, **kw):
+        chunks.append(1)
+        return tags(*a, **kw)
+
+    cns_module.banded_accumulate_tags = counted_tags
     zero_dp_counts()                     # the main path's run starts here
     zero_walk_counts()
-    out, stats, dt = one_pass(templates)
+    try:
+        out, stats, dt = one_pass(templates)
+    finally:
+        cns_module.banded_accumulate_tags = tags
     launches = dp_launches_of(dp_kernel.launches())  # ... and ends here
     walks = need_walks("the cns pass", walk_kernel.launches())
+    if walks["deposit"] != len(chunks):
+        raise AssertionError(f"the cns pass ran {len(chunks)} chunks and "
+                             f"{walks['deposit']} deposit launches")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     need_moves_loop("the cns pass", launches)
     if launches["counts"] or launches["extend"]:
@@ -1893,8 +2123,9 @@ def phase_cns(db, by_template: dict, profile_path: str | None) -> dict:
         f"{stats.supports_aligned} supports aligned in {dt:.4f} s (warm pass "
         f"{warm_s:.4f} s): {stats.supports_aligned / dt:.1f} supports/s, "
         f"{stats.corrected_reads} corrected reads, {stats.corrected_bases} "
-        f"bases, {stats.table_slices} table slices, DP launches {launches}, "
-        f"walk launches {walks}, peak device memory {peak_gb:.3f} GB")
+        f"bases, {stats.table_slices} table slices, {len(chunks)} chunks, "
+        f"DP launches {launches}, walk launches {walks} (one deposit a "
+        f"chunk), peak device memory {peak_gb:.3f} GB")
     say(f"phase 6: DP lane-segments issued {stats.dp_lane_segs_issued}, "
         f"useful {stats.dp_lane_segs_useful}: "
         f"{stats.dp_lane_segs_issued * cells / 1e9:.3f} Gcells issued, "
@@ -3231,6 +3462,12 @@ def main(argv=None) -> int:
     path_shapes = phase_kernel_path_shapes(*main_sw)
     walks = {(S, W): phase_walks(S, W) for S, W in shapes}
     fold = phase_fold(*main_sw)
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
+    try:
+        deposit_chunks = phase_deposit_chunks(*main_sw, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    tag_fold_host = phase_tag_fold_host(*main_sw)
     if args.kernels_only:
         say(json.dumps({"extend": extend[main_sw],
                         "extend_moves": extend_moves[main_sw],
@@ -3238,7 +3475,9 @@ def main(argv=None) -> int:
                         "widths_bound": widths_bound,
                         "path_shapes": {
             "moves" if m else "counts": v for m, v in path_shapes.items()},
-            "walks": walks[main_sw], "fold": fold}))
+            "walks": walks[main_sw], "fold": fold,
+            "deposit_chunks": deposit_chunks,
+            "tag_fold_host": tag_fold_host}))
         say(f"card: {card}")
         return 0
     roll = {(S, W): phase_roll_micro(S, W) for S, W in shapes}

@@ -7,9 +7,12 @@
 //   * walk_rows (entry mecat_walk_rows) replaces the row walk
 //     mecat_tpu/ops/align.py:traceback_rows (scan at :354), plain version
 //     ops/align.traceback_rows_plain;
-//   * walk_deposit (entry mecat_walk_deposit) replaces the sliding-band
-//     deposit mecat_tpu/ops/consensus_banded.py:_deposit_scan (scan at :128),
-//     plain version ops/consensus_banded.deposit_scan_plain;
+//   * walk_deposit (entry mecat_walk_deposit_rows) replaces both
+//     directions' row information, mecat_tpu/ops/consensus_banded.py:
+//     direction_rowinfo (:141), and the sliding-band deposit _deposit_scan
+//     (:87, scan at :128) of _planes_from_rowinfo, plain version
+//     ops/consensus_banded.plane_inputs_plain (direction_rowinfo, then
+//     deposit_scan_plain);
 //   * walk_cols (entry mecat_walk_cols) replaces the column walk
 //     mecat_tpu/ops/align.py:traceback_ops (scan at :283), plain version
 //     ops/align.traceback_ops_plain.
@@ -22,8 +25,9 @@
 // rows for the row walk and the deposit, up to seg_qlen row steps for the
 // column walk); lanes are independent.  The paths launch 2,300-9,000 lanes.
 // The bytes: the moves of the rows a lane walks (32 B a row at W = 128) and
-// 12 B a row of output for the row walk; 25 B a row in and 9 B a char out
-// for the deposit; one word a tape column and one byte of tape for the
+// 12 B a row of output for the row walk; 13 B a row in (mv, h, wo and
+// the query char) and 9 B a char out for the deposit, 16 B a lane of side
+// arrays; one word a tape column and one byte of tape for the
 // column walk.  At 4,096 lanes of (S, W) = (512, 128) the row walk's and
 // the deposit's bytes take about 0.02 ms at 3.35 TB/s, a lane's chain of
 // 512 steps about as long at 40 ns a step: so each design keeps device
@@ -74,7 +78,21 @@
 //     ? 1 : 0)) << 8 with the base's byte below it, under atomicMin (no
 //     byte array beside it), the insertion pack takes atomicOr and the
 //     count atomicMax, and the warp's 32 threads take 32 rows at once, each
-//     row's seven inputs read coalesced across the warp.  The inputs of the
+//     row's walk outputs (mv, h, wo) and its query char read coalesced
+//     across the warp.  The row information the deposit needs is made in
+//     the same pass, as direction_rowinfo makes it with some 140 small
+//     torch ops a chunk: the query char (one contiguous slice of the
+//     pair's support row a segment, flipped on a left lane, its start
+//     wrapped and clamped as lax.dynamic_slice's), each VERT row's place
+//     in its run (run_deltas) and the side-band runs (j == 0 on a right
+//     lane, j == j_end on a left one) that go to the side arrays.  A run
+//     may cross a pass, so a right lane's passes go up the rows, a warp
+//     max-scan of run starts carrying the last start, and a left lane's go
+//     down them, a min-scan of run ends carrying the first end; a left
+//     lane's j_end (a max over every visited row) is one reduction pass
+//     over its rows first.  The side arrays are warp reductions
+//     (__reduce_max_sync, __reduce_or_sync); a lane that is not ok
+//     deposits nothing and skips its passes.  The inputs of the
 //     next two passes of 32 rows are in flight in registers while a pass
 //     deposits (the first two before the accumulators are initialised), so
 //     a lane waits for device memory about once, not S/32 times.  The gap
@@ -88,7 +106,8 @@
 //     Up to 8 warps a block, 7 KB a warp at (512, 128): 32 lanes an SM, so
 //     4,096 lanes in one wave (18 KB a warp at (512, 2048), 25 KB at (512,
 //     3072): 8 warps a block still; 150 KB at (512, 24576): one).  About 24
-//     int32 operations a row, 3 a gap cell and 6 an output char.
+//     int32 operations a row for the deposit and 40 for its row
+//     information (three warp scans), 3 a gap cell and 6 an output char.
 //   * walk_cols, the row walk's machinery: a walking warp of 32 lanes, a
 //     thread a lane, and a copying warp that streams each lane's rows,
 //     descending, into the same ring.  The column walk visits its rows in
@@ -485,9 +504,20 @@ walk_rows_kernel(const uint32_t* __restrict__ moves,
 
 // ---------------------------------------------------------------- deposit
 
-// One row of the deposit's inputs, in registers.
+// One direction's row walk as ops/align.rows_from_moves leaves it: mv, h,
+// wo int32 [n, S] (rows ascending), w0 and qoff int32 [n], ok bool [n].
+struct DepositDir {
+  const int32_t* mv;
+  const int32_t* h;
+  const int32_t* wo;
+  const int32_t* w0;
+  const int32_t* qoff;
+  const uint8_t* ok;
+};
+
+// One row of the row walk in registers, with the query char it consumes.
 struct DepositRow {
-  int wo, aw, h, mv, vbase, delta, keep;
+  int mv, h, wo, vb;
 };
 
 // Words of each accumulator in a warp's share of shared memory: LP chars
@@ -496,16 +526,20 @@ __host__ __device__ inline int deposit_stride(int LP) {
   return (LP + 3 + 3) & ~3;
 }
 
+// An int32 sum that wraps as the reference's int32 tensors wrap.
+__device__ __forceinline__ int add_wrap(const int a, const int b) {
+  return (int)((uint32_t)a + (uint32_t)b);
+}
+
 __global__ void __launch_bounds__(32 * kDepositWarps, 4)
-walk_deposit_kernel(const int32_t* __restrict__ wo,
-                    const int32_t* __restrict__ aw,
-                    const int32_t* __restrict__ h,
-                    const int32_t* __restrict__ mv,
-                    const int32_t* __restrict__ vbase,
-                    const int32_t* __restrict__ delta,
-                    const uint8_t* __restrict__ keep_ins,
+walk_deposit_kernel(const DepositDir right, const DepositDir left,
+                    const uint8_t* __restrict__ q,
+                    const int32_t* __restrict__ qseed,
                     int8_t* __restrict__ val0, int32_t* __restrict__ ipack,
-                    int32_t* __restrict__ icnt, int N, int S, int W) {
+                    int32_t* __restrict__ icnt, int32_t* __restrict__ lead,
+                    int32_t* __restrict__ bnd_pack,
+                    int32_t* __restrict__ bnd_cnt, int32_t* __restrict__ j_end,
+                    int n_r, int N, int B, int S, int W, int L_s) {
   extern __shared__ uint4 smem_dep[];
   const int half = W / 2;
   const int LP = S + half - 1;           // output chars of a lane
@@ -514,8 +548,13 @@ walk_deposit_kernel(const int32_t* __restrict__ wo,
   const int t = threadIdx.x & 31;
   const int lane = blockIdx.x * (blockDim.x >> 5) + warp;
   if (lane >= N) return;                 // the whole warp: no block barrier
-  const size_t row0 = (size_t)lane * S;
+  const bool is_left = lane >= n_r;
+  const DepositDir d = is_left ? left : right;
+  const int n = is_left ? lane - n_r : lane;   // the direction's lane
+  const int b = n % B;                   // its pair
+  const size_t row0 = (size_t)n * S;
   const size_t out0 = (size_t)lane * LP;
+  const bool ok = d.ok[n] != 0;
   // char c of the lane sits at word sh + c of its accumulators, so that a
   // 16-byte word of output chars is one in shared memory too
   const int sh = (int)(out0 & 3);
@@ -524,72 +563,160 @@ walk_deposit_kernel(const int32_t* __restrict__ wo,
   int32_t* ap = acc + P + sh;
   int32_t* ac = acc + 2 * P + sh;
 
-  auto load = [&](DepositRow& r, const int i) {
-    if (i < S) {
+  // The query char of row i: char x of the pair's support row with S
+  // zeros on each side, x = start + i (right) or start + S - 1 - i (left:
+  // the flipped slice), the start wrapped and clamped as lax.dynamic_slice
+  // does it (ops/align.dynamic_slice_start).
+  const int qs = qseed[b];
+  const int qo = d.qoff[n];
+  int start = is_left ? add_wrap(qs, -qo) : add_wrap(add_wrap(S, qs), qo);
+  if (start < 0) start += L_s + 2 * S;
+  start = min(max(start, 0), L_s + S);
+  const int xbase = (is_left ? start + S - 1 : start) - S;
+  const int xstep = is_left ? -1 : 1;
+  const uint8_t* qrow = q + (size_t)b * L_s;
+
+  // The passes of 32 rows go up the rows on a right lane (a run starts
+  // below its rows) and down them on a left lane (a run ends above them).
+  const int passes = (S + 31) / 32;
+  auto pass_row = [&](const int k) {
+    return (is_left ? passes - 1 - k : k) * 32 + t;
+  };
+  auto load = [&](DepositRow& r, const int k) {
+    const int i = pass_row(k);
+    if (k < passes && i < S) {
       const size_t x = row0 + i;
-      r.wo = wo[x];
-      r.aw = aw[x];
-      r.h = h[x];
-      r.mv = mv[x];
-      r.vbase = vbase[x];
-      r.delta = delta[x];
-      r.keep = keep_ins[x];
+      r.mv = d.mv[x];
+      r.h = d.h[x];
+      r.wo = d.wo[x];
+      const int c = xbase + xstep * i;
+      r.vb = (unsigned)c < (unsigned)L_s ? qrow[c] : 0;
     }
   };
-  // the first two passes' rows are in flight while the accumulators are set
+  // the first two passes' rows are in flight while j_end is found and the
+  // accumulators are set; a lane that is not ok deposits nothing
   DepositRow cur{}, nxt{};
-  load(cur, t);
-  load(nxt, 32 + t);
+  if (ok) {
+    load(cur, 0);
+    load(nxt, 1);
+  }
+
+  // j_end of a left lane: the max of j + h over the visited rows, -1 for
+  // a row not visited, ok not applied
+  int je = 0;
+  if (is_left) {
+    je = INT32_MIN;
+    for (int i = t; i < S; i += 32) {
+      const size_t x = row0 + i;
+      const int v = d.mv[x] >= 0
+                        ? add_wrap(add_wrap(i + 1 - half, d.wo[x]), d.h[x])
+                        : -1;
+      je = max(je, v);
+    }
+    je = __reduce_max_sync(kFull, je);
+  }
   for (int u = t; u < 3 * P / 4; u += 32)
     reinterpret_cast<int4*>(acc)[u] =
         u < P / 4 ? make_int4(kKeyNone, kKeyNone, kKeyNone, kKeyNone)
                   : make_int4(0, 0, 0, 0);
   __syncwarp();
 
-  for (int i0 = 0; i0 < S; i0 += 32) {
+  // the side-band runs' largest delta and the OR of their shifted bases
+  int sb_cnt = 0;
+  uint32_t sb_pack = 0;
+  // carried from pass to pass: on a right lane the last run start so far
+  // and the top row's VERT and h == 0; on a left lane the first run end
+  // so far and the bottom row's VERT
+  int carry_idx = is_left ? S : -1;
+  bool carry_v = false, carry_h0 = true;
+  for (int k = 0; ok && k < passes; ++k) {
     const DepositRow r = cur;
     cur = nxt;
-    load(nxt, i0 + 64 + t);              // two passes ahead
-    const int i = i0 + t;
-    int n = 0, first = 0, gap_key = 0;   // this row's gap marks
-    if (i < S) {
+    load(nxt, k + 2);                    // two passes ahead
+    const int i = pass_row(k);
+    const bool live = i < S;
+    const bool isv = live && r.mv == kVert;
+    // the row's place in its VERT run (ops/consensus_banded.run_deltas):
+    // right, from the run's start (a max-scan of start rows up the warp);
+    // left, to the run's end (a min-scan of end rows down the warp)
+    int delta;
+    if (!is_left) {
+      bool below_v = __shfl_up_sync(kFull, isv, 1);
+      bool below_h0 = __shfl_up_sync(kFull, r.h == 0, 1);
+      if (t == 0) {
+        below_v = carry_v;
+        below_h0 = carry_h0;
+      }
+      int s = isv && !(below_v && below_h0) ? i : -1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, s, o);
+        if (t >= o) s = max(s, v);
+      }
+      s = max(s, carry_idx);
+      delta = isv ? i - s + 1 : 0;
+      carry_idx = __shfl_sync(kFull, s, 31);
+      carry_v = __shfl_sync(kFull, isv, 31);
+      carry_h0 = __shfl_sync(kFull, r.h == 0, 31);
+    } else {
+      bool above_v = __shfl_down_sync(kFull, isv, 1);
+      if (t == 31) above_v = carry_v;
+      int e = isv && !(above_v && r.h == 0) ? i : S;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_down_sync(kFull, e, o);
+        if (t + o < 32) e = min(e, v);
+      }
+      e = min(e, carry_idx);
+      delta = isv ? e - i + 1 : 0;
+      carry_idx = __shfl_sync(kFull, e, 0);
+      carry_v = __shfl_sync(kFull, isv, 0);
+    }
+    // a VERT run anchored in the neighbouring segment (j == 0 right,
+    // j == j_end left) goes to the side arrays, not to the planes
+    const int j = add_wrap(i + 1 - half, r.wo);
+    const bool side = isv && j == (is_left ? je : 0);
+    if (side) {
+      sb_cnt = max(sb_cnt, delta);
+      if (delta <= kMaxD) sb_pack |= (uint32_t)r.vb << (2 * (delta - 1));
+    }
+    const int aw = is_left ? add_wrap(r.wo, 1) : r.wo;   // insertion column
+
+    int n_gap = 0, first = 0, gap_key = 0;   // this row's gap marks
+    if (live) {
       const int off = i - half;          // char of band column w: off + w
       if ((r.mv == 0 || r.mv == 1) && r.wo >= 0 && r.wo < W && off + r.wo >= 0)
         // the reference's astype(int8) of vbase is the key's low byte
-        atomicMin(&key[off + r.wo], ((2 * i + 1) << 8) | (r.vbase & 0xff));
+        atomicMin(&key[off + r.wo], ((2 * i + 1) << 8) | (r.vb & 0xff));
       if (r.mv >= 0 && r.wo < W - 1) {
         // columns wo+1 .. wo+h of the band, wo + h wrapping as int32 does
-        const int hi = (int)((uint32_t)r.wo + (uint32_t)r.h);
+        const int hi = add_wrap(r.wo, r.h);
         int lo = r.wo + 1;
         if (lo < -off) lo = -off;        // chars below 0 are dropped
         if (lo < 0) lo = 0;
         const int top = hi < W - 1 ? hi : W - 1;
         if (top >= lo) {
-          n = top - lo + 1;
+          n_gap = top - lo + 1;
           first = off + lo;
           gap_key = (2 * i) << 8;
         }
       }
-      if (r.keep) {
-        const int d = r.delta;
-        const int a = r.aw;
-        if (d >= 1 && a >= 0 && a < W && off + a >= 0) {
-          if (d <= kMaxD)
-            atomicOr(&ap[off + a], (int)((uint32_t)r.vbase << (2 * (d - 1))));
-          atomicMax(&ac[off + a], d);
-        }
+      if (isv && !side && aw >= 0 && aw < W && off + aw >= 0) {
+        if (delta <= kMaxD)
+          atomicOr(&ap[off + aw], (int)((uint32_t)r.vb << (2 * (delta - 1))));
+        atomicMax(&ac[off + aw], delta);
       }
     }
     // the pass's gap cells, numbered across the warp: row t holds cells
-    // [incl - n, incl); cell c of it is char first + c - (incl - n)
-    int incl = n;
+    // [incl - n_gap, incl); cell c of it is char first + c - (incl - n_gap)
+    int incl = n_gap;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, d);
-      if (t >= d) incl += v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (t >= o) incl += v;
     }
     const int total = __shfl_sync(kFull, incl, 31);
-    const int base = first - (incl - n);
+    const int base = first - (incl - n_gap);
     for (int c0 = 0; c0 < total; c0 += 32) {
       const int c = c0 + t;
       int row = 0;                       // rows whose cells end at or below c
@@ -599,9 +726,17 @@ walk_deposit_kernel(const int32_t* __restrict__ wo,
       }
       row &= 31;                         // 32 only where c >= total
       const int ch = __shfl_sync(kFull, base, row) + c;
-      const int k = __shfl_sync(kFull, gap_key, row);
-      if (c < total) atomicMin(&key[ch], k);
+      const int gk = __shfl_sync(kFull, gap_key, row);
+      if (c < total) atomicMin(&key[ch], gk);
     }
+  }
+  sb_cnt = __reduce_max_sync(kFull, sb_cnt);
+  sb_pack = __reduce_or_sync(kFull, sb_pack);
+  if (t == 0) {
+    bnd_cnt[lane] = sb_cnt;
+    bnd_pack[lane] = (int)sb_pack;
+    lead[lane] = max(add_wrap(d.w0[n], -half), 0);
+    if (is_left) j_end[n] = je;
   }
   __syncwarp();
 
@@ -916,22 +1051,30 @@ extern "C" int mecat_walk_rows(const void* moves, const void* seg_qlen,
   return (int)cudaGetLastError();
 }
 
-// wo, aw, h, mv, vbase, delta int32 [N, S] and keep_ins bool [N, S] (rows
-// ascending); outputs val0 int8, ipack and icnt int32 [N, S + W/2 - 1],
-// uninitialised: every element is written; ipack and icnt 16-byte aligned,
-// val0 4-byte aligned (as torch.empty gives them).  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue, without a
-// launch, for an odd or non-positive W, an S below 1, misaligned outputs,
-// or an S whose accumulators do not fit the block's shared memory for one
-// lane.
-extern "C" int mecat_walk_deposit(const void* wo, const void* aw,
-                                  const void* h, const void* mv,
-                                  const void* vbase, const void* delta,
-                                  const void* keep_ins, void* val0,
-                                  void* ipack, void* icnt, int N, int S,
-                                  int W, void* stream) {
-  if (N <= 0) return 0;
-  if (S <= 0 || W <= 0 || W % 2) return (int)cudaErrorInvalidValue;
+// Both directions' row walks, each as ops/align.rows_from_moves leaves it:
+// mv, h, wo int32 [n, S] (rows ascending), w0, qoff int32 [n] and ok bool
+// [n], n = n_r right lanes and n_l left ones, lane n of a direction on pair
+// n % B; q uint8 [B, L_s] the pairs' support windows and qseed int32 [B].
+// Outputs, uninitialised (every element is written), the right lanes
+// first: val0 int8, ipack and icnt int32 [n_r + n_l, S + W/2 - 1]
+// (ipack and icnt 16-byte aligned, val0 4-byte aligned, as torch.empty
+// gives them), lead, bnd_pack and bnd_cnt int32 [n_r + n_l], and the left
+// lanes' j_end int32 [n_l].  Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue, without a launch, for an odd or non-positive
+// W, an S below 1, B below 1, L_s below 0, misaligned outputs, or an S
+// whose accumulators do not fit the block's shared memory for one lane.
+extern "C" int mecat_walk_deposit_rows(
+    const void* mv_r, const void* h_r, const void* wo_r, const void* w0_r,
+    const void* qoff_r, const void* ok_r, const void* mv_l, const void* h_l,
+    const void* wo_l, const void* w0_l, const void* qoff_l, const void* ok_l,
+    const void* q, const void* qseed, void* val0, void* ipack, void* icnt,
+    void* lead, void* bnd_pack, void* bnd_cnt, void* j_end, int n_r, int n_l,
+    int B, int S, int W, int L_s, void* stream) {
+  if (n_r < 0 || n_l < 0) return (int)cudaErrorInvalidValue;
+  const int N = n_r + n_l;
+  if (N == 0) return 0;
+  if (B <= 0 || S <= 0 || W <= 0 || W % 2 || L_s < 0)
+    return (int)cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(ipack) |
         reinterpret_cast<uintptr_t>(icnt)) & 15) ||
       (reinterpret_cast<uintptr_t>(val0) & 3))
@@ -947,13 +1090,24 @@ extern "C" int mecat_walk_deposit(const void* wo, const void* aw,
   const cudaError_t err =
       allow_smem(walk_deposit_kernel, warps * per_lane, &smem_set);
   if (err != cudaSuccess) return (int)err;
+  auto dir = [](const void* mv, const void* h, const void* wo, const void* w0,
+                const void* qoff, const void* ok) {
+    return DepositDir{static_cast<const int32_t*>(mv),
+                      static_cast<const int32_t*>(h),
+                      static_cast<const int32_t*>(wo),
+                      static_cast<const int32_t*>(w0),
+                      static_cast<const int32_t*>(qoff),
+                      static_cast<const uint8_t*>(ok)};
+  };
   walk_deposit_kernel<<<blocks_for(N, warps), 32 * warps, warps * per_lane,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(wo), static_cast<const int32_t*>(aw),
-      static_cast<const int32_t*>(h), static_cast<const int32_t*>(mv),
-      static_cast<const int32_t*>(vbase), static_cast<const int32_t*>(delta),
-      static_cast<const uint8_t*>(keep_ins), static_cast<int8_t*>(val0),
-      static_cast<int32_t*>(ipack), static_cast<int32_t*>(icnt), N, S, W);
+      dir(mv_r, h_r, wo_r, w0_r, qoff_r, ok_r),
+      dir(mv_l, h_l, wo_l, w0_l, qoff_l, ok_l),
+      static_cast<const uint8_t*>(q), static_cast<const int32_t*>(qseed),
+      static_cast<int8_t*>(val0), static_cast<int32_t*>(ipack),
+      static_cast<int32_t*>(icnt), static_cast<int32_t*>(lead),
+      static_cast<int32_t*>(bnd_pack), static_cast<int32_t*>(bnd_cnt),
+      static_cast<int32_t*>(j_end), n_r, N, B, S, W, L_s);
   return (int)cudaGetLastError();
 }
 

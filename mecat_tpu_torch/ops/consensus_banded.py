@@ -21,9 +21,12 @@ deltas reverse, and runs with j == j_end anchor in the next local segment.
 Every tensor that the reference keeps in int32 is int32 here, so its shifts
 wrap the same way; ``torch.arange`` and Python scalars are never allowed to
 promote a plane to int64.  Computed slice starts go through
-:func:`..ops.align.dynamic_slice_start`.  The S-step deposit scan runs as
-one kernel launch for CUDA tensors (``csrc/cns_walk.cu``) and as a Python
-loop of small torch ops, :func:`deposit_scan_plain`, for CPU tensors; so do
+:func:`..ops.align.dynamic_slice_start`.  Both directions' row
+information and the S-step deposit scan run as one kernel launch for CUDA
+tensors (:func:`plane_inputs`, ``csrc/cns_walk.cu``) and as small torch ops
+and a Python loop of them, :func:`plane_inputs_plain`
+(:func:`direction_rowinfo`, then :func:`deposit_scan_plain`), for CPU
+tensors; so do
 the global planes (:func:`global_planes`, plain version
 :func:`banded_global_planes_plain`) and the fold of the planes into the
 tables (:func:`fold_tags`, plain version :func:`fold_tags_plain`), both in
@@ -134,19 +137,9 @@ def deposit_scan_plain(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
     return out(a0, y0), out(ap, yp), out(ac, yc)
 
 
-def _deposit_scan(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
-    """The deposit of :func:`deposit_scan_plain`; the kernel for CUDA
-    tensors.
-
-    CPU tensors take the plain version; CUDA tensors launch the deposit
-    kernel (``csrc/cns_walk.cu`` through :mod:`.walk_kernel`), which raises
-    on what it does not take.  Returns (val0, ipack, icnt).
-    """
-    if wo.device.type == "cpu":
-        return deposit_scan_plain(wo, aw, h, mv, vbase, delta, keep_ins, W)
-    from .walk_kernel import deposit_scan_cuda
-
-    return deposit_scan_cuda(wo, aw, h, mv, vbase, delta, keep_ins, W)
+#: the reference's name for the deposit; the card runs it together with
+#: the row information, in :func:`plane_inputs`
+_deposit_scan = deposit_scan_plain
 
 
 def direction_rowinfo(rows, q: torch.Tensor, qseed: torch.Tensor, S: int,
@@ -219,13 +212,15 @@ def _or_reduce(x: torch.Tensor, dim: int):
     return x[..., 0]
 
 
-def plane_inputs(right_rows, left_rows, q: torch.Tensor, qseed: torch.Tensor,
-                 S: int, W: int):
-    """Both directions' row walks -> the inputs of the global planes: ONE
+def plane_inputs_plain(right_rows, left_rows, q: torch.Tensor,
+                       qseed: torch.Tensor, S: int, W: int):
+    """Both directions' row walks -> the inputs of the global planes: each
+    direction's row information (:func:`direction_rowinfo`), then ONE
     deposit scan over every direction's segments, cut into each direction's
     local planes (val0, ipack, icnt) [G, B, LP] (views of the scan's
     output), and each direction's side arrays (toff, ok, lead, bnd_pack,
-    bnd_cnt) [G, B], with the left direction's j_end [G_l, B].
+    bnd_cnt) [G, B], with the left direction's j_end [G_l, B]; the plain
+    version of the deposit kernel, on any device.
 
     Returns (planes_r, planes_l, side_r, side_l, lj_end), the first five
     arguments of :func:`banded_global_planes_plain`.
@@ -237,13 +232,31 @@ def plane_inputs(right_rows, left_rows, q: torch.Tensor, qseed: torch.Tensor,
     LP = S + W // 2 - 1
     flat = lambda k: torch.cat([ri[k].reshape(-1, S), li[k].reshape(-1, S)],
                                dim=0)
-    dep = _deposit_scan(flat("wo"), flat("aw"), flat("h"), flat("mv"),
-                        flat("vbase"), flat("delta"), flat("keep_ins"), W)
+    dep = deposit_scan_plain(flat("wo"), flat("aw"), flat("h"), flat("mv"),
+                             flat("vbase"), flat("delta"), flat("keep_ins"),
+                             W)
     n = rok.numel()
     planes_r = tuple(a[:n].view(*rok.shape, LP) for a in dep)
     planes_l = tuple(a[n:].view(*lok.shape, LP) for a in dep)
     return (planes_r, planes_l, (rtoff, rok, rlead, rbp, rbc),
             (ltoff, lok, llead, lbp, lbc), lj_end)
+
+
+def plane_inputs(right_rows, left_rows, q: torch.Tensor, qseed: torch.Tensor,
+                 S: int, W: int):
+    """The inputs of the global planes, as :func:`plane_inputs_plain`
+    returns them; the deposit kernel for CUDA tensors.
+
+    CPU tensors take the plain version; CUDA tensors launch the deposit
+    kernel (``csrc/cns_walk.cu`` through :mod:`.walk_kernel`), which makes
+    the row information inside it and raises on what it does not take: one
+    launch, and its outputs' allocations.
+    """
+    if q.device.type == "cpu":
+        return plane_inputs_plain(right_rows, left_rows, q, qseed, S, W)
+    from .walk_kernel import deposit_rows_cuda
+
+    return deposit_rows_cuda(right_rows, left_rows, q, qseed, S=S, W=W)
 
 
 def _update_rows(dst: torch.Tensor, src: torch.Tensor, start: torch.Tensor):

@@ -7,9 +7,9 @@ version runs as a Python loop of small torch ops:
 
 - :func:`traceback_rows_cuda`: ``mecat_tpu/ops/align.py:traceback_rows``
   (plain version :func:`..ops.align.traceback_rows_plain`);
-- :func:`deposit_scan_cuda`: ``mecat_tpu/ops/consensus_banded.py:
-  _deposit_scan`` (plain version
-  :func:`..ops.consensus_banded.deposit_scan_plain`);
+- :func:`deposit_rows_cuda`: both directions' ``mecat_tpu/ops/
+  consensus_banded.py:direction_rowinfo`` and their ``_deposit_scan``
+  (plain version :func:`..ops.consensus_banded.plane_inputs_plain`);
 - :func:`traceback_ops_cuda`: the walk of ``mecat_tpu/ops/align.py:
   traceback_ops`` (plain version :func:`..ops.align.traceback_ops_plain`);
 - :func:`global_planes_cuda`: the window write, placement and side-band
@@ -50,7 +50,7 @@ _INVALID_VALUE = 1
 
 #: launches of the row walk since process start (or the caller's reset)
 LAUNCHES_ROWS = 0
-#: launches of the deposit scan
+#: launches of the deposit scan (with the row information inside)
 LAUNCHES_DEPOSIT = 0
 #: launches of the column walk
 LAUNCHES_COLS = 0
@@ -63,7 +63,7 @@ LAUNCHES_FOLD = 0
 _libs: dict = {}
 #: each library's entry points: (name, pointer arguments, int arguments)
 _ENTRIES = {
-    LIBRARY: (("mecat_walk_rows", 7, 3), ("mecat_walk_deposit", 10, 3),
+    LIBRARY: (("mecat_walk_rows", 7, 3), ("mecat_walk_deposit_rows", 21, 6),
               ("mecat_walk_cols", 5, 4)),
     LIBRARY_FOLD: (("mecat_fold_planes", 21, 6), ("mecat_fold_tags", 10, 3)),
 }
@@ -149,34 +149,76 @@ def traceback_rows_cuda(moves: torch.Tensor, seg_qlen: torch.Tensor,
     return mv, h, wo, w0
 
 
-def deposit_scan_cuda(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
-    """Launch the deposit scan; returns (val0 int8, ipack int32, icnt
-    int32) planes [N, S + W/2 - 1] as
-    :func:`..ops.consensus_banded.deposit_scan_plain`.
+def deposit_rows_args(right_rows, left_rows, q, qseed, *, S: int, W: int,
+                      device) -> tuple:
+    """Check the fused deposit's inputs (those of
+    :func:`..ops.consensus_banded.plane_inputs`) against what the kernel
+    takes, on ``device``; returns (B, L_s, G_r, G_l).  Raises on anything
+    the kernel does not take."""
+    if q.dim() != 2:
+        raise ValueError(f"q has shape {tuple(q.shape)}, expected [B, L_s]")
+    if W < 2 or W % 2 or S < 1:
+        raise ValueError(f"the deposit kernel does not take S={S}, W={W}")
+    B, L_s = q.shape
+    _check("q", q, torch.uint8, (B, L_s), device)
+    _check("qseed", qseed, torch.int32, (B,), device)
+    Gs = []
+    for tag, rows in (("r", right_rows), ("l", left_rows)):
+        if rows[0].dim() != 3:
+            raise ValueError(f"mv_{tag} has shape {tuple(rows[0].shape)}, "
+                             f"expected [G, B, S]")
+        G = rows[0].shape[0]
+        for name, t in zip(("mv", "h", "wo", "w0", "qoff", "toff"), rows):
+            _check(f"{name}_{tag}", t, torch.int32,
+                   (G, B, S) if name in ("mv", "h", "wo") else (G, B),
+                   device)
+        _check(f"ok_{tag}", rows[6], torch.bool, (G, B), device)
+        Gs.append(G)
+    return (B, L_s, *Gs)
 
-    wo, aw, h, mv, vbase, delta int32 [N, S]; keep_ins bool [N, S].
-    Raises on anything the kernel does not take.
+
+def deposit_rows_cuda(right_rows, left_rows, q, qseed, *, S: int, W: int):
+    """Launch the deposit on both directions' row walks, the row
+    information made inside it; returns (planes_r, planes_l, side_r,
+    side_l, lj_end) as :func:`..ops.consensus_banded.plane_inputs_plain`:
+    each direction's planes (val0 int8, ipack, icnt int32) [G, B, S + W/2
+    - 1] and side arrays (toff, ok, lead, bnd_pack, bnd_cnt) [G, B] (toff
+    and ok the inputs' own), views of one output of each array, right
+    first; the left direction's j_end [G_l, B].
+
+    right_rows, left_rows: (mv, h, wo int32 [G, B, S], w0, qoff, toff int32
+    [G, B], ok bool [G, B]) as ``ops/align.rows_from_moves`` makes them; q
+    uint8 [B, L_s]; qseed int32 [B].  Raises on anything the kernel does
+    not take.
     """
     global LAUNCHES_DEPOSIT
-    dev = _device_of("wo", wo)
-    if wo.dim() != 2:
-        raise ValueError(f"wo has shape {tuple(wo.shape)}, expected [N, S]")
-    N, S = wo.shape
-    for name, t in (("wo", wo), ("aw", aw), ("h", h), ("mv", mv),
-                    ("vbase", vbase), ("delta", delta)):
-        _check(name, t, torch.int32, (N, S), dev)
-    _check("keep_ins", keep_ins, torch.bool, (N, S), dev)
+    dev = _device_of("q", q)
+    B, L_s, G_r, G_l = deposit_rows_args(right_rows, left_rows, q, qseed,
+                                         S=S, W=W, device=dev)
     LP = S + W // 2 - 1
-    val0 = torch.empty((N, LP), dtype=torch.int8, device=dev)
-    ipack, icnt = (torch.empty((N, LP), dtype=torch.int32, device=dev)
+    G2 = G_r + G_l
+    # each output is one buffer, cut by one split a buffer (the host
+    # launches few ops a chunk)
+    val0 = torch.empty((G2, B, LP), dtype=torch.int8, device=dev)
+    ipack, icnt = (torch.empty((G2, B, LP), dtype=torch.int32, device=dev)
                    for _ in range(2))
-    if N:
-        _call(_load(LIBRARY).mecat_walk_deposit,
-              [t.data_ptr() for t in (wo, aw, h, mv, vbase, delta, keep_ins,
-                                      val0, ipack, icnt)],
-              (N, S, W), dev, "deposit scan")
+    # lead, bnd_pack and bnd_cnt
+    side = torch.empty((3, G2, B), dtype=torch.int32, device=dev)
+    j_end = torch.empty((G_l, B), dtype=torch.int32, device=dev)
+    if G2 * B:
+        _call(_load(LIBRARY).mecat_walk_deposit_rows,
+              [t.data_ptr() for t in (*right_rows[:5], right_rows[6],
+                                      *left_rows[:5], left_rows[6], q, qseed,
+                                      val0, ipack, icnt)]
+              + [side.data_ptr() + 4 * G2 * B * k for k in range(3)]
+              + [j_end.data_ptr()],
+              (G_r * B, G_l * B, B, S, W, L_s), dev, "deposit")
         LAUNCHES_DEPOSIT += 1
-    return val0, ipack, icnt
+    planes = [a.split((G_r, G_l)) for a in (val0, ipack, icnt)]
+    side_r, side_l = (x.unbind(0) for x in side.split((G_r, G_l), dim=1))
+    return (tuple(p[0] for p in planes), tuple(p[1] for p in planes),
+            (right_rows[5], right_rows[6], *side_r),
+            (left_rows[5], left_rows[6], *side_l), j_end)
 
 
 def traceback_ops_cuda(moves: torch.Tensor, seg_qlen: torch.Tensor,

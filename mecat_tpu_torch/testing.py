@@ -895,6 +895,218 @@ def deposit_scan_warp(wo, aw, h, mv, vbase, delta, keep_ins, W: int):
             ac.astype(np.int32))
 
 
+def deposit_rows_inputs(S: int, W: int, B: int, L_s: int, seed: int,
+                        source: str = "walk", segs=(3, 2), walk=None):
+    """Both directions' row walks as ``ops/align.rows_from_moves`` hands
+    them to the deposit, with the support windows and seeds.
+
+    ``"walk"``: rows shaped like a walk's (VERT runs between diagonal
+    moves, h == 0 inside a run and now and then a few trailing deletions
+    that end one, the target count j never falling, rows above a lane's
+    top and, on some lanes, below a break not visited); bases 0-3.
+    ``"random"``: mv in [-1, 3] (half the rows VERT), h in [0, W + 3]
+    (half the rows 0), wo in [-2, W + 1], bases
+    0-255 (so base << 2(d-1) wraps in int32).  Both have lanes that are not
+    ok and seeds and offsets whose support slice starts below 0 (wrapping)
+    and past L_s + S (clamping); ``"walk"`` at S >= 64 and B >= 6 also has,
+    on lanes (g, b): (0, 0) right, a side-band run of 18 rows from row 0
+    (j == 0); (0, 1) left, one of 18 rows up to row S - 1 (j == j_end);
+    (1, 2-4) runs over rows 25-44, across a 32-row pass; (1, 5) two runs,
+    28-31 and 32-35, that a deletion at row 31 splits at the pass border,
+    and a run up to row S - 1; (0, 5) not ok.  ``segs`` right and left
+    segments: G * B lanes need not fill a block's 8 warps.  ``walk`` =
+    (mv, h, wo) numpy int32 [n, S] of a row walk, n >= (G_r + G_l) * B:
+    its rows in place of the generated ones, the right lanes' first.
+
+    Returns numpy (right_rows, left_rows, q uint8 [B, L_s], qseed int32
+    [B]); each rows tuple is (mv, h, wo int32 [G, B, S], w0, qoff, toff
+    int32 [G, B], ok bool [G, B]).
+    """
+    rng = np.random.default_rng(seed)
+    half = W // 2
+    i_idx = np.arange(S)
+
+    def direction(G: int, left: bool):
+        shape = (G, B, S)
+        if walk is not None:
+            lo = segs[0] * B if left else 0
+            mv, h, wo = (np.asarray(a)[lo:lo + G * B].reshape(shape)
+                         for a in walk)
+        elif source == "random":
+            mv = np.where(rng.random(shape) < 0.5, 2,
+                          rng.integers(-1, 4, shape))
+            h = np.where(rng.random(shape) < 0.5, 0,
+                         rng.integers(0, W + 4, shape))
+            wo = rng.integers(-2, W + 2, shape)
+        else:
+            mv = np.where(rng.random(shape) < 0.35, 2,
+                          rng.integers(0, 2, shape))
+            h = np.where(rng.random(shape) < 0.1,
+                         rng.integers(1, 4, shape), 0)
+            if S >= 64 and B >= 6:
+                run = slice(25, 45)
+                mv[1, 2:5, run] = 2
+                h[1, 2:5, run] = 0
+                mv[1, 5, 28:36] = 2
+                h[1, 5, 28:36] = 0
+                h[1, 5, 31] = 2
+                mv[1, 5, S - 7:] = 2
+                h[1, 5, S - 7:] = 0
+                if left:
+                    mv[0, 1, S - 19:] = 2
+                    h[0, 1, S - 18:] = 0
+                    mv[0, 1, S - 19] = 0
+                else:
+                    mv[0, 0, :19] = 2
+                    h[0, 0, :18] = 0
+                    mv[0, 0, 18] = 0
+            j0 = rng.integers(-1, 3, (G, B, 1))
+            if S >= 64 and B >= 6 and not left:
+                j0[0, 0] = 0
+            diag = (mv == 0) | (mv == 1)
+            before = np.cumsum(h, axis=2) - h       # deletions below row i
+            j = j0 + np.cumsum(diag, axis=2) + before
+            wo = j - (i_idx + 1) + half
+            top = rng.integers(S // 2, S + 1, (G, B, 1))
+            top[rng.random((G, B, 1)) < 0.4] = S
+            brk = np.where(rng.random((G, B, 1)) < 0.15,
+                           rng.integers(1, 8, (G, B, 1)), 0)
+            if S >= 64 and B >= 6:
+                top[:2, :6], brk[:2, :6] = S, 0
+            gone = (i_idx >= top) | (i_idx < brk)
+            mv = np.where(gone, -1, mv)
+            wo = np.where(gone, rng.integers(-W, 2 * W, shape), wo)
+        w0 = rng.integers(0, W + 1, (G, B))
+        qoff = rng.integers(-2 * S - L_s, 2 * S + L_s + 1, (G, B))
+        if source == "walk":
+            qoff = rng.integers(0, L_s + 1, (G, B))
+        toff = np.cumsum(rng.integers(S // 2, S + 1, (G, B)), axis=0)
+        ok = rng.random((G, B)) < 0.8
+        if B >= 6:
+            ok[:2, :5] = True
+            ok[0, 5] = False
+        if B >= 3:
+            # the slice start: wrapped then inside, past L_s + S, below 0
+            qoff[0, :3] = ((S + 7, L_s + S + 5, 3 * S + L_s) if left
+                           else (L_s + S + 5, -2 * S, 0))
+        return tuple(a.astype(np.int32) for a in (mv, h, wo, w0, qoff, toff)
+                     ) + (ok,)
+
+    right = direction(segs[0], False)
+    left = direction(segs[1], True)
+    q = rng.integers(0, 256 if source == "random" else 4, (B, L_s)).astype(
+        np.uint8)
+    qseed = rng.integers(0, max(L_s, 1), B).astype(np.int32)
+    if B >= 3:
+        qseed[:3] = (0, max(L_s - 1, 0), 1)
+    return right, left, q, qseed
+
+
+def _deposit_rowinfo_warp(rows, q, qseed, S: int, W: int, left: bool):
+    """One direction's row information as the deposit kernel makes it, on
+    numpy: j_end by one reduction pass over each lane's rows, the query
+    chars from the wrapped and clamped slice start, and the run positions
+    in passes of 32 rows with carries: up the rows for a right lane (a
+    max-scan of run starts, the last start carried), down them for a left
+    lane (a min-scan of run ends from the top, the first end carried).
+    Returns (info dict of [G, B, S] arrays, bnd_pack, bnd_cnt, j_end, lead
+    [G, B]) as ``ops.consensus_banded.direction_rowinfo`` returns them."""
+    mv, h, wo, w0, qoff, _, ok = (np.asarray(a) for a in rows)
+    G, B, _ = mv.shape
+    L_s = q.shape[1]
+    half = W // 2
+    n = G * B
+    mv, h, wo = (np.asarray(a, np.int64).reshape(n, S) for a in (mv, h, wo))
+    okx = np.asarray(ok, bool).reshape(n, 1)
+    b = np.arange(n) % B
+    i_idx = np.arange(S)[None, :]
+    je = np.where(mv >= 0, _i32(_i32(i_idx + 1 - half + wo) + h),
+                  -1).max(axis=1)
+    qs, qo = np.asarray(qseed, np.int64)[b], np.asarray(qoff,
+                                                         np.int64).ravel()
+    start = _i32(qs - qo) if left else _i32(S + qs + qo)
+    start = np.clip(np.where(start < 0, start + L_s + 2 * S, start), 0,
+                    L_s + S)
+    c = (start[:, None] + (S - 1 - i_idx if left else i_idx)) - S
+    inside = (c >= 0) & (c < L_s)
+    vb = np.where(inside, np.asarray(q, np.int64)[
+        b[:, None], np.clip(c, 0, max(L_s - 1, 0))] if L_s else 0, 0)
+
+    delta = np.zeros((n, S), np.int64)
+    passes = (S + 31) // 32
+    carry_idx = np.full(n, S if left else -1)
+    carry_v = np.zeros(n, bool)
+    carry_h0 = np.ones(n, bool)
+    for p in (range(passes - 1, -1, -1) if left else range(passes)):
+        i = p * 32 + np.arange(32)[None, :]
+        live = i < S
+        ic = np.minimum(i, S - 1).repeat(n, 0)
+        m, hh = (np.take_along_axis(a, ic, 1) for a in (mv, h))
+        isv = live & (m == 2)
+        if not left:
+            below_v = np.concatenate([carry_v[:, None], isv[:, :-1]], 1)
+            below_h0 = np.concatenate([carry_h0[:, None], hh[:, :-1] == 0],
+                                      1)
+            s = np.where(isv & ~(below_v & below_h0), i, -1)
+            s = np.maximum(np.maximum.accumulate(s, 1), carry_idx[:, None])
+            d = np.where(isv, i - s + 1, 0)
+            carry_idx, carry_v, carry_h0 = s[:, 31], isv[:, 31], hh[:, 31] == 0
+        else:
+            above_v = np.concatenate([isv[:, 1:], carry_v[:, None]], 1)
+            e = np.where(isv & ~(above_v & (hh == 0)), i, S)
+            e = np.minimum(np.minimum.accumulate(e[:, ::-1], 1)[:, ::-1],
+                           carry_idx[:, None])
+            d = np.where(isv, e - i + 1, 0)
+            carry_idx, carry_v = e[:, 0], isv[:, 0]
+        cols = i[0, live[0]]
+        delta[:, cols] = d[:, live[0]]
+
+    j = _i32(i_idx + 1 - half + wo)
+    isv = mv == 2
+    side = isv & (j == (je[:, None] if left else 0))
+    sb = side & okx
+    bnd_cnt = np.where(sb, delta, 0).max(axis=1)
+    bits = np.where(sb & (delta <= C.MAX_INS_DELTA),
+                    (vb << (2 * np.clip(delta - 1, 0, C.MAX_INS_DELTA - 1)))
+                    & 0xFFFFFFFF, 0)
+    bnd_pack = np.bitwise_or.reduce(bits, axis=1)
+    info = dict(wo=wo, aw=_i32(wo + 1) if left else wo,
+                h=np.where(okx, h, 0), mv=np.where(okx, mv, -1), vbase=vb,
+                delta=delta, keep_ins=isv & ~side & okx)
+    info = {k: (v if k == "keep_ins" else v.astype(np.int32)).reshape(
+        G, B, S) for k, v in info.items()}
+    lead = np.maximum(_i32(np.asarray(w0, np.int64) - half), 0)
+    flat = lambda a: np.asarray(a, np.int64).reshape(G, B)
+    return (info, flat(bnd_pack).astype(np.uint32).view(np.int32),
+            flat(bnd_cnt).astype(np.int32), flat(je).astype(np.int32),
+            lead.astype(np.int32))
+
+
+def deposit_rows_warp(right_rows, left_rows, q, qseed, S: int, W: int):
+    """The deposit kernel with its row information (``csrc/cns_walk.cu``'s
+    ``walk_deposit_kernel``), on numpy: each direction's row information in
+    the kernel's passes (:func:`_deposit_rowinfo_warp`), then the deposit's
+    own order (:func:`deposit_scan_warp`) over the right lanes, then the
+    left.  Returns (infos (right, left), and the arguments (planes_r,
+    planes_l, side_r, side_l, lj_end) that ``ops.consensus_banded.
+    plane_inputs`` returns), as numpy."""
+    infos, sides = [], []
+    for rows, left in ((right_rows, False), (left_rows, True)):
+        info, bp, bc, je, lead = _deposit_rowinfo_warp(rows, q, qseed, S, W,
+                                                       left)
+        infos.append(info)
+        sides.append(((np.asarray(rows[5]), np.asarray(rows[6]), lead, bp,
+                       bc), je))
+    keys = ("wo", "aw", "h", "mv", "vbase", "delta", "keep_ins")
+    planes = deposit_scan_warp(*(np.concatenate(
+        [i[k].reshape(-1, S) for i in infos]) for k in keys), W)
+    G_r, B = infos[0]["wo"].shape[:2]
+    cut = lambda lo, hi, G: tuple(p[lo:hi].reshape(G, B, -1) for p in planes)
+    G_l = infos[1]["wo"].shape[0]
+    return infos, (cut(0, G_r * B, G_r), cut(G_r * B, None, G_l),
+                   sides[0][0], sides[1][0], sides[1][1])
+
+
 #: the planes kernel's tile of columns (``csrc/cns_fold.cu`` kPlanesTile)
 PLANES_TILE = 1024
 

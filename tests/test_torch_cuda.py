@@ -20,8 +20,8 @@ from mecat_tpu_torch.ops import (align, consensus_banded, dp_kernel,
                                  roll_micro, walk_kernel)
 from mecat_tpu_torch.pipeline.device_step import overlap_step
 from mecat_tpu_torch.pipeline.pw import PwOptions, run_pw
-from mecat_tpu_torch.testing import (GOLDEN_J1, deposit_inputs, dp_inputs,
-                                     dp_inputs_full, extend_inputs,
+from mecat_tpu_torch.testing import (GOLDEN_J1, deposit_rows_inputs,
+                                     dp_inputs, dp_inputs_full, extend_inputs,
                                      fold_case,
                                      moves_as_the_kernels_leave_them,
                                      roll_micro_inputs, walk_inputs)
@@ -35,6 +35,33 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("the kernels run only on a CUDA device")
     return torch.device("cuda")
+
+
+def _deposit_case(dev, S, W, n, seed, walk=None, source="walk"):
+    """The deposit's inputs (plane_inputs' arguments but S and W) on
+    ``dev`` for n lanes: 3 right and 2 left segments of n // 5 pairs, on the
+    rows of a walk (``walk`` = its mv, h, wo tensors) or generated ones."""
+    if walk is not None:
+        walk = [a.cpu().numpy() for a in walk]
+    rr, lr, q, qseed = deposit_rows_inputs(S, W, n // 5, 3 * S, seed,
+                                           source=source, walk=walk)
+    on = lambda a: torch.as_tensor(np.array(a), device=dev)
+    return (tuple(on(a) for a in rr), tuple(on(a) for a in lr), on(q),
+            on(qseed))
+
+
+def _flat(out):
+    return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+
+
+def _assert_deposit_matches_plain(case, S, W):
+    """The deposit kernel (plane_inputs on the card) against the plain
+    composition, every element of the planes and side arrays."""
+    got = _flat(consensus_banded.plane_inputs(*case, S, W))
+    want = _flat(consensus_banded.plane_inputs_plain(*case, S, W))
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), k
 
 
 @pytest.mark.parametrize("S,W", [(128, 64), (512, 128), (1024, 64)])
@@ -387,8 +414,9 @@ def test_extend_moves_kernel_rejects_what_it_does_not_take(cuda):
 def test_dp_family_kernels_match_plain_at_every_band(cuda, W):
     """Each band width the reference computes: the two per-segment DP
     kernels, the counts and the move loop, the row and the column walk on
-    the move kernel's words and the deposit on the rows of that walk and on
-    random rows, each against its plain version.  Past 512 a lane is
+    the move kernel's words and the deposit on the rows of that walk, on
+    random rows and on walk-shaped edge rows, each against its plain
+    version.  Past 512 a lane is
     several warps (528: a second warp of one real thread, 1024 and 2048:
     two and four whole slices); past 3072 a thread-block cluster (3088:
     two blocks of four slices, the last one padding; 4096: two of four;
@@ -413,13 +441,10 @@ def test_dp_family_kernels_match_plain_at_every_band(cuda, W):
     for g, w in zip(rows, align.traceback_rows_plain(moves, r_best, w_best,
                                                      W)):
         assert torch.equal(g, w)
-    walk = [a.cpu().numpy() for a in rows[:3]]
-    for dep in (deposit_inputs(S, W, 256, seed=W, walk=walk),
-                deposit_inputs(S, W, 256, seed=W + 1)):
-        dep = [torch.as_tensor(a, device=cuda) for a in dep]
-        for g, w in zip(consensus_banded._deposit_scan(*dep, W),
-                        consensus_banded.deposit_scan_plain(*dep, W)):
-            assert torch.equal(g, w)
+    for dep in (_deposit_case(cuda, S, W, 255, W, walk=rows[:3]),
+                _deposit_case(cuda, S, W, 255, W + 1, source="random"),
+                _deposit_case(cuda, S, W, 255, W + 2)):
+        _assert_deposit_matches_plain(dep, S, W)
     TC = align.max_tape_cols(S, W, 0.65)
     for g, w in zip(align.traceback_ops(moves, r_best, w_best, W, TC),
                     align.traceback_ops_plain(moves, r_best, w_best, W, TC)):
@@ -714,8 +739,8 @@ def test_walk_kernels_match_plain(cuda, S, W, source):
     """The row walk, the column walk (at the mapping path's MAXC, at the
     unconditional 2S + W, and cut short at 64 and 61 columns, in the middle
     of rows, with tape words shared between lanes at 61) and the deposit
-    scan on the rows of the kernel's own walk and on random rows: every
-    output element of every lane.  The random words carry the edge lanes
+    with its row information on the rows of the kernel's own walk and on
+    random rows: every output element of every lane.  The random words carry the edge lanes
     of testing.walk_inputs (seg_qlen -1, 0, S, S + 3 by w_end -1, 0, W - 1,
     W) and runs of horizontal moves across rows."""
     moves, seg_qlen, w_end = _walk_case(cuda, S, W, source)
@@ -735,15 +760,9 @@ def test_walk_kernels_match_plain(cuda, S, W, source):
         assert int(got_c[3].max()) > 0
         if maxc in (64, 61):                  # walks longer than the tape
             assert int(got_c[3].max()) == maxc
-    walk = [a.cpu().numpy() for a in got[:3]]
-    for rows in (deposit_inputs(S, W, 1024, seed=S, walk=walk),
-                 deposit_inputs(S, W, 1024, seed=S + 1)):
-        args = [torch.as_tensor(a, device=cuda) for a in rows]
-        got_d = consensus_banded._deposit_scan(*args, W)
-        want_d = consensus_banded.deposit_scan_plain(*args, W)
-        torch.cuda.synchronize()
-        for g, w in zip(got_d, want_d):
-            assert torch.equal(g, w)
+    for dep in (_deposit_case(cuda, S, W, 1020, S, walk=got[:3]),
+                _deposit_case(cuda, S, W, 1020, S + 1, source="random")):
+        _assert_deposit_matches_plain(dep, S, W)
     assert walk_kernel.launches_since(before) == {
         "walk_launches_rows": 1, "walk_launches_deposit": 2,
         "walk_launches_cols": 4, "walk_launches_planes": 0,
@@ -759,8 +778,7 @@ def test_walk_kernels_write_every_element_of_uninitialised_buffers(
     walk stores its rows word by word, and the deposit's planes start off
     16-byte words)."""
     moves, seg_qlen, w_end = _walk_case(cuda, S, W, "random", n=256)
-    rows = [torch.as_tensor(a, device=cuda)
-            for a in deposit_inputs(S, W, 256, seed=5)]
+    dep = _deposit_case(cuda, S, W, 255, 5, source="random")
     maxc = align.max_tape_cols(S, W, 0.65)
     real_empty = torch.empty
 
@@ -770,13 +788,13 @@ def test_walk_kernels_write_every_element_of_uninitialised_buffers(
     monkeypatch.setattr(torch, "empty", ones_empty)
     got = (walk_kernel.traceback_rows_cuda(moves, seg_qlen, w_end, W),
            walk_kernel.traceback_ops_cuda(moves, seg_qlen, w_end, W, maxc),
-           walk_kernel.deposit_scan_cuda(*rows, W))
+           _flat(walk_kernel.deposit_rows_cuda(*dep, S=S, W=W)))
     monkeypatch.undo()
     torch.cuda.synchronize()
     ops_plain = align.traceback_ops_plain(moves, seg_qlen, w_end, W, maxc)
     want = (align.traceback_rows_plain(moves, seg_qlen, w_end, W),
             (ops_plain[0], ops_plain[3]),
-            consensus_banded.deposit_scan_plain(*rows, W))
+            _flat(consensus_banded.plane_inputs_plain(*dep, S, W)))
     for g_set, w_set in zip(got, want):
         for g, w in zip(g_set, w_set):
             assert torch.equal(g, w)
@@ -785,23 +803,23 @@ def test_walk_kernels_write_every_element_of_uninitialised_buffers(
 def test_walk_kernels_reject_what_they_do_not_take(cuda):
     S, W = 128, 64
     moves, seg_qlen, w_end = _walk_case(cuda, S, W, "random", n=64)
-    rows = [torch.as_tensor(a, device=cuda)
-            for a in deposit_inputs(S, W, 64, seed=3)]
+    rr, lr, q, qseed = _deposit_case(cuda, S, W, 65, 3)
     rows_fn = walk_kernel.traceback_rows_cuda
     cols_fn = walk_kernel.traceback_ops_cuda
-    dep_fn = walk_kernel.deposit_scan_cuda
+    dep_fn = lambda rr, lr, q, qseed, W=W: walk_kernel.deposit_rows_cuda(
+        rr, lr, q, qseed, S=S, W=W)
     with pytest.raises(TypeError):                  # dtype
         rows_fn(moves, seg_qlen.long(), w_end, W)
     with pytest.raises(TypeError):
         cols_fn(moves.to(torch.int16), seg_qlen, w_end, W, 192)
     with pytest.raises(TypeError):
-        dep_fn(*rows[:6], rows[6].to(torch.int32), W)
+        dep_fn(rr, (*lr[:6], lr[6].to(torch.int32)), q, qseed)
     with pytest.raises(ValueError):                 # shape
         rows_fn(moves, seg_qlen, w_end, 2 * W)
     with pytest.raises(ValueError):
         cols_fn(moves, seg_qlen[:-1], w_end, W, 192)
     with pytest.raises(ValueError):
-        dep_fn(rows[0][:, :-1], *rows[1:], W)
+        dep_fn((rr[0][:, :, :-1], *rr[1:]), lr, q, qseed)
     W_off = dp_kernel.BAND_MAX + 16
     with pytest.raises(ValueError):                 # a W the kernels refuse
         rows_fn(moves.new_zeros(64, S, W_off // 16), seg_qlen, w_end, W_off)
@@ -813,7 +831,7 @@ def test_walk_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         cols_fn(moves.cpu(), seg_qlen, w_end, W, 192)
     with pytest.raises(ValueError):
-        dep_fn(*rows[:5], rows[5].cpu(), rows[6], W)
+        dep_fn(rr, lr, q, qseed.cpu())
     with pytest.raises(ValueError):                 # not contiguous
         rows_fn(moves.transpose(0, 1).contiguous().transpose(0, 1),
                 seg_qlen, w_end, W)
@@ -821,7 +839,10 @@ def test_walk_kernels_reject_what_they_do_not_take(cuda):
         cols_fn(moves, seg_qlen, torch.stack([w_end, w_end], 1)[:, 0], W,
                 192)
     with pytest.raises(ValueError):
-        dep_fn(rows[0], rows[1].t().contiguous().t(), *rows[2:], W)
+        dep_fn((rr[0], rr[1].transpose(0, 1).contiguous().transpose(0, 1),
+                *rr[2:]), lr, q, qseed)
+    with pytest.raises(ValueError):                 # an odd W
+        dep_fn(rr, lr, q, qseed, W=W + 1)
     # moves that start off a 16-byte boundary: taken, word by word
     odd = moves.reshape(-1)[1:1 + moves.numel() - moves[0].numel()].view(
         63, S, W // 16)

@@ -1,5 +1,10 @@
-"""The tag fold's two kernels (``csrc/cns_fold.cu``) on the CPU: their NumPy
-models against the plain versions and the JAX package, exact equality.
+"""The tag fold's kernels on the CPU: their NumPy models against the plain
+versions and the JAX package, exact equality.
+
+``testing.deposit_rows_warp`` makes the deposit's row information as the
+deposit kernel (``csrc/cns_walk.cu``) does, in passes of 32 rows with
+carries, and is held against ``direction_rowinfo`` and the plain
+``plane_inputs`` on walk-shaped and random rows with edge lanes.
 
 ``testing.global_planes_tiled`` makes the global planes in the planes
 kernel's order (a tile at a time: the tile's segments listed, each output
@@ -32,6 +37,7 @@ from mecat_tpu_torch.ops import consensus_banded as port
 from mecat_tpu_torch.ops import cuda_build, walk_kernel
 from mecat_tpu_torch.pipeline import cns as port_cns
 from mecat_tpu_torch.testing import (FOLD_KEYS, PLANE_KEYS, PLANES_TILE,
+                                     deposit_rows_inputs, deposit_rows_warp,
                                      fold_inputs, fold_tags_cells,
                                      global_planes_pairwise,
                                      global_planes_tiled)
@@ -44,6 +50,9 @@ PILE_WIDTHS = [(256, 64), (512, 128), (512, 640)]
 #: (S, W, L_t) of the edge inputs; W = 1024 is a band past 512
 EDGE_WIDTHS = [(64, 32, 300), (256, 64, 1200), (512, 128, 2000),
                (128, 1024, 900)]
+#: (S, W) of the deposit's row-information model: one pass and a ragged
+#: last pass of 32 rows, the cns cell's shape, a band past 512
+ROWINFO_WIDTHS = [(64, 32), (100, 48), (512, 128), (128, 1024)]
 #: tiles of the tiled planes model: boundaries inside every window (64,
 #: 300; the edge pairs' side-band cells a column before and after one) and
 #: the kernel's own
@@ -256,6 +265,79 @@ def test_fold_model_on_shared_slots_matches_plain(S, W, L_t, T):
                              *planes, *(_tt(a) for a in args[3:]), L_t)
 
 
+@pytest.mark.parametrize("source", ["walk", "random"])
+@pytest.mark.parametrize("S,W", ROWINFO_WIDTHS)
+def test_deposit_rowinfo_model_matches_plain(S, W, source):
+    """The deposit kernel's row information, modelled (passes of 32 rows,
+    up a right lane and down a left one, run starts and ends carried
+    across passes; j_end by a reduction pass first; the wrapped and clamped
+    slice start; the side arrays as warp reductions), against
+    ``direction_rowinfo`` row for row and against the plain
+    ``plane_inputs`` on every element of the planes and side arrays.  The
+    edges of ``deposit_rows_inputs``: runs across a pass border, at row 0
+    and row S - 1, side-band runs at j == 0 and j == j_end longer than 15,
+    lanes not ok, slice starts that wrap and clamp, 13 pairs of 3 and 2
+    segments (65 lanes, not a whole number of 8-warp blocks)."""
+    B, L_s = 13, 3 * S
+    rr, lr, q, qseed = deposit_rows_inputs(S, W, B, L_s, seed=S + W,
+                                           source=source)
+    infos, got = deposit_rows_warp(rr, lr, q, qseed, S, W)
+    for left, rows, info in ((False, rr, infos[0]), (True, lr, infos[1])):
+        want = port.direction_rowinfo(_tt(rows), _tt(q), _tt(qseed), S, W,
+                                      left=left)
+        for k, w in want[0].items():
+            assert info[k].dtype == w.numpy().dtype, k
+            np.testing.assert_array_equal(info[k], w.numpy(),
+                                          err_msg=f"left={left}: {k}")
+    want = port.plane_inputs(_tt(rr), _tt(lr), _tt(q), _tt(qseed), S, W)
+    names = ("planes_r", "planes_l", "side_r", "side_l")
+    for name, w_set, g_set in zip(names, want[:4], got[:4]):
+        for k, (w, g) in enumerate(zip(w_set, g_set)):
+            assert g.dtype == w.numpy().dtype, (name, k)
+            np.testing.assert_array_equal(g, w.numpy(),
+                                          err_msg=f"{name}[{k}]")
+    np.testing.assert_array_equal(got[4], want[4].numpy(), err_msg="j_end")
+    if source == "walk":
+        # the edges happened: long runs and side-band runs on both sides,
+        # insertions deposited, lanes not ok
+        assert all(int(i["delta"].max()) > 15 for i in infos)
+        assert int(got[2][4][0, 0]) == 18 and int(got[3][4][0, 1]) == 18
+        assert int(got[3][4][0, 1]) == int(want[3][4][0, 1])
+        assert int(got[0][2].max()) > 0 and int(got[1][2].max()) > 0
+        assert not rr[6][0, 5] and not lr[6][0, 5]
+
+
+def test_deposit_argument_checks_refuse_what_the_kernel_does_not_take():
+    rr, lr, q, qseed = (_tt(a) for a in deposit_rows_inputs(
+        64, 32, 6, 200, seed=9))
+    cpu = torch.device("cpu")
+    kw = dict(S=64, W=32, device=cpu)
+    assert walk_kernel.deposit_rows_args(rr, lr, q, qseed, **kw) == (
+        6, 200, 3, 2)
+    with pytest.raises(TypeError):                       # q not uint8
+        walk_kernel.deposit_rows_args(rr, lr, q.to(torch.int32), qseed,
+                                      **kw)
+    with pytest.raises(TypeError):                       # int64 qseed
+        walk_kernel.deposit_rows_args(rr, lr, q, qseed.long(), **kw)
+    bad = (rr[0], rr[1].transpose(0, 1).contiguous().transpose(0, 1),
+           *rr[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        walk_kernel.deposit_rows_args(bad, lr, q, qseed, **kw)
+    with pytest.raises(ValueError):                      # the wrong S
+        walk_kernel.deposit_rows_args(rr, lr, q, qseed, S=63, W=32,
+                                      device=cpu)
+    with pytest.raises(ValueError):                      # an odd W
+        walk_kernel.deposit_rows_args(rr, lr, q, qseed, S=64, W=33,
+                                      device=cpu)
+    with pytest.raises(TypeError):                       # ok not bool
+        walk_kernel.deposit_rows_args(rr, (*lr[:6], lr[6].to(torch.int32)),
+                                      q, qseed, **kw)
+    with pytest.raises(ValueError):                      # left of 7 pairs
+        walk_kernel.deposit_rows_args(
+            rr, tuple(torch.cat([a, a[:, :1]], 1) for a in lr), q, qseed,
+            **kw)
+
+
 def test_fold_inputs_reach_every_edge():
     """The edge pairs of ``fold_inputs`` do what its docstring says: the
     clamped windows, the non-ok segment, the boundary chains and their
@@ -322,15 +404,22 @@ def _small_chunk():
 
 def test_cpu_chunk_never_loads_the_fold_library(monkeypatch):
     """A CPU chunk runs the plain versions: no build, no load, no launch;
-    and the tensors the chunk hands to the planes and the fold pass the
-    kernels' own argument checks (dtype, shape, contiguity, alignment)."""
+    and the tensors the chunk hands to the deposit, the planes and the fold
+    pass the kernels' own argument checks (dtype, shape, contiguity,
+    alignment)."""
     def no_build(name, verbose=False):
         raise AssertionError(f"the CPU route built {name}")
 
     monkeypatch.setattr(cuda_build, "build", no_build)
     checked = []
-    planes_plain, fold_plain = (port.banded_global_planes_plain,
-                                port.fold_tags_plain)
+    deposit_plain, planes_plain, fold_plain = (
+        port.plane_inputs_plain, port.banded_global_planes_plain,
+        port.fold_tags_plain)
+
+    def deposit(*a):
+        checked.append(walk_kernel.deposit_rows_args(
+            *a[:4], S=a[4], W=a[5], device=a[2].device))
+        return deposit_plain(*a)
 
     def planes(*a, **kw):
         dense = [tuple(t.contiguous() for t in x) if isinstance(x, tuple)
@@ -344,6 +433,7 @@ def test_cpu_chunk_never_loads_the_fold_library(monkeypatch):
         checked.append(walk_kernel.fold_args(*dense, device=a[0].device))
         return fold_plain(*a)
 
+    monkeypatch.setattr(port, "plane_inputs_plain", deposit)
     monkeypatch.setattr(port, "banded_global_planes_plain", planes)
     monkeypatch.setattr(port, "fold_tags_plain", fold)
     before = walk_kernel.launches()
@@ -351,10 +441,12 @@ def test_cpu_chunk_never_loads_the_fold_library(monkeypatch):
     counts, cov, has = port_cns.make_cns_chunk(**kw)(*args)
     assert walk_kernel.launches() == before
     assert "mecat_fold" not in walk_kernel._libs
-    assert len(checked) == 2 and int(counts.sum()) > 1000
-    B, G_r, G_l = checked[0][:3]
+    assert len(checked) == 3 and int(counts.sum()) > 1000
+    assert checked[0][:2] == (12, kw["L_s"])
+    assert checked[0][2:] == checked[1][1:3]
+    B, G_r, G_l = checked[1][:3]
     assert B == 12 and 1 <= G_r <= 4 and 1 <= G_l <= 4
-    assert checked[1][:2] == (12, 3)
+    assert checked[2][:2] == (12, 3)
 
 
 def test_fold_wrappers_refuse_cpu_tensors_before_any_build(monkeypatch):

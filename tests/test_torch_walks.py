@@ -26,9 +26,9 @@ from mecat_tpu.ops import align as ref_align
 from mecat_tpu.ops import consensus_banded as ref_cb
 from mecat_tpu_torch.ops import align, walk_kernel
 from mecat_tpu_torch.ops import consensus_banded as cb
-from mecat_tpu_torch.testing import (deposit_inputs, deposit_scan_warp,
-                                     walk_cols_rows, walk_inputs,
-                                     walk_rows_words)
+from mecat_tpu_torch.testing import (deposit_inputs, deposit_rows_inputs,
+                                     deposit_scan_warp, walk_cols_rows,
+                                     walk_inputs, walk_rows_words)
 
 SHAPES = [(24, 32), (40, 64), (32, 128), (24, 384), (16, 512), (24, 528),
           (16, 1024), (16, 2048)]
@@ -170,6 +170,18 @@ def test_deposit_kernel_model_matches_plain(S, W, rows_from):
         assert cells[:, :32].sum(axis=1).max() > 32
 
 
+def _rows():
+    """The deposit's inputs (plane_inputs' arguments but S and W) as CPU
+    tensors."""
+    rr, lr, q, qseed = deposit_rows_inputs(24, 64, 20, 60, seed=1)
+    return tuple(_t(*rr)), tuple(_t(*lr)), *_t(q, qseed)
+
+
+def _flat(out):
+    """plane_inputs' nested result as one list of tensors."""
+    return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+
+
 SCANS = {
     "traceback_rows": lambda a: align.traceback_rows(
         *_t(*walk_inputs(24, 64, 20, seed=1)), 64),
@@ -177,6 +189,7 @@ SCANS = {
         *_t(*walk_inputs(24, 64, 20, seed=1)), 64, max_cols=64),
     "_deposit_scan": lambda a: cb._deposit_scan(
         *_t(*deposit_inputs(24, 64, 20, seed=1)), 64),
+    "plane_inputs": lambda a: _flat(cb.plane_inputs(*_rows(), 24, 64)),
 }
 PLAIN = {
     "traceback_rows": lambda a: align.traceback_rows_plain(
@@ -185,6 +198,7 @@ PLAIN = {
         *_t(*walk_inputs(24, 64, 20, seed=1)), 64, max_cols=64),
     "_deposit_scan": lambda a: cb.deposit_scan_plain(
         *_t(*deposit_inputs(24, 64, 20, seed=1)), 64),
+    "plane_inputs": lambda a: _flat(cb.plane_inputs_plain(*_rows(), 24, 64)),
 }
 
 
@@ -195,7 +209,7 @@ def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("a walk kernel was reached from CPU tensors")
 
-    for fn in ("_load", "traceback_rows_cuda", "deposit_scan_cuda",
+    for fn in ("_load", "traceback_rows_cuda", "deposit_rows_cuda",
                "traceback_ops_cuda"):
         monkeypatch.setattr(walk_kernel, fn, refuse)
     before = walk_kernel.launches()
@@ -214,5 +228,6 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
         elif name == "ops":
             walk_kernel.traceback_ops_cuda(moves, seg_qlen, w_end, 64, 64)
         else:
-            walk_kernel.deposit_scan_cuda(
-                *_t(*deposit_inputs(24, 64, 20, seed=1)), 64)
+            rr, lr, q, qseed = deposit_rows_inputs(24, 64, 20, 60, seed=1)
+            walk_kernel.deposit_rows_cuda(
+                tuple(_t(*rr)), tuple(_t(*lr)), *_t(q, qseed), S=24, W=64)
